@@ -1,0 +1,49 @@
+"""a-Tucker core on PyTorch: input-adaptive, matricization-free Tucker decomposition.
+
+Public API (this slice of the port — fixed-rank plans on one device):
+  TuckerConfig / plan / TuckerPlan / decompose — plan/execute front door
+      (static solver schedules, eager sweeps on the plan's device)
+  TuckerTensor — decomposition result (reconstruct, rel_error, ratio)
+  Selector / default_selector — adaptive solver selector, resolved per
+      (platform, backend); platform is "cuda" or "cpu"
+  CostModel — Eq. 4/5 constants (textbook default, hardware-calibratable)
+  tensor_ops — matricization-free TTM/TTT/Gram (+ explicit baselines)
+  OpsBackend / register_backend / get_backend / resolve_backend /
+      backend_names — pluggable ops-backend registry (matfree | explicit |
+      hopper | custom) behind TuckerConfig.impl
+"""
+
+# NOTE: the attribute ``repro_torch.core.plan`` is the api.plan FUNCTION (the
+# front-door entry point), which shadows the ``plan`` submodule on the
+# package.  ``from repro_torch.core.plan import ...`` still resolves the
+# module (sys.modules), and ``plan_lib`` aliases it for attribute access.
+from . import backend, cost_model, plan as plan_lib, tensor_ops
+from .api import TuckerConfig, TuckerPlan, decompose, plan, resolve_device
+from .backend import (
+    OpsBackend,
+    backend_names,
+    get_backend,
+    register_backend,
+    resolve_backend,
+)
+from .cost_model import DEFAULT_COST_MODEL, CostModel
+from .errors import (CancelledError, DeadlineError, InputError,
+                     NumericalError, ResourceError, TuckerError,
+                     check_finite, classify_exception, coerce_exception)
+from .plan import ModeStep, resolve_schedule
+from .selector import Selector, default_selector, extract_features
+from .solvers import ALS, EIG, SVD, als_solve, eig_solve, svd_solve
+from .sthosvd import SthosvdResult, TuckerTensor
+
+__all__ = [
+    "ALS", "DEFAULT_COST_MODEL", "EIG", "SVD",
+    "CancelledError", "CostModel", "DeadlineError", "InputError",
+    "ModeStep", "NumericalError", "OpsBackend",
+    "ResourceError", "Selector", "SthosvdResult",
+    "TuckerConfig", "TuckerError", "TuckerPlan", "TuckerTensor",
+    "als_solve", "backend", "backend_names", "check_finite",
+    "classify_exception", "coerce_exception", "cost_model", "decompose",
+    "default_selector", "eig_solve", "extract_features", "get_backend",
+    "plan", "plan_lib", "register_backend", "resolve_backend",
+    "resolve_device", "resolve_schedule", "svd_solve", "tensor_ops",
+]

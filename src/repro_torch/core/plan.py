@@ -1,0 +1,454 @@
+"""Static solver schedules for the plan/execute Tucker front door.
+
+The paper's flexible algorithms pick a solver per mode at runtime; here the
+same selection happens ONCE, ahead of time, against the (statically known)
+shapes each mode solve will see.  The result is a tuple of :class:`ModeStep`
+records — mode, solver, the (I_n, R_n, J_n) triple the selector saw, plus
+modeled FLOPs (cost_model Eq. 4/5) and peak working-set bytes — which is the
+single dispatch point for all three variants (st-HOSVD shrinks the tensor
+between steps, t-HOSVD solves every mode on the original tensor, HOOI
+refines from an st-HOSVD init).
+
+``run_schedule`` is the per-step runner with real wall-clock per step; the
+``sweep_*`` functions run the same schedules without timing.  PyTorch runs
+eagerly, so both are plain Python loops over the steps.
+
+This slice of the port covers single-device, sequential schedules: the
+reference's sharded and mode-parallel branches, the ``mode_order="opt"``
+search and ``memory_cap_bytes`` arrive with their own slices.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+from typing import Callable, Sequence
+
+import torch
+
+from .backend import backend_ops, get_backend
+from .cost_model import als_flops, eig_flops, rand_flops, svd_flops
+from .errors import NumericalError
+from .solvers import ALS, DEFAULT_ALS_ITERS, SOLVERS
+
+VARIANTS = ("sthosvd", "thosvd", "hooi")
+
+#: where each reference feature that this slice leaves out will land
+_PLANNING_SLICE = "the schedule-search slice (core/schedule_opt.py)"
+
+
+@dataclass(frozen=True)
+class ModeStep:
+    """One frozen mode solve: which solver runs on which (sub)problem,
+    through which ops backend.
+
+    The JSON schema is the reference's unchanged: ``shard_mode``/``n_shards``
+    (sharded schedules), ``group`` (mode-parallel groups) and the rank-policy
+    fields ``rank_grid``/``tau`` (rank-adaptive plans) are carried and
+    serialized as they are, though this slice only builds sequential,
+    single-device, fixed-rank steps (``None``/``1``/``None``/``0.0``).
+    """
+    mode: int
+    method: str          # "eig" | "als" | "svd"
+    i_n: int             # mode dimension at solve time
+    r_n: int             # truncation rank
+    j_n: int             # product of the remaining dims at solve time
+    flops: float         # modeled solver cost (cost_model Eq. 4/5)
+    peak_bytes: int      # modeled peak working set
+    backend: str = "matfree"   # resolved ops backend (never "auto")
+    shard_mode: int | None = None  # mode sharded over the mesh (None = replicated)
+    n_shards: int = 1    # devices this step's tensor is split across
+    predicted_s: float = 0.0   # predicted wall-clock (0.0 = no calibrated
+                               # cost model was available at plan time)
+    group: int | None = None   # mode-parallel group id (None = sequential)
+    rank_grid: tuple[int, ...] | None = None  # adaptive candidate ranks
+    tau: float = 0.0     # squared error budget / ||X||² (adaptive steps only)
+
+    def to_dict(self) -> dict:
+        d = {"mode": self.mode, "method": self.method, "i_n": self.i_n,
+             "r_n": self.r_n, "j_n": self.j_n, "flops": self.flops,
+             "peak_bytes": self.peak_bytes, "backend": self.backend,
+             "shard_mode": self.shard_mode, "n_shards": self.n_shards,
+             "predicted_s": self.predicted_s, "group": self.group}
+        # the rank policy serializes only when present, so fixed-rank plan
+        # JSON stays byte-identical to the reference's
+        if self.rank_grid is not None:
+            d["rank_grid"] = list(self.rank_grid)
+            d["tau"] = self.tau
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ModeStep":
+        shard_mode = d.get("shard_mode")
+        group = d.get("group")
+        rank_grid = d.get("rank_grid")
+        return cls(mode=int(d["mode"]), method=str(d["method"]),
+                   i_n=int(d["i_n"]), r_n=int(d["r_n"]), j_n=int(d["j_n"]),
+                   flops=float(d["flops"]), peak_bytes=int(d["peak_bytes"]),
+                   backend=str(d.get("backend", "matfree")),
+                   shard_mode=None if shard_mode is None else int(shard_mode),
+                   n_shards=int(d.get("n_shards", 1)),
+                   predicted_s=float(d.get("predicted_s", 0.0)),
+                   group=None if group is None else int(group),
+                   rank_grid=None if rank_grid is None
+                   else tuple(int(r) for r in rank_grid),
+                   tau=float(d.get("tau", 0.0)))
+
+
+class TimedSelector:
+    """Wraps a selector callable, accumulating wall-clock spent selecting."""
+
+    def __init__(self, selector: Callable[..., str]):
+        self._selector = selector
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __call__(self, *, i_n: int, r_n: int, j_n: int) -> str:
+        t0 = time.perf_counter()
+        method = self._selector(i_n=i_n, r_n=r_n, j_n=j_n)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return method
+
+    @property
+    def cost_model(self):
+        """The wrapped selector's (possibly calibrated) cost model, if any."""
+        return getattr(self._selector, "cost_model", None)
+
+
+# ---------------------------------------------------------------------------
+# Schedule resolution (selection moved out of the hot loop)
+# ---------------------------------------------------------------------------
+
+def resolve_mode_order(shape: Sequence[int], ranks: Sequence[int],
+                       mode_order) -> list[int]:
+    n = len(shape)
+    if mode_order is None:
+        return list(range(n))
+    if mode_order == "opt":
+        raise NotImplementedError(
+            "mode_order='opt' (the exact schedule DP) is not part of the "
+            f"PyTorch port yet; it lands with {_PLANNING_SLICE}")
+    if mode_order == "shrink":
+        return sorted(range(n), key=lambda m: ranks[m] / shape[m])
+    order = [int(m) for m in mode_order]
+    if sorted(order) != list(range(n)):
+        raise ValueError(f"mode_order {order} must be a permutation of 0..{n - 1}")
+    return order
+
+
+def validate_ranks(shape: Sequence[int], ranks: Sequence[int]) -> tuple[int, ...]:
+    ranks = tuple(int(r) for r in ranks)
+    if len(ranks) != len(shape):
+        raise ValueError(f"ranks {ranks} do not match tensor order {len(shape)}")
+    for m, (i, r) in enumerate(zip(shape, ranks)):
+        if not (1 <= r <= i):
+            raise ValueError(f"rank {r} invalid for mode {m} (dim {i})")
+    return ranks
+
+
+def _resolve_methods(methods, n_modes: int):
+    """Normalize ``methods`` to either None (= use selector) or a per-mode list."""
+    if methods == "auto":
+        return None
+    if isinstance(methods, str):
+        methods = [methods] * n_modes
+    else:
+        methods = list(methods)
+        if len(methods) != n_modes:
+            raise ValueError(f"need {n_modes} per-mode methods, got {len(methods)}")
+    for m in methods:
+        _check_solver(m)
+    return methods
+
+
+def _check_solver(m: str) -> None:
+    if m == "rand":
+        raise NotImplementedError(
+            "the randomized 'rand' solver is not part of the PyTorch port "
+            "yet; it lands with the rank-adaptive slice")
+    if m not in SOLVERS:
+        raise ValueError(f"unknown solver {m!r}")
+
+
+def _step_cost(method: str, i_n: int, r_n: int, j_n: int,
+               als_iters: int) -> float:
+    if method == "eig":
+        return eig_flops(i_n, r_n, j_n)
+    if method == "als":
+        return als_flops(i_n, r_n, j_n, als_iters)
+    if method == "rand":
+        return rand_flops(i_n, r_n, j_n)
+    return svd_flops(i_n, r_n, j_n)
+
+
+def _solver_scratch_bytes(method: str, i_n: int, r_n: int, j_n: int,
+                          itemsize: int) -> int:
+    """Modeled solver scratch only (no I/O tensors): EIG's I_n×I_n Gram,
+    ALS's L/R iterates (+ fp32 input cast for sub-fp32 dtypes), SVD's
+    explicit unfolding plus its left singular block.  Scratch lives in the
+    *accumulation* dtype."""
+    accum = max(itemsize, 4)   # bf16/fp16 accumulate in fp32; fp64 stays 8
+    if method == "eig":
+        return i_n * i_n * accum
+    if method == "als":
+        scratch = (2 * i_n * r_n + 2 * r_n * r_n) * accum \
+            + 2 * r_n * j_n * accum
+        if accum != itemsize:
+            scratch += i_n * j_n * accum   # yc: fp32 input cast
+        return scratch
+    # svd materializes the unfolding and U
+    return (i_n * j_n + i_n * min(i_n, j_n)) * accum
+
+
+def _step_peak_bytes(method: str, i_n: int, r_n: int, j_n: int,
+                     itemsize: int) -> int:
+    """Modeled peak working set: input + output tensors plus solver scratch
+    (see :func:`_solver_scratch_bytes`).  I/O tensors live in the compute
+    dtype (``itemsize``)."""
+    io = (i_n * j_n + r_n * j_n) * itemsize
+    return int(io + _solver_scratch_bytes(method, i_n, r_n, j_n, itemsize))
+
+
+def _make_step(mode: int, method, selector, i_n: int, r_n: int, j_n: int,
+               als_iters: int, itemsize: int, backend: str,
+               cost_model=None) -> ModeStep:
+    m = selector(i_n=i_n, r_n=r_n, j_n=j_n) if method is None else method
+    _check_solver(m)
+    if not get_backend(backend).supports_solver(m):
+        raise ValueError(
+            f"backend {backend!r} does not support solver {m!r} "
+            f"(capability metadata lists {get_backend(backend).solvers}); "
+            "pin a supported method or pick another impl")
+    scale = get_backend(backend).cost_scale
+    # a calibrated cost model predicts wall-clock per step; its scales
+    # already absorb the backend it was fitted on, so the registry
+    # cost_scale hint is NOT applied on top
+    predicted_s = cost_model.predict_seconds(m, i_n, r_n, j_n, als_iters) \
+        if cost_model is not None and cost_model.calibrated else 0.0
+    return ModeStep(mode=mode, method=m, i_n=i_n, r_n=r_n, j_n=j_n,
+                    flops=scale * _step_cost(m, i_n, r_n, j_n, als_iters),
+                    peak_bytes=_step_peak_bytes(m, i_n, r_n, j_n, itemsize),
+                    backend=backend, predicted_s=predicted_s)
+
+
+def resolve_schedule(
+    shape: Sequence[int],
+    ranks: Sequence[int],
+    *,
+    variant: str = "sthosvd",
+    methods="auto",
+    mode_order=None,
+    selector: Callable[..., str] | None = None,
+    als_iters: int = DEFAULT_ALS_ITERS,
+    hooi_iters: int = 3,
+    include_init: bool = True,
+    itemsize: int = 4,
+    backend: str = "matfree",
+    platform: str = "cuda",
+    cost_model=None,
+    memory_cap_bytes: int | None = None,
+    mode_parallel: str | int = "off",
+) -> tuple[ModeStep, ...]:
+    """Resolve the full per-mode solver schedule ahead of execution.
+
+    Every (I_n, R_n, J_n) triple a runtime selector would have seen is
+    derived from ``shape``/``ranks`` alone, so selection runs zero times at
+    execute time.  For HOOI, ``include_init=False`` drops the st-HOSVD init
+    sweep (caller supplies its own initial factors).
+
+    ``itemsize`` is the byte width of the *compute* dtype and ``backend``
+    the resolved ops-backend name stamped on every step; ``platform``
+    (``"cuda"`` or ``"cpu"``) picks the default selector when ``methods``
+    is ``"auto"`` and no ``selector`` is given.
+
+    ``cost_model`` annotates each step with its predicted wall-clock
+    (``ModeStep.predicted_s``) when CALIBRATED; the textbook model carries
+    no seconds unit, so uncalibrated schedules record 0.0.  When a selector
+    is auto-resolved here, its embedded cost model is used.
+
+    ``mode_parallel`` accepts ``"off"``, ``"auto"`` and ``1`` — what the
+    reference does on a single device (``"auto"`` and ``1`` stay
+    sequential).  ``mode_order="opt"`` and ``memory_cap_bytes`` raise
+    :class:`NotImplementedError` until the schedule-search slice.
+    """
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
+    get_backend(backend)   # concrete, registered backend only (never "auto")
+    if isinstance(mode_parallel, bool) or mode_parallel not in ("off", "auto", 1):
+        raise ValueError(
+            f"mode_parallel {mode_parallel!r}: single-device schedules take "
+            "'off', 'auto' or 1 (mode-parallel groups need the sharded "
+            "slice)")
+    if mode_parallel != "off" and variant != "sthosvd":
+        raise ValueError("mode_parallel applies to the sequential st-HOSVD "
+                         f"sweep only; leave it 'off' for variant {variant!r}")
+    if memory_cap_bytes is not None:
+        raise NotImplementedError(
+            "memory_cap_bytes is not part of the PyTorch port yet; it lands "
+            f"with {_PLANNING_SLICE}")
+    shape = tuple(int(s) for s in shape)
+    ranks = validate_ranks(shape, ranks)
+    n = len(shape)
+    fixed = _resolve_methods(methods, n)
+    if fixed is None and selector is None:
+        from .selector import default_selector
+        selector = default_selector(platform, backend=backend)
+    if cost_model is None:
+        # a trained selector carries the calibration fitted from the same
+        # records; TimedSelector exposes the wrapped selector's cost_model
+        cost_model = getattr(selector, "cost_model", None)
+
+    def method_for(mode):
+        return None if fixed is None else fixed[mode]
+
+    steps: list[ModeStep] = []
+    if variant == "thosvd":
+        if mode_order is not None:
+            raise ValueError("mode_order is meaningless for thosvd (factors "
+                             "are computed independently from the original "
+                             "tensor); leave it None")
+        size = math.prod(shape)
+        for mode in range(n):
+            i_n, r_n = shape[mode], ranks[mode]
+            steps.append(_make_step(mode, method_for(mode), selector,
+                                    i_n, r_n, size // i_n, als_iters,
+                                    itemsize, backend, cost_model=cost_model))
+        return tuple(steps)
+
+    # st-HOSVD sweep (also HOOI's init): the tensor shrinks between steps
+    if variant == "sthosvd" or include_init:
+        cur = list(shape)
+        for mode in resolve_mode_order(shape, ranks, mode_order):
+            i_n, r_n = cur[mode], ranks[mode]
+            j_n = math.prod(cur) // i_n
+            steps.append(_make_step(mode, method_for(mode), selector,
+                                    i_n, r_n, j_n, als_iters, itemsize,
+                                    backend, cost_model=cost_model))
+            cur[mode] = r_n
+    if variant == "sthosvd":
+        return tuple(steps)
+
+    # HOOI refinement sweeps: mode n sees x projected on all OTHER factors,
+    # i.e. shape (R_0 .. I_n .. R_{N-1}) — static, so resolvable up front.
+    rank_prod = math.prod(ranks)
+    for _ in range(hooi_iters):
+        for mode in range(n):
+            i_n, r_n = shape[mode], ranks[mode]
+            j_n = rank_prod // r_n
+            steps.append(_make_step(mode, method_for(mode), selector,
+                                    i_n, r_n, j_n, als_iters, itemsize,
+                                    backend, cost_model=cost_model))
+    return tuple(steps)
+
+
+# ---------------------------------------------------------------------------
+# Single solver dispatch + runners
+# ---------------------------------------------------------------------------
+
+def solve_step(y: torch.Tensor, step: ModeStep, *,
+               als_iters: int = DEFAULT_ALS_ITERS, impl: str | None = None):
+    """THE solver dispatch point: every variant's mode solve funnels here.
+
+    ``impl`` overrides the step's recorded ops backend; by default each step
+    runs on the backend frozen into it at schedule-resolution time.
+    """
+    impl = step.backend if impl is None else impl
+    if step.method == ALS:
+        return SOLVERS[ALS](y, step.mode, step.r_n, num_iters=als_iters, impl=impl)
+    _check_solver(step.method)
+    return SOLVERS[step.method](y, step.mode, step.r_n, impl=impl)
+
+
+def _sync(x: torch.Tensor) -> None:
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+
+
+def run_schedule(x: torch.Tensor, steps: Sequence[ModeStep], *,
+                 sequential: bool, als_iters: int = DEFAULT_ALS_ITERS,
+                 impl: str | None = None, block_until_ready: bool = False):
+    """Per-step runner with wall-clock per step.
+
+    ``sequential=True`` threads the shrinking tensor through the steps
+    (st-HOSVD); ``sequential=False`` solves every step against ``x`` itself
+    (t-HOSVD factors, HOOI inner solves on pre-projected tensors).
+    ``block_until_ready=True`` synchronizes the device after every step, so
+    the seconds are real device time, and checks each factor is finite.
+
+    Returns ``(y_or_none, factors, seconds)`` where ``factors[mode]`` is the
+    LAST factor computed for that mode and ``seconds[k]`` is step k's wall
+    time.
+    """
+    y = x
+    factors: dict[int, torch.Tensor] = {}
+    seconds: list[float] = []
+    for step in steps:
+        t0 = time.perf_counter()
+        res = solve_step(y if sequential else x, step, als_iters=als_iters,
+                         impl=impl)
+        if block_until_ready:
+            _sync(res.y_new)
+            dt = time.perf_counter() - t0
+            # a breakdown that slipped past the in-solver guards (e.g. a
+            # non-finite Gram) shows up here as NaN factors — surface it
+            # as a classified error naming the step, not as silent poison
+            if not bool(torch.isfinite(res.u).all()):
+                raise NumericalError(
+                    f"{step.method} solve on mode {step.mode} produced a "
+                    "non-finite factor (numerical breakdown)")
+        else:
+            dt = time.perf_counter() - t0
+        seconds.append(dt)
+        factors[step.mode] = res.u
+        if sequential:
+            y = res.y_new
+    return (y if sequential else None), factors, seconds
+
+
+# ---------------------------------------------------------------------------
+# Whole-sweep functions (what TuckerPlan.execute runs)
+# ---------------------------------------------------------------------------
+
+def project(x: torch.Tensor, factors, impl: str, skip: int | None = None):
+    """x ×_m U_mᵀ over every mode m (but ``skip``), through ``impl``'s TTM —
+    the core of t-HOSVD/HOOI, and HOOI's projected inner problems."""
+    ttm = backend_ops(impl)[0]
+    y = x
+    for mode, u in enumerate(factors):
+        if mode != skip:
+            y = ttm(y, u.T, mode)
+    return y
+
+
+def sweep_sthosvd(x, steps: Sequence[ModeStep], *, als_iters: int,
+                  impl: str | None = None):
+    y = x
+    factors: dict[int, torch.Tensor] = {}
+    for step in steps:
+        res = solve_step(y, step, als_iters=als_iters, impl=impl)
+        factors[step.mode] = res.u
+        y = res.y_new
+    return y, [factors[m] for m in range(x.ndim)]
+
+
+def sweep_thosvd(x, steps: Sequence[ModeStep], *, als_iters: int,
+                 impl: str | None = None):
+    factors = [solve_step(x, step, als_iters=als_iters, impl=impl).u
+               for step in steps]
+    return project(x, factors, impl or steps[0].backend), factors
+
+
+def sweep_hooi(x, steps: Sequence[ModeStep], *, als_iters: int, n_init: int,
+               impl: str | None = None):
+    """HOOI with its st-HOSVD init inlined: ``steps[:n_init]`` is the init
+    sweep (sequential shrink), the rest are refinement solves on x projected
+    over every factor but the step's mode."""
+    _, factors = sweep_sthosvd(x, steps[:n_init], als_iters=als_iters,
+                               impl=impl)
+    for step in steps[n_init:]:
+        y = project(x, factors, impl or step.backend, skip=step.mode)
+        factors[step.mode] = solve_step(y, step, als_iters=als_iters,
+                                        impl=impl).u
+    return project(x, factors, impl or steps[0].backend), factors

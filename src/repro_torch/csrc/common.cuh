@@ -1,0 +1,23 @@
+// Shared helpers of the a-Tucker Hopper kernels (one shared library per
+// source; every library gets its own copy of these).
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace atucker {
+
+// dtype codes passed from the Python wrappers
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+}  // namespace atucker
+
+extern "C" const char* atucker_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

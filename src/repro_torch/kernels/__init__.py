@@ -1,0 +1,40 @@
+"""Hand-written Hopper (sm_90a) kernels for a-Tucker's matricization-free hot spots.
+
+Kernels (CUDA C++ in ``csrc/``, built by ``_build`` and bound through
+ctypes; each wrapper runs its plain version from ``ref.py`` on CPU tensors):
+  matmul.matmul        — boundary-mode TTM GEMM       (csrc/matmul.cu)
+  ttm.ttm_interior     — interior-mode TTM             (csrc/ttm.cu)
+  ttt.ttt3             — TTT / Gram contraction        (csrc/ttt.cu)
+
+ops.py carries the mode-n dispatch behind the ``hopper`` ops backend.
+"""
+
+import importlib
+
+from . import ops, ref
+from .matmul import matmul
+from .ttm import ttm_interior
+from .ttt import ttt3
+
+#: kernel name -> wrapper module holding its ``LAUNCHES`` counter
+KERNEL_MODULES = {"ttt": "ttt", "matmul": "matmul", "ttm_interior": "ttm"}
+
+
+def _module(name: str):
+    # the package attributes ``matmul``/``ttt3``… are the functions, so go
+    # through the import system for the modules themselves
+    return importlib.import_module(f"{__name__}.{KERNEL_MODULES[name]}")
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the last :func:`reset_launch_counts`."""
+    return {k: _module(k).LAUNCHES for k in KERNEL_MODULES}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNEL_MODULES:
+        _module(k).LAUNCHES = 0
+
+
+__all__ = ["KERNEL_MODULES", "launch_counts", "matmul", "ops", "ref",
+           "reset_launch_counts", "ttm_interior", "ttt3"]
