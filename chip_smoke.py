@@ -11,9 +11,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
 3. kernels  hold every kernel against its plain PyTorch version on the card
             (``max|kernel - plain| <= 1e-4 * max|plain|``): first on the
             non-tiling shapes of the reference's kernel tests in fp32 and
-            bf16, then at the main path's full-size shapes, where the kernel,
-            its plain version and one PyTorch library call are timed (CUDA
-            events, median of warm runs) beside the roofline bound.
+            bf16, then on one operand of more than 2**31 elements (every
+            kernel path), then at the main path's full-size shapes, where
+            the kernel, its plain version and one PyTorch library call are
+            timed (CUDA events, median of warm runs) beside the roofline
+            bound.
 4. main     ``plan -> execute`` with ``impl="auto"`` on the paper's Table III
             Boats (320, 240, 7000) and HSI (1021, 1340, 33, 8) tensors at full
             size: the plan must resolve to the ``hopper`` backend, every
@@ -185,6 +187,40 @@ def phase_kernel_shapes(torch):
          max_abs_err=worst, tol_rel=TOL, ok=True)
 
 
+def phase_kernels_large(torch):
+    """Every kernel path on an operand of more than 2**31 elements (9 GB in
+    fp32): the kernels index memory in 64 bits, only extents are ints."""
+    from repro_torch.kernels import matmul, ref, ttm_interior, ttt3
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = rnd(2048, 1100, 1000)
+    require(x.numel() > 2 ** 31, "the large operand must exceed 2**31 elements")
+    xc = x.view(2048 * 1100, 1000, 1)          # the last-mode (B = 1) view
+    u0, u1, u2 = rnd(10, 2048), rnd(10, 1100), rnd(1000, 10)
+    y, yc = rnd(2048, 10, 1000), rnd(2048 * 1100, 10, 1)
+    cases = {
+        "ttt": (lambda: ttt3(x, y), lambda: ref.ttt_ref(x, y)),
+        "ttt_cols": (lambda: ttt3(xc, yc), lambda: ref.ttt_ref(xc, yc)),
+        "matmul_first": (lambda: matmul(u0, x.view(2048, -1)),
+                         lambda: ref.matmul_ref(u0, x.view(2048, -1))),
+        "matmul_last": (lambda: matmul(x.view(-1, 1000), u2),
+                        lambda: ref.matmul_ref(x.view(-1, 1000), u2)),
+        "ttm_interior": (lambda: ttm_interior(u1, x),
+                         lambda: ref.ttm_interior_ref(u1, x)),
+    }
+    errs = {}
+    for name, (kernel, plain) in cases.items():
+        errs[name] = close(kernel(), plain())
+        torch.cuda.empty_cache()
+    del x, xc, y, yc
+    torch.cuda.empty_cache()
+    emit("kernels_large", elements=2048 * 1100 * 1000, max_abs_err=errs,
+         tol_rel=TOL, ok=True)
+
+
 def phase_kernels_full(torch, peaks):
     """Each kernel at the main path's shapes: correctness, times, bound."""
     from repro_torch.kernels import matmul, ref, ttm_interior, ttt3
@@ -227,12 +263,14 @@ def phase_kernels_full(torch, peaks):
             4 * (a.numel() + b.numel() + 76800 * 10), 2.0 * 76800 * 7000 * 10)
     del x, y, a, b
     torch.cuda.empty_cache()
-    # gram: the HSI mode-1 EIG Gram; ttm_interior: the HSI mode-1 TTM
+    # gram: the HSI mode-1 EIG Gram; ttm_interior: the HSI mode-1 TTM.  The
+    # Gram is symmetric: the function needs only its I(I+1)/2 distinct
+    # entries, 2·A·B·I(I+1)/2 flop
     x = rnd(1021, 1340, 264)
     measure("gram", "x (1021, 1340, 264) fp32 -> (1340, 1340)",
             lambda: ttt3(x, x), lambda: ref.gram_ref(x),
             lambda: torch.tensordot(x, x, dims=([0, 2], [0, 2])),
-            4 * (x.numel() + 1340 * 1340), 2.0 * 1021 * 264 * 1340 * 1340)
+            4 * (x.numel() + 1340 * 1340), 1.0 * 1021 * 264 * 1340 * 1341)
     u = rnd(10, 1340)
     measure("ttm_interior", "u (10, 1340), x (1021, 1340, 264) fp32",
             lambda: ttm_interior(u, x), lambda: ref.ttm_interior_ref(u, x),
@@ -386,6 +424,7 @@ def main() -> int:
         smi, peaks = phase_env(torch)
         phase_build()
         phase_kernel_shapes(torch)
+        phase_kernels_large(torch)
         full = phase_kernels_full(torch, peaks)
         launched = phase_main(torch)
     except SmokeFailure as e:

@@ -222,14 +222,15 @@ class TuckerPlan:
     ``schedule`` lists every mode solve in execution order with the solver
     the selector (or explicit methods) chose and the modeled FLOPs / peak
     working-set bytes of that step.  ``device`` is not serialized: a loaded
-    plan runs on the device its loader names.
+    plan runs on the device its loader names; left out, it is ``cuda:0``
+    (raising without CUDA), as in :func:`plan`.
     """
     shape: tuple[int, ...]
     dtype: str
     config: TuckerConfig
     schedule: tuple[ModeStep, ...]
     select_seconds: float = 0.0     # one-time planning cost (selector calls)
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device = field(default_factory=resolve_device)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -488,7 +489,7 @@ def plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
     platform = device.type
     compute_dtype = T.dtype_name(config.compute_dtype or dtype)
     backend = resolve_backend(config.impl, platform=platform,
-                              dtype=compute_dtype)
+                              dtype=compute_dtype, shape=shape)
     # selector resolution sees the RESOLVED backend: a per-backend trained
     # model outranks the platform-pooled one, and its embedded (possibly
     # calibrated) cost model prices the schedule either way

@@ -31,6 +31,7 @@ its own slice.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -66,6 +67,9 @@ class OpsBackend:
         platform; the cost model scales Eq. 4/5 estimates by it.
     solvers
         Solver families whose kernel mix this backend supports.
+    max_extent
+        Largest extent A, I_n or B of any mode's (A, I_n, B) view the
+        primitives take (None = no limit).
     """
     name: str
     loader: Callable[[], OpsTriple]
@@ -75,6 +79,7 @@ class OpsBackend:
     cost_scale: float = 1.0
     interpret_fallback: bool = False
     solvers: tuple[str, ...] = ("eig", "als", "svd", "rand")
+    max_extent: int | None = None
     _ops: list = field(default_factory=list, repr=False, compare=False)
 
     def ops(self) -> OpsTriple:
@@ -91,6 +96,14 @@ class OpsBackend:
 
     def native_on(self, platform: str) -> bool:
         return "*" in self.platforms or platform in self.platforms
+
+    def supports_shape(self, shape) -> bool:
+        """True if every mode's (A, I_n, B) view of ``shape`` fits
+        ``max_extent``."""
+        if self.max_extent is None:
+            return True
+        return all(max(math.prod(shape[:n]), s, math.prod(shape[n + 1:]))
+                   <= self.max_extent for n, s in enumerate(shape))
 
 
 _REGISTRY: dict[str, OpsBackend] = {}
@@ -141,7 +154,8 @@ AUTO_ORDER: dict[str, tuple[str, ...]] = {
 }
 
 
-def resolve_backend(impl: str, *, platform: str, dtype=None) -> OpsBackend:
+def resolve_backend(impl: str, *, platform: str, dtype=None,
+                    shape=None) -> OpsBackend:
     """Resolve an ``impl`` name (or ``"auto"``) to a concrete backend for
     ``platform`` (``"cuda"`` or ``"cpu"``).
 
@@ -150,7 +164,8 @@ def resolve_backend(impl: str, *, platform: str, dtype=None) -> OpsBackend:
     kernels' plain versions) — asking for a backend by name means you want
     *that* code path.  ``"auto"`` only ever picks natively-supported
     backends, falling back to ``matfree``: ``hopper`` on CUDA for fp32 and
-    bf16, ``matfree`` for fp64 (the kernels take no fp64).
+    bf16, ``matfree`` for fp64 (the kernels take no fp64) or for a ``shape``
+    with a view extent beyond 2**31 - 1 (the kernels take int extents).
     """
     if impl != "auto":
         b = get_backend(impl)
@@ -160,11 +175,16 @@ def resolve_backend(impl: str, *, platform: str, dtype=None) -> OpsBackend:
         if not b.native_on(platform) and not b.interpret_fallback:
             raise ValueError(f"backend {b.name!r} runs on {b.platforms}, not "
                              f"{platform!r}, and has no plain-PyTorch path")
+        if shape is not None and not b.supports_shape(shape):
+            raise ValueError(f"backend {b.name!r} takes no (A, I_n, B) view "
+                             f"extent beyond {b.max_extent}; shape "
+                             f"{tuple(shape)} has one")
         return b
     for name in AUTO_ORDER.get(platform, ("matfree",)):
         b = _REGISTRY.get(name)
         if b is not None and b.native_on(platform) and \
-                (dtype is None or b.supports_dtype(dtype)):
+                (dtype is None or b.supports_dtype(dtype)) and \
+                (shape is None or b.supports_shape(shape)):
             return b
     return get_backend("matfree")
 
@@ -224,7 +244,9 @@ register_backend(OpsBackend(
     cost_scale=1.0,
     # on CPU tensors the wrappers run the kernels' plain versions, so an
     # explicit impl="hopper" works — as plain PyTorch — on any platform
-    interpret_fallback=True))
+    interpret_fallback=True,
+    # extents are C ints; memory is indexed in 64 bits
+    max_extent=2 ** 31 - 1))
 
 
 def backend_ops(impl: str) -> OpsTriple:

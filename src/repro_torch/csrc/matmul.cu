@@ -7,7 +7,8 @@
 // through memory once: the output tile spans all R outputs of its row strip
 // (last mode: a 128 x 16 tile, R <= 16) or column strip (first mode: 16 x
 // 128), so a block reads its strip of X exactly once and R is never padded
-// to a 128-wide tile.  Other shapes take a 128 x 128 tile.  The tile kernel
+// to a 128-wide tile.  The narrower of M and N takes the 16-wide side; an R
+// above 16 takes more 16-wide tiles, each reading X again.  The tile kernel
 // is contract.cuh's (shared with ttt.cu), reading A as a (1, M, K) view and
 // B as a (K, N, 1) view: fp32 FFMA from shared-memory tiles into register
 // micro-tiles, the next tile's loads in flight during the current tile's
@@ -24,11 +25,10 @@ cudaError_t dispatch(const void* a, const void* b, float* c, int M, int N, int K
                      cudaStream_t st) {
   const Operand P{a, K, (long long)M * K, M}, Q{b, 1, N, N};
   const long long k_all = ((long long)K + 31) / 32 * 32;  // one split: all of K
-  if (N <= 16)  // last mode: X (J, I) @ u^T
+  if (N <= M)  // last mode: X (J, I) @ u^T
     return launch_contract<T, 128, 16, 32, 4, 2>(P, Q, c, K, 1, k_all, false, st);
-  if (M <= 16)  // first mode: u @ X (I, J)
-    return launch_contract<T, 16, 128, 32, 2, 4>(P, Q, c, K, 1, k_all, false, st);
-  return launch_contract<T, 128, 128, 16, 8, 8>(P, Q, c, K, 1, k_all, false, st);
+  // first mode: u @ X (I, J)
+  return launch_contract<T, 16, 128, 32, 2, 4>(P, Q, c, K, 1, k_all, false, st);
 }
 
 }  // namespace

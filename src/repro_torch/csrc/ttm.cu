@@ -7,7 +7,8 @@
 // every load of x is coalesced straight from its native layout with no
 // unfold -- loops over I inside the block, and keeps all TR outputs of its
 // column in registers.  u is staged in shared memory (transposed, read as a
-// broadcast).  With R <= TR every element of x is read exactly once.
+// broadcast).  With R <= TR every element of x is read exactly once; a
+// larger R takes more TR-wide slabs along grid.y, each reading x again.
 // Flattening (a, b) keeps every thread busy whatever B is (a 264-wide B
 // would waste half of a 256-wide b tile).  fp32 FFMA accumulation; ragged
 // edges are masked, nothing is padded.
@@ -63,22 +64,16 @@ ttm_interior_kernel(const T* __restrict__ u, const T* __restrict__ x,
   }
 }
 
-template <typename T, int TJ, int TR, int TI>
-cudaError_t launch(const void* u, const void* x, float* out, int A, int I, int B, int R,
-                   cudaStream_t st) {
+template <typename T>
+cudaError_t dispatch(const void* u, const void* x, float* out, int A, int I, int B, int R,
+                     cudaStream_t st) {
+  constexpr int TJ = 128, TR = 16, TI = 64;
   const long long blocks = ((long long)A * B + TJ - 1) / TJ;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL || ceil_div(R, TR) > 65535) return cudaErrorInvalidValue;
   dim3 grid((unsigned)blocks, ceil_div(R, TR));
   ttm_interior_kernel<T, TJ, TR, TI><<<grid, TJ, 0, st>>>(
       static_cast<const T*>(u), static_cast<const T*>(x), out, A, I, B, R);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* u, const void* x, float* out, int A, int I, int B, int R,
-                     cudaStream_t st) {
-  if (R <= 16) return launch<T, 128, 16, 64>(u, x, out, A, I, B, R, st);
-  return launch<T, 128, 32, 64>(u, x, out, A, I, B, R, st);
 }
 
 }  // namespace

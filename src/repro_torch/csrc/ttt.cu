@@ -107,7 +107,7 @@ cudaError_t dispatch(const void* x, const void* y, float* part, int A, int I, in
 
 // sym = 1 promises y == x (a Gram); it takes effect on the R > 16 path.
 extern "C" int atucker_ttt(const void* x, const void* y, void* ws, void* z, int A, int I,
-                           int R, int B, int dtype, int splits, int k_per_split, int sym,
+                           int R, int B, int dtype, int splits, long long k_per_split, int sym,
                            void* stream) {
   if (A <= 0 || I <= 0 || R <= 0 || B <= 0 || splits <= 0) return cudaErrorInvalidValue;
   const bool mirror = sym && R > 16;

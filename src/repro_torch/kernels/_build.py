@@ -33,9 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C signature of each library's entry points: name -> argtypes (all return int)
 SIGNATURES = {
-    "ttt": {"atucker_ttt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)},
+    "ttt": {"atucker_ttt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P)},
     "matmul": {"atucker_matmul": (_P, _P, _P, _I, _I, _I, _I, _P)},
     "ttm": {"atucker_ttm_interior": (_P, _P, _P, _I, _I, _I, _I, _I, _P)},
 }
@@ -136,9 +137,10 @@ _INT_MAX = 2 ** 31 - 1
 
 def check_operands(what: str, shapes: dict, *tensors) -> str:
     """Validate a wrapper's operands before any pointer reaches C: one device,
-    one dtype the kernels take, non-empty dims that fit an int, and (on the
-    card) contiguous storage.  ``shapes`` maps each tensor's name to its
-    required ndim.  Returns the device type ("cpu" or "cuda")."""
+    one dtype the kernels take, non-empty dims that each fit an int (the
+    kernels index memory in 64 bits, so the element count may exceed one),
+    and (on the card) contiguous storage.  ``shapes`` maps each tensor's name
+    to its required ndim.  Returns the device type ("cpu" or "cuda")."""
     for (name, ndim), t in zip(shapes.items(), tensors):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{what}: {name} must be a torch.Tensor, got "
@@ -150,10 +152,9 @@ def check_operands(what: str, shapes: dict, *tensors) -> str:
         if dname not in DTYPE_CODES:
             raise TypeError(f"{what}: {name} has dtype {dname}; the kernels "
                             f"take {tuple(DTYPE_CODES)}")
-        if t.numel() == 0 or any(s > _INT_MAX for s in t.shape) \
-                or t.numel() > _INT_MAX:
+        if t.numel() == 0 or any(s > _INT_MAX for s in t.shape):
             raise ValueError(f"{what}: {name} of shape {tuple(t.shape)} is "
-                             "empty or too large for 32-bit indexing")
+                             "empty or has a dimension beyond 2**31 - 1")
     first = tensors[0]
     for t in tensors[1:]:
         if t.dtype != first.dtype:

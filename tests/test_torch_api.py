@@ -221,6 +221,19 @@ class TestDevicesAndErrors:
         with pytest.raises(RuntimeError, match="CUDA"):
             decompose(np.zeros((4, 5, 6), np.float32), cfg)
 
+    def test_direct_construction_defaults_to_the_card(self):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present: the default device works")
+        p = plan((6, 5, 4), "float32", TuckerConfig(
+            ranks=(2, 2, 2), methods="eig"), device="cpu")
+        fields = dict(shape=p.shape, dtype=p.dtype, config=p.config,
+                      schedule=p.schedule)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TuckerPlan(**fields)
+        q = TuckerPlan(**fields, device=torch.device("cpu"))
+        x = lowrank((6, 5, 4), (2, 2, 2), seed=3, noise=0.05)
+        assert q.execute(x).tucker.core.shape == (2, 2, 2)
+
     def test_input_errors(self):
         p = plan((10, 12, 8), "float32", TuckerConfig(
             ranks=(3, 4, 2), methods="eig"), device="cpu")

@@ -11,6 +11,7 @@ below skips here, and ``chip_smoke.py`` holds every kernel against its
 plain version on the H100.
 """
 
+import ctypes
 import math
 
 import jax.numpy as jnp
@@ -174,6 +175,28 @@ class TestWrapperChecks:
         assert per % tk == 0
         assert splits * per >= k > (splits - 1) * per
 
+    @pytest.mark.parametrize("i,r,k,b,sym", [
+        (100000, 100000, 3_000_000_000, 1000, False),
+        (90000, 90000, 2 ** 31 + 17, 1, True)])
+    def test_split_plan_beyond_int32(self, i, r, k, b, sym):
+        """A reduction longer than 2**31 in one split: k_per_split crosses
+        to C as a long long."""
+        splits, per = split_plan(i, r, k, b, sym, 132)
+        assert splits * per >= k > (splits - 1) * per
+        assert per > 2 ** 31 - 1 and per % 16 == 0
+        argtypes = _build.SIGNATURES["ttt"]["atucker_ttt"]
+        assert argtypes[10] is ctypes.c_longlong
+        assert argtypes[10](per).value == per
+
+    def test_operands_beyond_int32_elements(self):
+        """The kernels index memory in 64 bits: only each extent must fit an
+        int, not the element count."""
+        big = torch.zeros(1, 1, 1).expand(70000, 70000, 1)   # 4.9e9 elements
+        assert _build.check_operands("ttt", {"x3": 3}, big) == "cpu"
+        too_wide = torch.zeros(1, 1, 1).expand(1, 2 ** 31, 1)
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            _build.check_operands("ttt", {"x3": 3}, too_wide)
+
     def test_library_names_follow_source_hash(self):
         paths = {n: _build.lib_path(n) for n in _build.SOURCES}
         assert len(set(paths.values())) == len(_build.SOURCES)
@@ -196,6 +219,21 @@ class TestHopperDispatchOnCpu:
         # named explicitly, hopper runs on the CPU (as its plain versions)
         assert resolve_backend("hopper", platform="cpu",
                                dtype="float32").name == "hopper"
+
+    @pytest.mark.parametrize("shape,auto", [
+        ((320, 240, 7000), "hopper"), ((1021, 1340, 33, 8), "hopper"),
+        ((4, 50000, 50000), "matfree"), ((70000, 70000, 2), "matfree"),
+        ((2, 2 ** 31), "matfree")])
+    def test_auto_resolution_respects_int_extents(self, shape, auto):
+        """auto takes hopper only where every (A, I_n, B) view extent fits
+        the kernels' int arguments; an explicit hopper refuses the rest at
+        plan time."""
+        assert resolve_backend("auto", platform="cuda", dtype="float32",
+                               shape=shape).name == auto
+        if auto == "matfree":
+            with pytest.raises(ValueError, match="extent"):
+                resolve_backend("hopper", platform="cuda", dtype="float32",
+                                shape=shape)
 
     @pytest.mark.parametrize("methods", ["eig", "als"])
     def test_hopper_plan_routes_through_the_wrappers(self, methods,
@@ -239,3 +277,26 @@ def test_kernels_match_plain_versions_on_the_card():
                 (K.matmul(u, w), ref.matmul_ref(u, w))]:
             assert float((got - want).abs().max()) <= \
                 1e-4 * float(want.abs().max())
+
+
+def test_kernels_take_operands_beyond_int32_elements_on_the_card():
+    """Each kernel path on a 2.25e9-element operand (9 GB in fp32): memory
+    is indexed in 64 bits (chip_smoke.py phase kernels_large runs the same)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((2048, 1100, 1000), generator=g, device="cuda")
+    xc = x.view(-1, 1000, 1)
+    y = torch.randn((2048, 10, 1000), generator=g, device="cuda")
+    yc = torch.randn((xc.shape[0], 10, 1), generator=g, device="cuda")
+    u0 = torch.randn((10, 2048), generator=g, device="cuda")
+    u1 = torch.randn((10, 1100), generator=g, device="cuda")
+    u2 = torch.randn((1000, 10), generator=g, device="cuda")
+    for got, want in [
+            (K.ttt3(x, y), ref.ttt_ref(x, y)),
+            (K.ttt3(xc, yc), ref.ttt_ref(xc, yc)),
+            (K.matmul(u0, x.view(2048, -1)), ref.matmul_ref(u0, x.view(2048, -1))),
+            (K.matmul(x.view(-1, 1000), u2), ref.matmul_ref(x.view(-1, 1000), u2)),
+            (K.ttm_interior(u1, x), ref.ttm_interior_ref(u1, x))]:
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
