@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py
 
+It drives the port's two paths -- Tucker ``plan -> execute`` and serving
+falcon-mamba-7b -- through four hand-written Hopper kernels: TTT/Gram,
+boundary GEMM, interior TTM and the Mamba-1 selective scan (S6).
+
 Phases, each printing one JSON line (any failure exits non-zero):
 
-1. env      torch/CUDA versions, the card's name and power limit, TF32 off.
+1. env      torch/CUDA versions, the card's name, power limit, SM count and
+            maximum SM clock, TF32 off.
 2. build    compile ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a (one
             process per source, all at once) into ``build/repro_torch/``.
 3. kernels  hold every kernel against its plain PyTorch version on the card
             (``max|kernel - plain| <= 1e-4 * max|plain|``): first on the
             non-tiling shapes of the reference's kernel tests in fp32 and
-            bf16, then on one operand of more than 2**31 elements (every
-            kernel path), then at the main path's full-size shapes, where
-            the kernel, its plain version and one PyTorch library call are
-            timed (CUDA events, median of warm runs) beside the roofline
-            bound.
+            bf16 (for S6 also ragged T, Di and N, T = 1 from a nonzero
+            state, strided B/C, y and the final state), then on operands of
+            more than 2**31 elements (every kernel path), then at the main
+            paths' full-size shapes, where the kernel, its plain version and
+            one PyTorch library call (none computes a selective scan) are
+            timed (CUDA events, median of warm runs) beside the bound.
 4. main     ``plan -> execute`` with ``impl="auto"`` on the paper's Table III
             Boats (320, 240, 7000) and HSI (1021, 1340, 33, 8) tensors at full
             size: the plan must resolve to the ``hopper`` backend, every
@@ -24,7 +30,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
             timed on both backends (host clock around a synchronized
             execute), and one more execute runs under torch.profiler for
             the device's busy time, idle share and top kernels.
-5. kernels  one JSON line listing every kernel with its numbers; then the
+5. serve    falcon-mamba-7b at its published size (64 layers, 7.3e9
+            parameters, bf16, random weights from seed 0) in ``ServeEngine``
+            with 4 slots answers 6 requests (prompts of 37 to 8191 tokens,
+            32 new tokens each, one sampled at temperature 0.8): every
+            request gets 32 valid tokens, all logits are finite, and the S6
+            kernel launches 64 times per prefill and per decode step.  Then
+            the state carry: on the same model cast to fp32, a fresh prefill
+            over a greedy request's prompt plus its first 8 tokens must
+            reproduce the logits its decode step produced (same argmax, max
+            difference <= 1e-3 of max|logits|; the bf16 figures are
+            reported beside it).  Prints
+            prefill ms by prompt length, decode ms per step, tokens/s, peak
+            memory, and the idle share and top kernels of one profiled
+            decode step.
+6. kernels  one JSON line listing every kernel with its numbers; then the
             ``nvidia-smi`` name/power-limit line; then the final
             ``{"ok": true, "device": ...}`` line.
 
@@ -47,6 +67,9 @@ TOL = 1e-4          # max|kernel - plain| <= TOL * max|plain| (fp32 sums, reorde
 WARM_RUNS = 7
 #: (HBM bytes/s, fp32 non-tensor FLOP/s) from NVIDIA's H100 data sheets
 PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12), "nvl": (3.9e12, 60e12)}
+#: SFU exponentials per clock per SM on compute capability 9.0 (the CUDA C++
+#: Programming Guide's arithmetic-instruction throughput table)
+SFU_PER_CLOCK_SM = 16
 #: main-path configurations: the paper's Table III tensors at full size
 BOATS = ((320, 240, 7000), (10, 10, 10))
 HSI = ((1021, 1340, 33, 8), (10, 10, 10, 5))
@@ -57,7 +80,26 @@ KERNELS = {
                    replaces="src/repro/kernels/matmul.py:34"),
     "ttm_interior": dict(source="src/repro_torch/csrc/ttm.cu",
                          replaces="src/repro/kernels/ttm.py:39"),
+    "s6_scan": dict(source="src/repro_torch/csrc/s6_scan.cu",
+                    replaces="src/repro/kernels/s6_scan.py:51"),
 }
+#: serve phase: prompt lengths of the 6 requests (the longest fills the
+#: 8192-token context with one token to spare), new tokens per request, the
+#: request sampled at temperature 0.8, and the greedy request whose decode
+#: logits after K_CARRY generated tokens a fresh prefill must reproduce
+PROMPTS = (37, 517, 1024, 2048, 4096, 8191)
+MAX_NEW = 32
+SAMPLED = 1
+WATCH, K_CARRY = 0, 8
+#: state carry, checked on the full-size model cast to fp32:
+#: max|fresh prefill - decode logits| <= CARRY_TOL * max|logits|.  In fp32
+#: the two paths differ only in the order of sums (GEMMs at M = 1 vs 45),
+#: ~1e-5 of max|logits| after 64 layers; a state that is lost or misplaced
+#: moves the logits by percents.  In bf16 the same rounding differences
+#: grow to ~4% through 64 random layers and flip the argmax of the flat
+#: random-weight logits (measured on the H100), so the bf16 figures are
+#: reported, not held to a limit.
+CARRY_TOL = 1e-3
 
 
 def emit(phase: str, **kw) -> None:
@@ -85,16 +127,23 @@ def phase_env(torch):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu = SFU_PER_CLOCK_SM * sms * clock_mhz * 1e6
     name = torch.cuda.get_device_name(0)
     low = name.lower()
     variant = "pcie" if "pcie" in low else "nvl" if "nvl" in low else "sxm"
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=name,
          count=torch.cuda.device_count(), nvidia_smi=smi,
-         peak_variant=variant,
+         peak_variant=variant, sms=sms, max_sm_clock_mhz=clock_mhz,
+         sfu_exp_per_s=sfu,
          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
-    return smi, PEAKS[variant]
+    return smi, (*PEAKS[variant], sfu)
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +234,64 @@ def phase_kernel_shapes(torch):
     torch.cuda.synchronize()
     emit("kernels_small", cases=n, dtypes=["float32", "bfloat16"],
          max_abs_err=worst, tol_rel=TOL, ok=True)
+    phase_s6_shapes(torch)
+
+
+def s6_inputs(torch, g, bsz, t, di, n, dtype, *, strided=False, h0=False,
+              model_dt=False):
+    """S6 operands on the card.  dt is |N(0, 1)| * 0.1 as in the reference's
+    kernel test, or ``softplus(-4 + 0.6 N(0, 1))`` as the model's layer 0
+    gives (mean ~ 0.022); ``strided`` makes B and C column slices of one
+    (B, T, 8 + 2N) projection, as the model passes them."""
+    def rnd(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+    x = rnd(bsz, t, di)
+    if model_dt:
+        dt = torch.nn.functional.softplus(rnd(bsz, t, di, dt=torch.float32)
+                                          .mul_(0.6).sub_(4.0))
+    else:
+        dt = rnd(bsz, t, di, dt=torch.float32).abs_().mul_(0.1)
+    if strided:
+        proj = rnd(bsz, t, 8 + 2 * n)
+        bm, cm = proj[..., 8:8 + n], proj[..., 8 + n:]
+    else:
+        bm, cm = rnd(bsz, t, n), rnd(bsz, t, n)
+    a = -rnd(di, n, dt=torch.float32).abs_()
+    hz = rnd(bsz, di, n, dt=torch.float32) if h0 else None
+    return x, dt, bm, cm, a, hz
+
+
+def model_a(torch, di, n):
+    """The model's a = -exp(a_log) = -(1..N) in every channel."""
+    return -torch.arange(1, n + 1, dtype=torch.float32,
+                         device="cuda").repeat(di, 1)
+
+
+def phase_s6_shapes(torch):
+    """The S6 kernel against its step recurrence: the shapes of the
+    reference's kernel and scan tests, ragged T/Di/N, every states-per-lane
+    width (N = 4 ... 64), T = 1 from a nonzero state (the decode step),
+    strided B/C; y and the final state, fp32 and bf16."""
+    from repro_torch.kernels import ref, s6_scan
+    g = torch.Generator(device="cuda").manual_seed(4)
+    # (B, T, Di, N, strided, h0)
+    cases = [(2, 128, 64, 8, False, False), (1, 64, 32, 4, False, False),
+             (3, 96, 16, 16, False, False), (2, 37, 5, 4, False, True),
+             (2, 77, 200, 16, True, True), (2, 33, 70, 5, True, False),
+             (1, 40, 48, 32, False, True), (1, 50, 40, 64, True, True),
+             (3, 1, 100, 16, True, True), (4, 1, 8192, 16, True, True)]
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for bsz, t, di, ns, strided, h0 in cases:
+            ops = s6_inputs(torch, g, bsz, t, di, ns, dtype, strided=strided,
+                            h0=h0)
+            (y, hf), (yr, hr) = s6_scan(*ops), ref.s6_scan_ref(*ops)
+            worst = max(worst, close(y, yr), close(hf, hr))
+            n += 1
+    torch.cuda.synchronize()
+    emit("kernels_small", name="s6_scan", cases=n,
+         dtypes=["float32", "bfloat16"], max_abs_err=worst, tol_rel=TOL,
+         ok=True)
 
 
 def phase_kernels_large(torch):
@@ -219,12 +326,38 @@ def phase_kernels_large(torch):
     torch.cuda.empty_cache()
     emit("kernels_large", elements=2048 * 1100 * 1000, max_abs_err=errs,
          tol_rel=TOL, ok=True)
+    phase_s6_large(torch)
+
+
+def phase_s6_large(torch):
+    """The S6 kernel over x, dt and y of 2.16e9 elements each (B, T, Di =
+    16, 16500, 8192; bf16 x, 21.6 GB in all): only the last batch row, whose
+    offsets lie beyond 2**31, is held against the plain version.  a is the
+    model's -(1..N), as on the main path: with random a near 0 a channel
+    remembers all 16,500 steps, and the two versions' fp32 roundings then
+    drift apart by ~2e-4 of max|y| (measured on the H100), which says
+    nothing about the indexing this case is for."""
+    from repro_torch.kernels import ref, s6_scan
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bsz, t, di, n = 16, 16500, 8192, 16
+    require(bsz * t * di > 2 ** 31, "the S6 operands must exceed 2**31 elements")
+    x, dt, bm, cm, _, h0 = s6_inputs(torch, g, bsz, t, di, n, torch.bfloat16,
+                                     strided=True, h0=True, model_dt=True)
+    a = model_a(torch, di, n)
+    y, hf = s6_scan(x, dt, bm, cm, a, h0)
+    row = [v[-1:] for v in (x, dt, bm, cm)]
+    yr, hr = ref.s6_scan_ref(*row, a, h0[-1:])
+    errs = {"y": close(y[-1:], yr), "h_final": close(hf[-1:], hr)}
+    del x, dt, bm, cm, y, hf, yr, hr, row
+    torch.cuda.empty_cache()
+    emit("kernels_large", name="s6_scan", shape=[bsz, t, di, n],
+         elements=bsz * t * di, max_abs_err=errs, tol_rel=TOL, ok=True)
 
 
 def phase_kernels_full(torch, peaks):
-    """Each kernel at the main path's shapes: correctness, times, bound."""
-    from repro_torch.kernels import matmul, ref, ttm_interior, ttt3
-    bw, fl = peaks
+    """Each kernel at the main paths' shapes: correctness, times, bound."""
+    from repro_torch.kernels import matmul, ref, s6_scan, ttm_interior, ttt3
+    bw, fl, sfu = peaks
     g = torch.Generator(device="cuda").manual_seed(2)
 
     def rnd(*shape):
@@ -248,6 +381,44 @@ def phase_kernels_full(torch, peaks):
                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                          flops=flops)
         emit("kernel_full", name=name, **out[name])
+
+    # s6_scan: the longest prefill, (B, T, Di, N) = (1, 8191, 8192, 16), as
+    # the model hands it over: bf16 x, strided bf16 B/C, fp32 dt from the
+    # dt_bias softplus, the model's a = -(1..N), the zeroed cached state.
+    # Bound: the larger of its bytes (x, dt, B, C, a, h0 read once; y and
+    # h_final written once) over HBM, its T·Di·N exponentials over the SFU
+    # rate and its 6·T·Di·N other fp32 operations over the FP32 rate.
+    # The plain version is a T-step loop: timed over 3 runs.
+    t, di, n = 8191, 8192, 16
+    g6 = torch.Generator(device="cuda").manual_seed(6)
+    x6, dt6, bm6, cm6, _, _ = s6_inputs(torch, g6, 1, t, di, n, torch.bfloat16,
+                                        strided=True, model_dt=True)
+    a6 = model_a(torch, di, n)
+    h06 = torch.zeros((1, di, n), dtype=torch.float32, device="cuda")
+    s6_args = (x6, dt6, bm6, cm6, a6, h06)
+    (y6, hf6), (yr6, hr6) = s6_scan(*s6_args), ref.s6_scan_ref(*s6_args)
+    err6 = max(close(y6, yr6), close(hf6, hr6))
+    del y6, hf6, yr6, hr6
+    nbytes6 = (t * di * (2 + 4 + 4) + 2 * t * n * 2 + 3 * di * n * 4)
+    exps = t * di * n
+    terms = {"bytes": nbytes6 / bw * 1e3, "exponentials": exps / sfu * 1e3,
+             "fp32 operations": 6.0 * exps / fl * 1e3}
+    by = max(terms, key=terms.get)
+    out["s6_scan"] = dict(
+        shapes="x (1, 8191, 8192) bf16, dt fp32, B/C (1, 8191, 16) bf16 "
+               "strided, a (8192, 16), h0 zeros",
+        dt_mean=float(dt6.mean()), dt_p99=float(dt6.flatten()[
+            :: 97].quantile(0.99)),
+        max_abs_err=err6, ms=time_ms(torch, lambda: s6_scan(*s6_args)),
+        plain_ms=time_ms(torch, lambda: ref.s6_scan_ref(*s6_args), runs=3),
+        library_ms=None, bound_ms=terms[by],
+        bound_by="bytes" if by == "bytes" else "operations",
+        bound_terms_ms=terms, bytes=nbytes6, exponentials=exps,
+        rates={"hbm_bytes_per_s": bw, "sfu_exp_per_s": sfu,
+               "fp32_flop_per_s": fl})
+    emit("kernel_full", name="s6_scan", **out["s6_scan"])
+    del x6, dt6, bm6, cm6, a6, h06, s6_args
+    torch.cuda.empty_cache()
 
     # ttt: the Boats mode-2 ALS TTT (B = 1, a 76,800-deep reduction)
     x, y = rnd(76800, 7000, 1), rnd(76800, 10, 1)
@@ -299,15 +470,15 @@ def lowrank(torch, shape, ranks, gen):
     return x
 
 
-def profile_execute(torch, p, x, wall_ms: float) -> dict:
-    """One execute under torch.profiler: device busy time (kernels, copies
-    and sets, summed over device events — one stream, so they do not
+def profile_call(torch, fn, wall_ms: float) -> dict:
+    """One call of ``fn`` under torch.profiler: device busy time (kernels,
+    copies and sets, summed over device events — one stream, so they do not
     overlap), the idle share of the unprofiled wall time, the host's
     kernel-launch calls, and the device time of the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        p.execute(x)
+        fn()
         torch.cuda.synchronize()
     busy, by_name, launches = 0.0, {}, 0
     for e in prof.events():
@@ -396,15 +567,180 @@ def phase_main(torch):
                    execute_ms_matfree=statistics.median(tm) * 1e3,
                    execute_ms_matfree_all=[t * 1e3 for t in tm],
                    peak_bytes=peak, launches=counts,
-                   profile=profile_execute(torch, p, x, wall))
+                   profile=profile_call(torch, lambda: p.execute(x), wall))
         emit("main", **row)
         results.append(row)
         del res, ref_res
     data.clear()
     torch.cuda.empty_cache()
-    for k, v in launched.items():
-        require(v > 0, f"kernel {k} never launched on the main path")
+    for k in ("ttt", "matmul", "ttm_interior"):
+        require(launched[k] > 0, f"kernel {k} never launched on the main path")
     return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving falcon-mamba-7b at full size
+# ---------------------------------------------------------------------------
+
+def phase_serve(torch):
+    from repro_torch import configs, kernels
+    from repro_torch.models import build
+    from repro_torch.serve import Request, ServeEngine
+    cfg = configs.get("falcon-mamba-7b")
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    eng = ServeEngine(bundle, params, batch_slots=4, max_len=8320)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,), generator=g,
+                                         device="cuda").tolist(),
+                    max_new_tokens=MAX_NEW, rid=i,
+                    temperature=0.8 if i == SAMPLED else 0.0)
+            for i, n in enumerate(PROMPTS)]
+
+    prefill_ms, decode_ms, active, watched = {}, [], [], {}
+    finite = [True]
+    inner_prefill, inner_decode = eng._prefill, eng._decode
+
+    def synced(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def timed_prefill(tokens, cache):
+        (logits, c), ms = synced(inner_prefill, tokens, cache)
+        prefill_ms[int(tokens.shape[1])] = ms
+        finite[0] &= bool(torch.isfinite(logits).all())
+        return logits, c
+
+    def timed_decode(tok, cache, pos):
+        (logits, c), ms = synced(inner_decode, tok, cache, pos)
+        decode_ms.append(ms)
+        active.append(sum(r is not None for r in eng.slot_req))
+        finite[0] &= bool(torch.isfinite(logits).all())
+        row = watched_row(eng, logits)
+        if row is not None:
+            watched["logits"] = row
+        return logits, c
+
+    eng._prefill, eng._decode = timed_prefill, timed_decode
+    # warm-up: cuBLAS handles and the first launch of each op, off the count
+    with torch.no_grad():
+        inner_prefill(torch.zeros((1, 16), dtype=torch.long, device="cuda"),
+                      bundle.init_cache(1, 16, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    require(finite[0], "serve: non-finite logits")
+    for r in reqs:
+        require(len(r.output) == MAX_NEW and all(0 <= v < cfg.vocab
+                                                 for v in r.output),
+                f"serve: request {r.rid} got {len(r.output)} tokens "
+                f"(want {MAX_NEW} in [0, {cfg.vocab}))")
+    steps = len(prefill_ms) + len(decode_ms)
+    require(len(prefill_ms) == len(reqs), "serve: a prefill was not timed")
+    require(counts["s6_scan"] > 0 and
+            counts["s6_scan"] == cfg.n_layers * steps,
+            f"serve: s6_scan launched {counts['s6_scan']} times, want "
+            f"{cfg.n_layers} x {steps} (prefills + decode steps)")
+
+    require("logits" in watched, "serve: the watched decode step never ran")
+    carry_bf16 = carry_stats(torch, bundle, params, reqs[WATCH],
+                             watched["logits"])
+
+    # one decode step of all 4 slots under the profiler
+    wall = statistics.median(decode_ms)
+    tok = torch.zeros((eng.b, 1), dtype=torch.long, device="cuda")
+    pos = torch.from_numpy(eng.pos.copy())
+    with torch.no_grad():
+        prof = profile_call(torch, lambda: inner_decode(tok, eng.cache, pos),
+                            wall)
+    decode_tokens = sum(active)
+    row = dict(
+        model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        d_inner=cfg.d_inner, vocab=cfg.vocab, dtype=cfg.dtype,
+        params=n_params, param_bytes=param_bytes, init_s=init_s,
+        slots=eng.b, requests=len(reqs), prompt_lens=list(PROMPTS),
+        max_new_tokens=MAX_NEW,
+        prefill_ms={str(k): v for k, v in sorted(prefill_ms.items())},
+        decode_steps=len(decode_ms), decode_ms_median=wall,
+        decode_ms_all=decode_ms,
+        decode_tokens_per_s=decode_tokens / (sum(decode_ms) / 1e3),
+        run_s=run_s,
+        tokens_per_s=sum(len(q.output) for q in reqs) / run_s,
+        peak_bytes=peak, launches=counts, state_carry_bf16=carry_bf16,
+        profile_decode_step=prof,
+        outputs={q.rid: q.output[:8] for q in reqs})
+
+    # the state-carry check: the same full-size model in fp32, the watched
+    # request alone on 4 slots (decode at batch 4, the fresh prefill at 1)
+    del eng
+    torch.cuda.empty_cache()
+    params.float()
+    bundle32 = build(cfg.with_(dtype="float32"))
+    eng32 = ServeEngine(bundle32, params, batch_slots=4, max_len=8320)
+    inner32, rec = eng32._decode, {}
+
+    def recording_decode(tok, cache, pos):
+        logits, c = inner32(tok, cache, pos)
+        row32 = watched_row(eng32, logits)
+        if row32 is not None:
+            rec["logits"] = row32
+        return logits, c
+
+    eng32._decode = recording_decode
+    req32 = Request(prompt=reqs[WATCH].prompt, max_new_tokens=K_CARRY + 1,
+                    rid=WATCH)
+    eng32.run([req32])
+    require("logits" in rec, "serve: the fp32 watched decode step never ran")
+    carry = carry_stats(torch, bundle32, params, req32, rec["logits"])
+    carry["tol_rel"] = CARRY_TOL
+    row["state_carry_fp32"] = carry
+    emit("serve", **row)
+    require(carry["argmax_prefill"] == carry["argmax_decode"] == carry["token"]
+            and carry["max_abs_diff"] <= CARRY_TOL * carry["max_abs_logit"],
+            f"serve: state carry broken: {carry}")
+    del eng32, params
+    torch.cuda.empty_cache()
+    return counts["s6_scan"]
+
+
+def watched_row(eng, logits):
+    """The logits row (a copy) that the WATCH request's decode step produced
+    after K_CARRY generated tokens, or None in any other step."""
+    for s, r in enumerate(eng.slot_req):
+        if r is not None and r.rid == WATCH and len(r.output) == K_CARRY:
+            return logits[s, 0].clone()
+    return None
+
+
+def carry_stats(torch, bundle, params, req, dec) -> dict:
+    """A fresh prefill over ``req``'s prompt plus its first K_CARRY tokens,
+    against ``dec``, the logits its decode step produced at that point."""
+    with torch.no_grad():
+        toks = torch.tensor([req.prompt + req.output[:K_CARRY]], device="cuda")
+        fresh, _ = bundle.prefill(params, {"tokens": toks},
+                                  bundle.init_cache(1, 16, device="cuda"))
+    fresh = fresh[0, -1]
+    diff = float((fresh - dec).abs().max())
+    scale = float(dec.abs().max())
+    return dict(rid=req.rid, prompt_len=len(req.prompt), k=K_CARRY,
+                max_abs_diff=diff, max_abs_logit=scale, rel=diff / scale,
+                argmax_decode=int(dec.argmax()),
+                argmax_prefill=int(fresh.argmax()), token=req.output[K_CARRY])
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +763,7 @@ def main() -> int:
         phase_kernels_large(torch)
         full = phase_kernels_full(torch, peaks)
         launched = phase_main(torch)
+        launched["s6_scan"] = phase_serve(torch)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

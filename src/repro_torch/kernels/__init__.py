@@ -1,27 +1,34 @@
-"""Hand-written Hopper (sm_90a) kernels for a-Tucker's matricization-free hot spots.
+"""Hand-written Hopper (sm_90a) kernels: a-Tucker's matricization-free hot
+spots and the Mamba-1 selective scan of the LM serving path.
 
 Kernels (CUDA C++ in ``csrc/``, built by ``_build`` and bound through
 ctypes; each wrapper runs its plain version from ``ref.py`` on CPU tensors):
   matmul.matmul        — boundary-mode TTM GEMM       (csrc/matmul.cu)
   ttm.ttm_interior     — interior-mode TTM             (csrc/ttm.cu)
   ttt.ttt3             — TTT / Gram contraction        (csrc/ttt.cu)
+  s6_scan.s6_scan      — Mamba-1 selective scan with
+                         state carry                   (csrc/s6_scan.cu)
 
-ops.py carries the mode-n dispatch behind the ``hopper`` ops backend.
+ops.py carries the mode-n dispatch behind the ``hopper`` ops backend;
+``models/ssm.py`` calls ``s6_scan`` in every Mamba-1 layer, in prefill and
+in decode.
 """
 
 import importlib
 
 from . import ops, ref
 from .matmul import matmul
+from .s6_scan import s6_scan
 from .ttm import ttm_interior
 from .ttt import ttt3
 
 #: kernel name -> wrapper module holding its ``LAUNCHES`` counter
-KERNEL_MODULES = {"ttt": "ttt", "matmul": "matmul", "ttm_interior": "ttm"}
+KERNEL_MODULES = {"ttt": "ttt", "matmul": "matmul", "ttm_interior": "ttm",
+                  "s6_scan": "s6_scan"}
 
 
 def _module(name: str):
-    # the package attributes ``matmul``/``ttt3``… are the functions, so go
+    # the package attributes ``matmul``/``s6_scan``… are the functions, so go
     # through the import system for the modules themselves
     return importlib.import_module(f"{__name__}.{KERNEL_MODULES[name]}")
 
@@ -37,4 +44,4 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNEL_MODULES", "launch_counts", "matmul", "ops", "ref",
-           "reset_launch_counts", "ttm_interior", "ttt3"]
+           "reset_launch_counts", "s6_scan", "ttm_interior", "ttt3"]

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ttt", "matmul", "ttm")
+SOURCES = ("ttt", "matmul", "ttm", "s6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,8 @@ SIGNATURES = {
     "ttt": {"atucker_ttt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P)},
     "matmul": {"atucker_matmul": (_P, _P, _P, _I, _I, _I, _I, _P)},
     "ttm": {"atucker_ttm_interior": (_P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "s6_scan": {"atucker_s6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _L, _L, _L, _L, _I, _P)},
 }
 
 #: ptxas report (registers, shared memory, spills) of each build, by source

@@ -3,7 +3,8 @@
 Each one is the function its kernel computes, written naively on purpose:
 inputs are cast to fp32 and contracted by one matmul/einsum with TF32 off,
 so the result is a full-fp32 accumulation of the same products the kernel
-sums, laid out (contiguous) as the kernel writes it.  The wrappers in this
+sums, laid out (contiguous) as the kernel writes it.  The selective scan is
+its step recurrence, one Python step per time step.  The wrappers in this
 package run them for tensors that lie on the CPU; ``chip_smoke.py`` holds
 each kernel against them on the card.
 """
@@ -42,3 +43,29 @@ def ttm_full_ref(x: torch.Tensor, u: torch.Tensor, mode: int) -> torch.Tensor:
 def gram_full_ref(x: torch.Tensor, mode: int) -> torch.Tensor:
     xm = torch.movedim(x.float(), mode, 0).reshape(x.shape[mode], -1)
     return torch.matmul(xm, xm.T)
+
+
+def s6_scan_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+                cmat: torch.Tensor, a: torch.Tensor,
+                h0: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan by its step recurrence (the body of the
+    reference's Pallas kernel, ``repro/kernels/s6_scan.py:37-45``), from
+    the state ``h0`` (zeros when None):
+
+        h_t = exp(dt_t * a) * h_{t-1} + (dt_t * x_t) ⊗ B_t,   y_t = h_t · C_t
+
+    x, dt: (B, T, Di); bmat, cmat: (B, T, N); a: (Di, N); h0: (B, Di, N).
+    Returns y (B, T, Di) and the final state (B, Di, N), both fp32."""
+    x, dt, bmat, cmat, a = (v.float() for v in (x, dt, bmat, cmat, a))
+    bsz, t, di = x.shape
+    h = (torch.zeros((bsz, di, a.shape[1]), dtype=torch.float32,
+                     device=x.device)
+         if h0 is None else h0.float().clone())
+    y = torch.empty((bsz, t, di), dtype=torch.float32, device=x.device)
+    dx = dt * x
+    for i in range(t):
+        da = torch.exp(dt[:, i, :, None] * a)
+        h = da * h + dx[:, i, :, None] * bmat[:, i, None, :]
+        y[:, i] = (h * cmat[:, i, None, :]).sum(-1)
+    return y, h

@@ -1,0 +1,63 @@
+"""Serving entry point: batched requests through the slot engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        [--smoke] --requests 6 --max-new 16 [--slots 4] [--max-len 256] \
+        [--device cpu]
+
+Runs on ``cuda:0`` and raises without CUDA unless ``--device cpu`` is given.
+Weights are random, from ``torch.Generator(device).manual_seed(0)``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import configs
+from ..core.api import resolve_device
+from ..models import build
+from ..serve.engine import Request, ServeEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--ckpt", default=None, help="checkpoint dir to restore")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda:0; 'cpu' to run there)")
+    args = ap.parse_args(argv)
+    if args.ckpt:
+        raise NotImplementedError(
+            "--ckpt: checkpoint/ is not ported yet (ROADMAP.md Queue 1 "
+            "item 11)")
+
+    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    device = resolve_device(args.device)
+    bundle = build(cfg)
+    params = bundle.init(0, device)
+    eng = ServeEngine(bundle, params, batch_slots=args.slots,
+                      max_len=args.max_len)
+    reqs = [Request(prompt=[1 + i, 2, 3, 4 + i], max_new_tokens=args.max_new,
+                    rid=i) for i in range(args.requests)]
+    t0 = time.perf_counter()
+    outs = eng.run(reqs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    tok = sum(len(r.output) for r in outs)
+    print(f"{tok} tokens in {dt:.2f}s ({tok/dt:.1f} tok/s across "
+          f"{args.slots} slots on {device})")
+    for r in outs:
+        print(f"  req {r.rid}: {r.prompt} → {r.output}")
+    return outs
+
+
+if __name__ == "__main__":
+    main()

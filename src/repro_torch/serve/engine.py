@@ -1,0 +1,123 @@
+"""Batched LM serving: slot-based continuous batching over the decode step.
+
+The port of ``repro/serve/engine.py``'s ``ServeEngine``.  Requests are
+admitted into fixed batch slots; each slot tracks its own position;
+finished slots (EOS, max_new_tokens or max_len) are refilled from the queue
+without stopping the batch.  The decode step always runs every slot
+(inactive slots decode a dummy token whose result is dropped).  Prefill
+runs per request, on the slot's stripe of the batched cache, and the
+stripe is copied back.
+
+One deliberate difference: an admitted request's prefill starts from a
+zeroed stripe.  The reference prefills from whatever the slot's previous
+occupant (and the dummy decodes since) left there, so for a state-space
+model a refilled slot continues the old request's state; see
+``ROADMAP.md`` Queue 3.
+
+``TuckerBatchEngine`` waits for the serve slice (``ROADMAP.md`` Queue 1
+item 9).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..models.registry import ModelBundle
+
+
+@dataclass
+class Request:
+    prompt: list[int]
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    rid: int = 0
+    output: list[int] = field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Serves ``requests`` on ``batch_slots`` slots with ``params`` (an
+    ``LM`` built by ``bundle``), on the device the parameters live on.
+    Sampling above temperature 0 draws from a ``torch.Generator`` on that
+    device seeded with ``seed``."""
+
+    def __init__(self, bundle: ModelBundle, params, *, batch_slots: int = 4,
+                 max_len: int = 256, eos_id: int | None = None, seed: int = 0):
+        self.b = batch_slots
+        self.max_len = max_len
+        self.eos = eos_id
+        self.device = params.embed.device
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.cache = bundle.init_cache(batch_slots, max_len, device=self.device)
+        self.pos = np.zeros(batch_slots, np.int64)
+        self.slot_req: list[Request | None] = [None] * batch_slots
+        self._decode = lambda tok, cache, pos: bundle.decode(params, tok,
+                                                             cache, pos)
+        self._prefill = lambda tokens, cache: bundle.prefill(
+            params, {"tokens": tokens}, cache)
+
+    # -- slot management -----------------------------------------------------
+    def _admit(self, req: Request, slot: int):
+        toks = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
+        fresh = {k: torch.zeros_like(v[:, slot:slot + 1])
+                 for k, v in self.cache.items()}
+        logits, slot_cache = self._prefill(toks, fresh)
+        for k, v in self.cache.items():
+            v[:, slot:slot + 1].copy_(slot_cache[k])
+        self.pos[slot] = len(req.prompt)
+        self.slot_req[slot] = req
+        first = self._sample(logits[:, -1], np.array([req.temperature]))
+        req.output.append(int(first[0]))
+
+    def _sample(self, logits: torch.Tensor, temps) -> np.ndarray:
+        """Next token per row: greedy at temperature 0, categorical above.
+
+        ``temps`` is one temperature per logits row (slots run mixed
+        temperatures in one batched step).  The generator is only drawn
+        from when some row actually samples, so an all-greedy batch is
+        deterministic and leaves it untouched."""
+        temps = np.asarray(temps, np.float32)
+        greedy = logits.argmax(-1).cpu().numpy()
+        if not (temps > 0).any():
+            return greedy
+        t = torch.as_tensor(np.maximum(temps, 1e-6), device=logits.device)
+        probs = torch.softmax(logits / t[:, None], dim=-1)
+        sampled = torch.multinomial(probs, 1, generator=self.gen)[:, 0]
+        return np.where(temps > 0, sampled.cpu().numpy(), greedy)
+
+    # -- main loop ---------------------------------------------------------
+    @torch.no_grad()
+    def run(self, requests: list[Request]) -> list[Request]:
+        queue = list(requests)
+        while queue or any(r is not None for r in self.slot_req):
+            # fill empty slots
+            for s in range(self.b):
+                if self.slot_req[s] is None and queue:
+                    self._admit(queue.pop(0), s)
+            # one batched decode step: each slot's last token at its OWN
+            # position (per-slot position vector)
+            last = np.zeros((self.b, 1), np.int64)
+            temps = np.zeros(self.b, np.float32)
+            for s, r in enumerate(self.slot_req):
+                if r is not None and r.output:
+                    last[s, 0] = r.output[-1]
+                    temps[s] = r.temperature
+            logits, self.cache = self._decode(
+                torch.from_numpy(last).to(self.device), self.cache,
+                torch.from_numpy(self.pos.copy()))
+            nxt = self._sample(logits[:, 0], temps)
+            for s, r in enumerate(self.slot_req):
+                if r is None:
+                    continue
+                tok = int(nxt[s])
+                r.output.append(tok)
+                self.pos[s] += 1
+                if (self.eos is not None and tok == self.eos) or \
+                        len(r.output) >= r.max_new_tokens or \
+                        self.pos[s] >= self.max_len - 1:
+                    r.done = True
+                    self.slot_req[s] = None
+        return requests
