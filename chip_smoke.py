@@ -21,7 +21,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
             more than 2**31 elements (every kernel path), then at the main
             paths' full-size shapes, where the kernel, its plain version and
             one PyTorch library call (none computes a selective scan) are
-            timed (CUDA events, median of warm runs) beside the bound.
+            timed (CUDA events around one call, median of warm runs; and
+            the CUDA kernels' own time under torch.profiler) beside the
+            bound and each CUDA kernel's registers, resident blocks per SM,
+            grid and waves.  S6 is also timed at every shape the serve run
+            gives it, on both of its routes.
 4. main     ``plan -> execute`` with ``impl="auto"`` on the paper's Table III
             Boats (320, 240, 7000) and HSI (1021, 1340, 33, 8) tensors at full
             size: the plan must resolve to the ``hopper`` backend, every
@@ -35,7 +39,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
             with 4 slots answers 6 requests (prompts of 37 to 8191 tokens,
             32 new tokens each, one sampled at temperature 0.8): every
             request gets 32 valid tokens, all logits are finite, and the S6
-            kernel launches 64 times per prefill and per decode step.  Then
+            wrapper launches 64 times per prefill and per decode step (one
+            CUDA kernel a call on its single-pass route, three on its
+            chunked route).  Then
             the state carry: on the same model cast to fp32, a fresh prefill
             over a greedy request's prompt plus its first 8 tokens must
             reproduce the logits its decode step produced (same argmax, max
@@ -47,6 +53,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 6. kernels  one JSON line listing every kernel with its numbers; then the
             ``nvidia-smi`` name/power-limit line; then the final
             ``{"ok": true, "device": ...}`` line.
+
+``python3 chip_smoke.py --only kernels`` runs phases 1-3 only (the quick
+check after a kernel edit) and prints no kernels line.
 
 Imports nothing of JAX nor of the JAX package ``repro``.
 """
@@ -234,6 +243,7 @@ def phase_kernel_shapes(torch):
     torch.cuda.synchronize()
     emit("kernels_small", cases=n, dtypes=["float32", "bfloat16"],
          max_abs_err=worst, tol_rel=TOL, ok=True)
+    phase_ttm_shapes(torch)
     phase_s6_shapes(torch)
 
 
@@ -271,27 +281,85 @@ def phase_s6_shapes(torch):
     """The S6 kernel against its step recurrence: the shapes of the
     reference's kernel and scan tests, ragged T/Di/N, every states-per-lane
     width (N = 4 ... 64), T = 1 from a nonzero state (the decode step),
-    strided B/C; y and the final state, fp32 and bf16."""
+    strided B/C; y and the final state, fp32 and bf16.  Then both routes
+    around the chunked route's edges: T at its threshold on the model's
+    width (the wrapper's own choice), the chunked route forced at T = Lc - 1,
+    Lc, Lc + 1, 2 Lc + 3 for its shortest chunk at batch 1 and 2, with and
+    without h0, over every state width it templates, and longer chunks at
+    their edges (batch 8 at the model's width, where the chunk grows)."""
     from repro_torch.kernels import ref, s6_scan
+    s6 = s6_module()
     g = torch.Generator(device="cuda").manual_seed(4)
-    # (B, T, Di, N, strided, h0)
-    cases = [(2, 128, 64, 8, False, False), (1, 64, 32, 4, False, False),
-             (3, 96, 16, 16, False, False), (2, 37, 5, 4, False, True),
-             (2, 77, 200, 16, True, True), (2, 33, 70, 5, True, False),
-             (1, 40, 48, 32, False, True), (1, 50, 40, 64, True, True),
-             (3, 1, 100, 16, True, True), (4, 1, 8192, 16, True, True)]
-    worst, n = 0.0, 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lc = s6.CHUNK_MIN
+    # (B, T, Di, N, strided, h0, force_route)
+    cases = [(2, 128, 64, 8, False, False, None), (1, 64, 32, 4, False, False, None),
+             (3, 96, 16, 16, False, False, None), (2, 37, 5, 4, False, True, None),
+             (2, 77, 200, 16, True, True, None), (2, 33, 70, 5, True, False, None),
+             (1, 40, 48, 32, False, True, None), (1, 50, 40, 64, True, True, None),
+             (3, 1, 100, 16, True, True, None), (4, 1, 8192, 16, True, True, None)]
+    t_min = -(-s6.CHUNKED_MIN_WORK // 8192)
+    for bsz in (1, 2):
+        tb = -(-t_min // bsz)
+        cases += [(bsz, t, 8192, 16, True, h0, None)
+                  for t in (tb - 1, tb, tb + 1) for h0 in (False, True)]
+        cases += [(bsz, t, 200, n, True, h0, "chunked")
+                  for t in (lc - 1, lc, lc + 1, 2 * lc + 3)
+                  for n, h0 in ((16, False), (16, True), (5, True))]
+    cases += [(2, 2 * lc + 3, 70, n, False, True, "chunked") for n in (4, 8, 32, 64)]
+    cases += [(8, t, 8192, 16, True, True, None) for t in (255, 256, 257, 515, 1027)]
+    chunks = sorted({s6.chunk_len(b, t, di, sms) for b, t, di, *_ in cases})
+    worst, n_cases, routes = 0.0, 0, {"single": 0, "chunked": 0}
     for dtype in (torch.float32, torch.bfloat16):
-        for bsz, t, di, ns, strided, h0 in cases:
+        for bsz, t, di, ns, strided, h0, force in cases:
             ops = s6_inputs(torch, g, bsz, t, di, ns, dtype, strided=strided,
                             h0=h0)
-            (y, hf), (yr, hr) = s6_scan(*ops), ref.s6_scan_ref(*ops)
+            y, hf = s6_scan(*ops, force_route=force)
+            yr, hr = ref.s6_scan_ref(*ops)
             worst = max(worst, close(y, yr), close(hf, hr))
-            n += 1
+            routes[force or s6.route(bsz, t, di)] += 1
+            n_cases += 1
     torch.cuda.synchronize()
-    emit("kernels_small", name="s6_scan", cases=n,
+    emit("kernels_small", name="s6_scan", cases=n_cases, routes=routes,
+         chunk_lens=chunks, chunked_min_work=s6.CHUNKED_MIN_WORK,
          dtypes=["float32", "bfloat16"], max_abs_err=worst, tol_rel=TOL,
          ok=True)
+
+
+def phase_ttm_shapes(torch):
+    """The interior TTM on its own: R across the widths it templates and
+    its slabs (4, 10, 16, 20), B = 1 and 8 (the plain-load path), 264 (the
+    bulk-copy ring on tiles of whole values of a) and 1536 (the ring on
+    1024-column ranges that cut across values of a), u in two shared-memory
+    segments (I = 2000 at R = 16), and x at an address that is not 16-byte
+    aligned (the plain path), fp32 and bf16."""
+    from repro_torch.kernels import ref, ttm_interior
+    g = torch.Generator(device="cuda").manual_seed(7)
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+        cases = [(rnd(r, 45), rnd(7, 45, b)) for r in (4, 10, 16, 20)
+                 for b in (1, 8, 264)]
+        cases += [(rnd(r, 45), rnd(3, 45, 1536)) for r in (10, 20)]
+        cases.append((rnd(16, 2000), rnd(3, 2000, 264)))
+        flat = rnd(5 * 37 * 264 + 1)
+        cases.append((rnd(10, 37), flat[1:].view(5, 37, 264)))
+        for u, x in cases:
+            worst = max(worst, close(ttm_interior(u, x),
+                                     ref.ttm_interior_ref(u, x)))
+            n += 1
+    torch.cuda.synchronize()
+    emit("kernels_small", name="ttm_interior", cases=n,
+         dtypes=["float32", "bfloat16"], max_abs_err=worst, tol_rel=TOL,
+         ok=True)
+
+
+def s6_module():
+    """The wrapper module of the S6 kernel (the package attribute
+    ``s6_scan`` is the function)."""
+    import importlib
+    return importlib.import_module("repro_torch.kernels.s6_scan")
 
 
 def phase_kernels_large(torch):
@@ -355,8 +423,13 @@ def phase_s6_large(torch):
 
 
 def phase_kernels_full(torch, peaks):
-    """Each kernel at the main paths' shapes: correctness, times, bound."""
+    """Each kernel at the main paths' shapes: correctness, times, bound, and
+    the launch figures of each CUDA kernel it runs (registers per thread,
+    resident blocks per SM, grid blocks and waves)."""
+    import importlib
     from repro_torch.kernels import matmul, ref, s6_scan, ttm_interior, ttt3
+    ttt_mod, matmul_mod, ttm_mod = (importlib.import_module(
+        f"repro_torch.kernels.{m}") for m in ("ttt", "matmul", "ttm"))
     bw, fl, sfu = peaks
     g = torch.Generator(device="cuda").manual_seed(2)
 
@@ -369,7 +442,8 @@ def phase_kernels_full(torch, peaks):
 
     out = {}
 
-    def measure(name, shape_desc, kernel, plain, library, nbytes, flops):
+    def measure(name, shape_desc, kernel, plain, library, nbytes, flops,
+                launch):
         got, want = kernel(), plain()
         err = close(got, want)
         del got, want
@@ -378,17 +452,18 @@ def phase_kernels_full(torch, peaks):
                          ms=time_ms(torch, kernel),
                          plain_ms=time_ms(torch, plain),
                          library_ms=time_ms(torch, library),
+                         device_ms=device_ms(torch, kernel),
+                         library_device_ms=device_ms(torch, library),
                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                         flops=flops)
+                         flops=flops, launch=launch)
         emit("kernel_full", name=name, **out[name])
 
     # s6_scan: the longest prefill, (B, T, Di, N) = (1, 8191, 8192, 16), as
     # the model hands it over: bf16 x, strided bf16 B/C, fp32 dt from the
     # dt_bias softplus, the model's a = -(1..N), the zeroed cached state.
-    # Bound: the larger of its bytes (x, dt, B, C, a, h0 read once; y and
-    # h_final written once) over HBM, its T·Di·N exponentials over the SFU
-    # rate and its 6·T·Di·N other fp32 operations over the FP32 rate.
-    # The plain version is a T-step loop: timed over 3 runs.
+    # Bound: the function's own (s6_bound), whatever route runs it.  The
+    # plain version is a T-step loop: timed over 3 runs.
+    s6 = s6_module()
     t, di, n = 8191, 8192, 16
     g6 = torch.Generator(device="cuda").manual_seed(6)
     x6, dt6, bm6, cm6, _, _ = s6_inputs(torch, g6, 1, t, di, n, torch.bfloat16,
@@ -399,39 +474,42 @@ def phase_kernels_full(torch, peaks):
     (y6, hf6), (yr6, hr6) = s6_scan(*s6_args), ref.s6_scan_ref(*s6_args)
     err6 = max(close(y6, yr6), close(hf6, hr6))
     del y6, hf6, yr6, hr6
-    nbytes6 = (t * di * (2 + 4 + 4) + 2 * t * n * 2 + 3 * di * n * 4)
-    exps = t * di * n
-    terms = {"bytes": nbytes6 / bw * 1e3, "exponentials": exps / sfu * 1e3,
-             "fp32 operations": 6.0 * exps / fl * 1e3}
-    by = max(terms, key=terms.get)
+    terms, by, nbytes6, exps = s6_bound(1, t, di, n, 2, peaks)
     out["s6_scan"] = dict(
         shapes="x (1, 8191, 8192) bf16, dt fp32, B/C (1, 8191, 16) bf16 "
                "strided, a (8192, 16), h0 zeros",
+        route=s6.route(1, t, di),
         dt_mean=float(dt6.mean()), dt_p99=float(dt6.flatten()[
             :: 97].quantile(0.99)),
         max_abs_err=err6, ms=time_ms(torch, lambda: s6_scan(*s6_args)),
+        device_ms=device_ms(torch, lambda: s6_scan(*s6_args)),
         plain_ms=time_ms(torch, lambda: ref.s6_scan_ref(*s6_args), runs=3),
         library_ms=None, bound_ms=terms[by],
         bound_by="bytes" if by == "bytes" else "operations",
         bound_terms_ms=terms, bytes=nbytes6, exponentials=exps,
         rates={"hbm_bytes_per_s": bw, "sfu_exp_per_s": sfu,
-               "fp32_flop_per_s": fl})
+               "fp32_flop_per_s": fl},
+        launch={r: s6.launch_info(1, t, di, n, torch.bfloat16, r)
+                for r in s6.ROUTES})
     emit("kernel_full", name="s6_scan", **out["s6_scan"])
     del x6, dt6, bm6, cm6, a6, h06, s6_args
     torch.cuda.empty_cache()
+    out["s6_scan"]["by_shape"] = phase_s6_by_shape(torch, peaks)
 
     # ttt: the Boats mode-2 ALS TTT (B = 1, a 76,800-deep reduction)
     x, y = rnd(76800, 7000, 1), rnd(76800, 10, 1)
     measure("ttt", "x (76800, 7000, 1) fp32, y (76800, 10, 1) fp32",
             lambda: ttt3(x, y), lambda: ref.ttt_ref(x, y),
             lambda: torch.tensordot(x, y, dims=([0, 2], [0, 2])),
-            4 * (x.numel() + y.numel() + 7000 * 10), 2.0 * 76800 * 7000 * 10)
+            4 * (x.numel() + y.numel() + 7000 * 10), 2.0 * 76800 * 7000 * 10,
+            ttt_mod.launch_info(x, y))
     # matmul: the Boats mode-2 TTM, x2 (76800, 7000) @ u^T (7000, 10)
     a, b = x.view(76800, 7000), rnd(7000, 10)
     measure("matmul", "(76800, 7000) @ (7000, 10) fp32",
             lambda: matmul(a, b), lambda: ref.matmul_ref(a, b),
             lambda: torch.matmul(a, b),
-            4 * (a.numel() + b.numel() + 76800 * 10), 2.0 * 76800 * 7000 * 10)
+            4 * (a.numel() + b.numel() + 76800 * 10), 2.0 * 76800 * 7000 * 10,
+            matmul_mod.launch_info(a, b))
     del x, y, a, b
     torch.cuda.empty_cache()
     # gram: the HSI mode-1 EIG Gram; ttm_interior: the HSI mode-1 TTM.  The
@@ -441,16 +519,101 @@ def phase_kernels_full(torch, peaks):
     measure("gram", "x (1021, 1340, 264) fp32 -> (1340, 1340)",
             lambda: ttt3(x, x), lambda: ref.gram_ref(x),
             lambda: torch.tensordot(x, x, dims=([0, 2], [0, 2])),
-            4 * (x.numel() + 1340 * 1340), 1.0 * 1021 * 264 * 1340 * 1341)
+            4 * (x.numel() + 1340 * 1340), 1.0 * 1021 * 264 * 1340 * 1341,
+            ttt_mod.launch_info(x, x))
     u = rnd(10, 1340)
     measure("ttm_interior", "u (10, 1340), x (1021, 1340, 264) fp32",
             lambda: ttm_interior(u, x), lambda: ref.ttm_interior_ref(u, x),
             lambda: torch.matmul(u, x),
             4 * (x.numel() + u.numel() + 1021 * 10 * 264),
-            2.0 * 1021 * 264 * 1340 * 10)
+            2.0 * 1021 * 264 * 1340 * 10, ttm_mod.launch_info(u, x))
     del x, u
     torch.cuda.empty_cache()
     return out
+
+
+def s6_bound(bsz, t, di, n, xbytes, peaks):
+    """The selective scan's own bound at (bsz, t, di, n): the larger of its
+    bytes (x, dt, B, C, a, h0 read once; y, h_final written once; B and C
+    bf16 when x is) over HBM, its T·Di·N exponentials over the SFU rate and
+    its 6·T·Di·N other fp32 operations over the FP32 rate.  Returns (terms
+    in ms, the name of the largest, bytes, exponentials)."""
+    bw, fl, sfu = peaks
+    nbytes = (bsz * t * di * (xbytes + 4 + 4) + 2 * bsz * t * n * xbytes
+              + di * n * 4 + 2 * bsz * di * n * 4)
+    exps = bsz * t * di * n
+    terms = {"bytes": nbytes / bw * 1e3, "exponentials": exps / sfu * 1e3,
+             "fp32 operations": 6.0 * exps / fl * 1e3}
+    return terms, max(terms, key=terms.get), nbytes, exps
+
+
+def device_ms(torch, fn, runs: int = 5) -> float:
+    """Device time of one call of ``fn``: the CUDA kernels' durations summed
+    under torch.profiler over ``runs`` warm calls, divided by ``runs``.
+    Unlike CUDA events around a call, it leaves out the host's time, which
+    at small shapes is longer than the kernels'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / runs / 1e3
+
+
+def phase_s6_by_shape(torch, peaks):
+    """S6 at each shape the serve run gives it -- batch-1 prefills of the
+    six prompt lengths and the 4-slot decode step -- on the route the
+    wrapper picks, and on both routes ("single" is the one-pass kernel of
+    PR 12), each beside the function's own bound: CUDA events around a
+    call (ms) and the kernels' own time (device_ms); then the route sweep
+    that places the chunked route's threshold at (1, T, 8192, 16)."""
+    from repro_torch.kernels import s6_scan
+    s6 = s6_module()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    di, n = 8192, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(1, t) for t in PROMPTS] + [(4, 1)]
+    rows = []
+    for bsz, t in shapes:
+        x, dt, bm, cm, _, h0 = s6_inputs(torch, g, bsz, t, di, n,
+                                         torch.bfloat16, strided=True,
+                                         h0=True, model_dt=True)
+        a = model_a(torch, di, n)
+        terms, by, _, _ = s6_bound(bsz, t, di, n, 2, peaks)
+        ms, dev = {}, {}
+        for r in s6.ROUTES:
+            def call(r=r):
+                return s6_scan(x, dt, bm, cm, a, h0, force_route=r)
+            ms[r], dev[r] = time_ms(torch, call, runs=21), device_ms(torch, call)
+        route = s6.route(bsz, t, di)
+        rows.append(dict(shape=[bsz, t, di, n], route=route, ms=ms[route],
+                         ms_by_route=ms, device_ms_by_route=dev,
+                         chunk_len=s6.chunk_len(bsz, t, di, sms),
+                         bound_ms=terms[by], bound_by=by,
+                         launch=s6.launch_info(bsz, t, di, n, torch.bfloat16)))
+        emit("s6_by_shape", **rows[-1])
+        del x, dt, bm, cm, a, h0
+    sweep = []
+    for t in (32, 64, 96, 128, 160, 192, 256, 384, 512):
+        x, dt, bm, cm, _, h0 = s6_inputs(torch, g, 1, t, di, n, torch.bfloat16,
+                                         strided=True, h0=True, model_dt=True)
+        a = model_a(torch, di, n)
+        row = dict(t=t, work=t * di)
+        for r in s6.ROUTES:
+            def call(r=r):
+                return s6_scan(x, dt, bm, cm, a, h0, force_route=r)
+            row[r], row[r + "_device"] = (time_ms(torch, call, runs=21),
+                                          device_ms(torch, call))
+        sweep.append(row)
+    emit("s6_route_sweep", shape="(1, T, 8192, 16) bf16", rows=sweep,
+         chunked_min_work=s6.CHUNKED_MIN_WORK)
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +908,14 @@ def carry_stats(torch, bundle, params, req, dec) -> dict:
 
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("kernels",),
+                    help="run env, build and the kernel phases (small and "
+                         "full-size shapes) only: no large operands, main "
+                         "path or serve run, and no kernels line")
+    args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -760,6 +930,10 @@ def main() -> int:
         smi, peaks = phase_env(torch)
         phase_build()
         phase_kernel_shapes(torch)
+        if args.only == "kernels":
+            phase_kernels_full(torch, peaks)
+            print(smi, flush=True)
+            return 0
         phase_kernels_large(torch)
         full = phase_kernels_full(torch, peaks)
         launched = phase_main(torch)
@@ -775,11 +949,17 @@ def main() -> int:
         row = dict(name=name, route="cuda", **meta, launches=launched[name],
                    max_abs_err=m["max_abs_err"], ms=m["ms"],
                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-                   bound_by=m["bound_by"], library_ms=m["library_ms"])
+                   bound_by=m["bound_by"], library_ms=m["library_ms"],
+                   device_ms=m["device_ms"],
+                   library_device_ms=m.get("library_device_ms"),
+                   launch=m["launch"])
+        if name == "s6_scan":
+            row["by_shape"] = m["by_shape"]
         if name == "ttt":
             row["gram"] = {k: full["gram"][k] for k in
                            ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")}
+                            "bound_by", "library_ms", "device_ms",
+                            "library_device_ms", "launch")}
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

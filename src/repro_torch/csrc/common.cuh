@@ -16,6 +16,23 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 
 inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
+// Launch figures of one kernel, for reports: out[0..3] = registers per
+// thread, threads per block, resident blocks per SM (the occupancy
+// calculator's, at smem bytes of dynamic shared memory) and grid blocks.
+template <typename F>
+cudaError_t describe(F* fn, int threads, long long blocks, int* out, size_t smem = 0) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+  out[0] = attr.numRegs;
+  out[1] = threads;
+  out[2] = per_sm;
+  out[3] = (int)blocks;
+  return err;
+}
+
 }  // namespace atucker
 
 extern "C" const char* atucker_error_string(int err) {

@@ -175,16 +175,19 @@ contract_kernel(Operand P, Operand Q, float* __restrict__ out, long long K,
   }
 }
 
+// info != nullptr: report the launch figures (describe()) instead of launching
 template <typename T, int TW1, int TW2, int TK, int M1, int M2>
 cudaError_t launch_contract(const Operand& P, const Operand& Q, float* out, long long K,
                             int splits, long long k_per_split, bool sym,
-                            cudaStream_t st) {
+                            cudaStream_t st, int* info = nullptr) {
   constexpr int THREADS = (TW1 / M1) * (TW2 / M2);
   if (k_per_split % TK != 0 || splits < 1 || splits > 65535) return cudaErrorInvalidValue;
   const long long n1 = (P.wdim + TW1 - 1) / TW1, n2 = (Q.wdim + TW2 - 1) / TW2;
   if (sym && (TW1 != TW2 || P.wdim != Q.wdim)) return cudaErrorInvalidValue;
   const long long gx = sym ? n1 * (n1 + 1) / 2 : n1 * n2;
   if (gx > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (info != nullptr)
+    return describe(contract_kernel<T, TW1, TW2, TK, M1, M2>, THREADS, gx * splits, info);
   dim3 grid((unsigned)gx, 1, splits);
   contract_kernel<T, TW1, TW2, TK, M1, M2><<<grid, THREADS, 0, st>>>(
       P, Q, out, K, k_per_split, sym ? 1 : 0);

@@ -22,13 +22,13 @@ namespace {
 
 template <typename T>
 cudaError_t dispatch(const void* a, const void* b, float* c, int M, int N, int K,
-                     cudaStream_t st) {
+                     cudaStream_t st, int* info = nullptr) {
   const Operand P{a, K, (long long)M * K, M}, Q{b, 1, N, N};
   const long long k_all = ((long long)K + 31) / 32 * 32;  // one split: all of K
   if (N <= M)  // last mode: X (J, I) @ u^T
-    return launch_contract<T, 128, 16, 32, 4, 2>(P, Q, c, K, 1, k_all, false, st);
+    return launch_contract<T, 128, 16, 32, 4, 2>(P, Q, c, K, 1, k_all, false, st, info);
   // first mode: u @ X (I, J)
-  return launch_contract<T, 16, 128, 32, 2, 4>(P, Q, c, K, 1, k_all, false, st);
+  return launch_contract<T, 16, 128, 32, 2, 4>(P, Q, c, K, 1, k_all, false, st, info);
 }
 
 }  // namespace
@@ -40,5 +40,17 @@ extern "C" int atucker_matmul(const void* a, const void* b, void* c, int M, int 
   float* out = static_cast<float*>(c);
   if (dtype == kFloat32) return (int)dispatch<float>(a, b, out, M, N, K, st);
   if (dtype == kBFloat16) return (int)dispatch<__nv_bfloat16>(a, b, out, M, N, K, st);
+  return cudaErrorInvalidValue;
+}
+
+// Launch figures of a call of this shape, for reports: out[0..3] =
+// registers per thread, threads per block, resident blocks per SM and grid
+// blocks (out[4..11] zero: one kernel).
+extern "C" int atucker_matmul_info(int M, int N, int K, int dtype, int* out) {
+  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  for (int i = 0; i < 12; ++i) out[i] = 0;
+  if (dtype == kFloat32) return (int)dispatch<float>(nullptr, nullptr, nullptr, M, N, K, 0, out);
+  if (dtype == kBFloat16)
+    return (int)dispatch<__nv_bfloat16>(nullptr, nullptr, nullptr, M, N, K, 0, out);
   return cudaErrorInvalidValue;
 }

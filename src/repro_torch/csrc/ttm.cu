@@ -2,78 +2,422 @@
 //
 // Replaces the Pallas kernel repro/kernels/ttm.py::ttm_interior.  R is small
 // (a few dozen at most) and x large, so the kernel is bound by the bytes of
-// x.  Each thread owns one output column j = (a, b) of the flattened A*B
-// axis -- consecutive threads take consecutive b, the contiguous axis, so
-// every load of x is coalesced straight from its native layout with no
-// unfold -- loops over I inside the block, and keeps all TR outputs of its
-// column in registers.  u is staged in shared memory (transposed, read as a
-// broadcast).  With R <= TR every element of x is read exactly once; a
-// larger R takes more TR-wide slabs along grid.y, each reading x again.
-// Flattening (a, b) keeps every thread busy whatever B is (a 264-wide B
-// would waste half of a 256-wide b tile).  fp32 FFMA accumulation; ragged
-// edges are masked, nothing is padded.
+// x: at u (10, 1340), x (1021, 1340, 264) fp32 that is 1.445 GB, 0.435 ms at
+// 3.35 TB/s, against 0.108 ms of FFMA.
+//
+// Design.  The output columns j = (a, b) of the flattened A*B axis are cut
+// into tiles, times the slabs of R below.  Every tile reads all I rows of
+// its columns, so all work units are equally long, and a persistent grid --
+// as many blocks as fit on the SMs, one per SM -- walks them in turn.  The
+// one-thread-per-column design before it ran 2,106 whole-length blocks at 7
+// per SM: two full waves and a thin third.
+//
+// Each block has one producer warp and 8 consumer warps.  The producer
+// fills a double-buffered ring of 64 KB shared-memory stages, TI rows of the
+// tile's columns each, by cp.async.bulk copies that complete on an mbarrier
+// by transaction count.  When B <= NJ a tile is k whole values of a (k*B <=
+// NJ, k chosen for the fewest rounds of the grid), so a stage is one
+// contiguous copy of x[a, i0 : i0 + TI, :] per value of a; with B > NJ a
+// tile is NJ consecutive columns and a stage takes one copy per row and
+// value of a.  Few large copies per stage matter: on the H100 the same ring
+// fed by row-sized copies streamed x markedly slower.
+// Each consumer thread owns CPT columns of the tile and keeps their TR
+// outputs in registers; u is loaded into shared memory once per block (as
+// us[i][RP], read as float4 broadcasts), and again only when the slab of R
+// changes or when R*I does not fit in U_MAX_FLOATS, which takes u in
+// segments of rows.
+//
+// R runs exactly: TR is a template on the widths the paths use (4, 8, 10,
+// 12, 16); an R between them takes the next width, with zero rows of u; an
+// R above 16 is cut into ceil(R / 16) equal slabs, each reading x again.
+//
+// A bulk copy needs 16-byte aligned rows, so the ring runs when a row of x
+// (B elements) is a multiple of 16 bytes, at least 128 bytes, and x is
+// 16-byte aligned.  Any other shape (B = 1, odd B, small B) takes the plain
+// path of the same kernel: no producer, each consumer thread loads its
+// columns' elements from memory itself (coalesced along b).
+//
+// fp32 FFMA accumulation (TF32 cannot meet the fp32 tolerance); bf16 x and u
+// are converted on load.  Ragged edges are masked, nothing is padded, and
+// memory is indexed in 64 bits.
 #include "common.cuh"
 
 using namespace atucker;
 
 namespace {
 
-template <typename T, int TJ, int TR, int TI>
-__global__ void __launch_bounds__(TJ)
-ttm_interior_kernel(const T* __restrict__ u, const T* __restrict__ x,
-                    float* __restrict__ out, int A, int I, int B, int R) {
-  __shared__ __align__(16) float us[TI][TR];  // us[i][r] = u[r0 + r, i0 + i]
-  const long long J = (long long)A * B;
-  const long long j = (long long)blockIdx.x * TJ + threadIdx.x;
-  const int r0 = blockIdx.y * TR;
-  const bool valid = j < J;
-  int a = 0, b = 0;
-  if (valid) {
-    a = (int)(j / B);
-    b = (int)(j - (long long)a * B);
-  }
-  const T* xp = x + (long long)a * I * B + b;
-  float acc[TR];
-#pragma unroll
-  for (int r = 0; r < TR; ++r) acc[r] = 0.f;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int CT = CONSUMER_WARPS * 32;  // consumer threads
+constexpr int CPT = 4;                   // columns per consumer thread
+constexpr int NJ = CT * CPT;             // columns a stage holds
+constexpr int TI = 16;                   // rows of x per stage
+constexpr int STAGES = 2;
+constexpr int U_MAX_FLOATS = 24576;      // u in shared memory: <= 96 KB
+constexpr int MIN_BULK_ROW_BYTES = 128;
+constexpr int SLAB = 16;                 // widest R of one slab
 
-  for (int i0 = 0; i0 < I; i0 += TI) {
-    for (int e = threadIdx.x; e < TI * TR; e += TJ) {
-      const int ii = e % TI, rr = e / TI;  // consecutive threads walk i of u's row
-      const int i = i0 + ii, r = r0 + rr;
-      us[ii][rr] = (i < I && r < R) ? to_f32(u[(long long)r * I + i]) : 0.f;
-    }
-    __syncthreads();
-    const int iend = min(TI, I - i0);
-    if (valid) {
-#pragma unroll 8
-      for (int ii = 0; ii < iend; ++ii) {
-        const float xv = to_f32(xp[(long long)(i0 + ii) * B]);
-#pragma unroll
-        for (int rr = 0; rr < TR; ++rr) acc[rr] = fmaf(us[ii][rr], xv, acc[rr]);
-      }
-    }
-    __syncthreads();
+__host__ __device__ constexpr int padded(int tr) { return (tr + 3) / 4 * 4; }
+
+struct Plan {
+  long long J;       // A * B columns
+  long long W;       // columns per tile: NJ, or k whole rows of B when whole
+  long long units;   // slabs * column tiles
+  long long tiles;   // column tiles of W
+  int slabs, width;  // slabs of R, rows of u per slab (the last may be fewer)
+  int iseg;          // rows of u per shared-memory segment (all of I, or a multiple of TI)
+  int whole;         // tiles are whole values of a: one copy per a and stage
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.b32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of the given parity to complete.  A lost arrival would
+// spin forever; after ~8 s (2^34 cycles) the kernel traps instead, so the
+// launch fails with an error rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1LL << 34)) __trap();
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"r"(CT) : "memory");
+}
+
+// us[i][r] = u[r0 + r, i0 + i] for the rows [i0, i0 + n) of slab r0 (zeros
+// past the slab's rows); consumers only.
+template <typename T, int RP>
+__device__ void load_u(const T* __restrict__ u, float* us, int I, int r0, int rows, int i0,
+                       int n) {
+  consumer_sync();  // nobody still reads the previous segment
+  for (int e = threadIdx.x; e < n * RP; e += CT) {
+    const int i = e % n, r = e / n;  // consecutive threads walk i of u's row
+    us[i * RP + r] = r < rows ? to_f32(u[(long long)(r0 + r) * I + i0 + i]) : 0.f;
   }
-  if (!valid) return;
-  float* op = out + (long long)a * R * B + b;
+  consumer_sync();
+}
+
+// acc[c][r] += sum over the rows of u[r, row] * x[row, column c]: from a
+// shared-memory stage (column c at soff[c], rows rstride apart) ...
+template <typename T, int TR, int UNROLL>
+__device__ __forceinline__ void consume(float (&acc)[CPT][TR], const float* ub, const T* stage,
+                                        const int (&soff)[CPT], int rstride, int rows) {
+  constexpr int RP = padded(TR);
+#pragma unroll UNROLL
+  for (int row = 0; row < rows; ++row) {
+    float uv[RP];
 #pragma unroll
-  for (int rr = 0; rr < TR; ++rr) {
-    const int r = r0 + rr;
-    if (r < R) op[(long long)r * B] = acc[rr];
+    for (int r = 0; r < RP; r += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(ub + row * RP + r);
+      uv[r] = v.x, uv[r + 1] = v.y, uv[r + 2] = v.z, uv[r + 3] = v.w;
+    }
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const float xv = to_f32(stage[soff[c] + row * rstride]);
+#pragma unroll
+      for (int r = 0; r < TR; ++r) acc[c][r] = fmaf(uv[r], xv, acc[c][r]);
+    }
   }
 }
 
-template <typename T>
-cudaError_t dispatch(const void* u, const void* x, float* out, int A, int I, int B, int R,
-                     cudaStream_t st) {
-  constexpr int TJ = 128, TR = 16, TI = 64;
-  const long long blocks = ((long long)A * B + TJ - 1) / TJ;
-  if (blocks > 0x7fffffffLL || ceil_div(R, TR) > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)blocks, ceil_div(R, TR));
-  ttm_interior_kernel<T, TJ, TR, TI><<<grid, TJ, 0, st>>>(
-      static_cast<const T*>(u), static_cast<const T*>(x), out, A, I, B, R);
+// ... or straight from x (the plain path: row stride B, column c at col_off[c])
+template <typename T, int TR, int UNROLL>
+__device__ __forceinline__ void consume_global(float (&acc)[CPT][TR], const float* ub,
+                                               const T* __restrict__ xr,
+                                               const long long (&col_off)[CPT], int B,
+                                               int rows) {
+  constexpr int RP = padded(TR);
+#pragma unroll UNROLL
+  for (int row = 0; row < rows; ++row) {
+    float uv[RP];
+#pragma unroll
+    for (int r = 0; r < RP; r += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(ub + row * RP + r);
+      uv[r] = v.x, uv[r + 1] = v.y, uv[r + 2] = v.z, uv[r + 3] = v.w;
+    }
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const float xv = to_f32(xr[col_off[c] + (long long)row * B]);
+#pragma unroll
+      for (int r = 0; r < TR; ++r) acc[c][r] = fmaf(uv[r], xv, acc[c][r]);
+    }
+  }
+}
+
+template <typename T, int TR, bool BULK>
+__global__ void __launch_bounds__(BULK ? CT + 32 : CT, 1)
+ttm_interior_kernel(const T* __restrict__ u, const T* __restrict__ x, float* __restrict__ out,
+                    int A, int I, int B, int R, Plan p) {
+  constexpr int RP = padded(TR);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + STAGES;
+  T* xs = reinterpret_cast<T*>(smem + 128);  // STAGES x TI x NJ
+  float* us = reinterpret_cast<float*>(smem + 128 + (BULK ? STAGES * TI * NJ * sizeof(T) : 0));
+
+  const int tid = threadIdx.x;
+  if constexpr (BULK) {
+    if (tid == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], CONSUMER_WARPS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+  const int n_iblocks = (I + TI - 1) / TI;
+
+  if (BULK && tid >= CT) {
+    // ---- producer warp: fill the ring ----
+    const int lane = tid - CT;
+    long long it = 0;
+    for (long long unit = blockIdx.x; unit < p.units; unit += gridDim.x) {
+      const long long j0 = (unit % p.tiles) * p.W;
+      const long long j1 = min(p.J, j0 + p.W);
+      const long long a_lo = j0 / B;
+      const int nseg = (int)((j1 - 1) / B - a_lo + 1);
+      for (int ib = 0; ib < n_iblocks; ++ib, ++it) {
+        const int s = (int)(it % STAGES);
+        const uint32_t parity = (uint32_t)((it / STAGES) & 1);
+        const int i0 = ib * TI;
+        const int rows = min(TI, I - i0);
+        mbar_wait(&empty[s], parity ^ 1);
+        if (lane == 0) mbar_arrive_tx(&full[s], (uint32_t)(rows * (j1 - j0) * sizeof(T)));
+        __syncwarp();
+        T* stage = xs + (long long)s * TI * NJ;
+        if (p.whole) {
+          // x[a, i0 : i0 + rows, :] is contiguous: one copy per value of a
+          for (int q = lane; q < nseg; q += 32) {
+            const long long a = a_lo + q;
+            bulk_copy(stage + (long long)q * TI * B, x + (a * I + i0) * (long long)B,
+                      (uint32_t)((long long)rows * B * sizeof(T)), &full[s]);
+          }
+        } else {
+          for (int q = lane; q < rows * nseg; q += 32) {
+            const int row = q / nseg;
+            const long long a = a_lo + q % nseg;
+            const long long lo = max(j0, a * B), hi = min(j1, (a + 1) * B);
+            bulk_copy(stage + row * NJ + (lo - j0),
+                      x + (a * I + i0 + row) * (long long)B + (lo - a * B),
+                      (uint32_t)((hi - lo) * sizeof(T)), &full[s]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int lane = tid % 32;
+  const int nseg_u = (I + p.iseg - 1) / p.iseg;
+  int u_slab = -1;
+  long long it = 0;
+  for (long long unit = blockIdx.x; unit < p.units; unit += gridDim.x) {
+    const int slab = (int)(unit / p.tiles);
+    const int r0 = slab * p.width;
+    const int rows_r = min(p.width, R - r0);
+    const long long j0 = (unit % p.tiles) * p.W;
+    const long long j1 = min(p.J, j0 + p.W);
+    long long col_off[CPT];  // plain path: offset of (a, 0, b) of each column
+    int soff[CPT];           // bulk path: offset of the column in a stage
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const long long j = min(j0 + tid + c * CT, p.J - 1);
+      const long long a = j / B, b = j - a * B;
+      col_off[c] = a * I * (long long)B + b;
+      const bool mine = j0 + tid + c * CT < j1;  // else read, never stored
+      soff[c] = !p.whole ? tid + c * CT : mine ? (int)((a - j0 / B) * TI * B + b) : 0;
+    }
+    const int rstride = p.whole ? B : NJ;
+    float acc[CPT][TR];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int r = 0; r < TR; ++r) acc[c][r] = 0.f;
+
+    for (int ib = 0; ib < n_iblocks; ++ib, ++it) {
+      const int i0 = ib * TI;
+      if (i0 % p.iseg == 0 && (nseg_u > 1 || slab != u_slab)) {
+        load_u<T, RP>(u, us, I, r0, rows_r, i0, min(p.iseg, I - i0));
+        u_slab = slab;
+      }
+      const int rows = min(TI, I - i0);
+      const float* ub = us + (i0 % p.iseg) * RP;
+      if (BULK) {
+        const int s = (int)(it % STAGES);
+        mbar_wait(&full[s], (uint32_t)((it / STAGES) & 1));
+        const T* stage = xs + (long long)s * TI * NJ;
+        if (rows == TI)
+          consume<T, TR, TI>(acc, ub, stage, soff, rstride, TI);
+        else
+          consume<T, TR, 1>(acc, ub, stage, soff, rstride, rows);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      } else {
+        const T* xr = x + (long long)i0 * B;
+        if (rows == TI)
+          consume_global<T, TR, TI>(acc, ub, xr, col_off, B, TI);
+        else
+          consume_global<T, TR, 1>(acc, ub, xr, col_off, B, rows);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const long long j = j0 + tid + c * CT;
+      if (j >= j1) continue;
+      const long long a = j / B, b = j - a * B;
+      float* op = out + (a * R + r0) * (long long)B + b;
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+        if (r < rows_r) op[(long long)r * B] = acc[c][r];
+    }
+  }
+}
+
+Plan make_plan(int A, int I, int B, int R, int tr) {
+  Plan p;
+  p.J = (long long)A * B;
+  p.slabs = R <= SLAB ? 1 : (R + SLAB - 1) / SLAB;
+  p.width = (R + p.slabs - 1) / p.slabs;
+  p.W = NJ;
+  p.whole = 0;
+  p.tiles = (p.J + NJ - 1) / NJ;
+  p.units = p.tiles * p.slabs;
+  const int fit = U_MAX_FLOATS / padded(tr) / TI * TI;
+  p.iseg = I <= fit ? I : fit;
+  return p;
+}
+
+int width_template(int w) {
+  if (w <= 4) return 4;
+  if (w <= 8) return 8;
+  if (w <= 10) return 10;
+  if (w <= 12) return 12;
+  return 16;
+}
+
+bool use_bulk(const void* x, int B, int esize) {
+  const long long row = (long long)B * esize;
+  return row % 16 == 0 && row >= MIN_BULK_ROW_BYTES &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+template <typename T, int TR, bool BULK>
+size_t smem_bytes(const Plan& p) {
+  return 128 + (BULK ? (size_t)STAGES * TI * NJ * sizeof(T) : 0) +
+         (size_t)p.iseg * padded(TR) * sizeof(float);
+}
+
+// resident = blocks per SM x SMs at this launch's shared memory
+template <typename T, int TR, bool BULK>
+cudaError_t configure(size_t smem, long long* resident) {
+  auto kernel = ttm_interior_kernel<T, TR, BULK>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BULK ? CT + 32 : CT,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *resident = (long long)per_sm * sms;
+  return cudaSuccess;
+}
+
+// Bulk path with B <= NJ: tiles of k whole values of a, so that a stage
+// takes one contiguous copy per a.  k <= NJ / B is chosen for the fewest
+// rounds of the resident grid (ties: the larger k).
+void whole_tiles(Plan& p, int A, int B, long long resident) {
+  long long best = -1;
+  for (int k = NJ / B; k >= 1; --k) {
+    const long long tiles = (A + k - 1) / k;
+    const long long cost = (tiles * p.slabs + resident - 1) / resident * k;
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.W = (long long)k * B;
+      p.tiles = tiles;
+    }
+  }
+  p.whole = 1;
+  p.units = p.tiles * p.slabs;
+}
+
+template <typename T, int TR, bool BULK>
+cudaError_t run(const void* u, const void* x, float* o, int A, int I, int B, int R,
+                cudaStream_t st, int* info) {
+  Plan p = make_plan(A, I, B, R, TR);
+  const size_t smem = smem_bytes<T, TR, BULK>(p);
+  int grid = 0;
+  long long resident = 0;
+  cudaError_t err = configure<T, TR, BULK>(smem, &resident);
+  if (err != cudaSuccess) return err;
+  if (BULK && B <= NJ) whole_tiles(p, A, B, resident);
+  grid = (int)(p.units < resident ? p.units : resident);
+  if (info != nullptr) return describe(ttm_interior_kernel<T, TR, BULK>, BULK ? CT + 32 : CT,
+                                       grid, info, smem);
+  ttm_interior_kernel<T, TR, BULK><<<grid, BULK ? CT + 32 : CT, smem, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(x), o, A, I, B, R, p);
   return cudaGetLastError();
+}
+
+// info != nullptr: report the launch figures instead of launching
+template <typename T>
+cudaError_t dispatch(const void* u, const void* x, float* o, int A, int I, int B, int R,
+                     cudaStream_t st, int* info) {
+  const Plan p = make_plan(A, I, B, R, 16);
+  const int tr = width_template(p.width);
+  const bool bulk = use_bulk(x, B, sizeof(T));
+#define TTM_RUN(TR)                                                          \
+  return bulk ? run<T, TR, true>(u, x, o, A, I, B, R, st, info)              \
+              : run<T, TR, false>(u, x, o, A, I, B, R, st, info)
+  switch (tr) {
+    case 4: TTM_RUN(4);
+    case 8: TTM_RUN(8);
+    case 10: TTM_RUN(10);
+    case 12: TTM_RUN(12);
+    default: TTM_RUN(16);
+  }
+#undef TTM_RUN
 }
 
 }  // namespace
@@ -83,7 +427,21 @@ extern "C" int atucker_ttm_interior(const void* u, const void* x, void* out, int
   if (A <= 0 || I <= 0 || B <= 0 || R <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (dtype == kFloat32) return (int)dispatch<float>(u, x, o, A, I, B, R, st);
-  if (dtype == kBFloat16) return (int)dispatch<__nv_bfloat16>(u, x, o, A, I, B, R, st);
+  if (dtype == kFloat32) return (int)dispatch<float>(u, x, o, A, I, B, R, st, nullptr);
+  if (dtype == kBFloat16)
+    return (int)dispatch<__nv_bfloat16>(u, x, o, A, I, B, R, st, nullptr);
+  return cudaErrorInvalidValue;
+}
+
+// Launch figures of a call of this shape, for reports: out[0..3] =
+// registers per thread, threads per block, resident blocks per SM and grid
+// blocks (out[4..11] zero: one kernel).
+extern "C" int atucker_ttm_interior_info(const void* x, int A, int I, int B, int R, int dtype,
+                                         int* out) {
+  if (A <= 0 || I <= 0 || B <= 0 || R <= 0) return cudaErrorInvalidValue;
+  for (int i = 0; i < 12; ++i) out[i] = 0;
+  if (dtype == kFloat32) return (int)dispatch<float>(nullptr, x, nullptr, A, I, B, R, 0, out);
+  if (dtype == kBFloat16)
+    return (int)dispatch<__nv_bfloat16>(nullptr, x, nullptr, A, I, B, R, 0, out);
   return cudaErrorInvalidValue;
 }

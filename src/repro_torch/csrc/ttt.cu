@@ -81,15 +81,19 @@ __global__ void ttt_finish_kernel(const float* __restrict__ ws, float* __restric
   z[idx] = s;
 }
 
+// info != nullptr: report the launch figures (describe()) instead of launching
 template <typename T>
 cudaError_t dispatch(const void* x, const void* y, float* part, int A, int I, int R,
                      int B, int splits, long long k_per_split, bool sym,
-                     cudaStream_t st) {
+                     cudaStream_t st, int* info = nullptr) {
   // paths mirrored in repro_torch/kernels/ttt.py (_path)
   const long long K = (long long)A * B;
   if (B == 1 && R <= 16) {
     constexpr int TJ = 128, TK = 64;
     if (k_per_split % TK != 0) return cudaErrorInvalidValue;
+    if (info != nullptr)
+      return describe(ttt_cols_kernel<T, TJ, 16, TK>, TJ, (long long)ceil_div(I, TJ) * splits,
+                      info);
     dim3 grid(ceil_div(I, TJ), splits);
     ttt_cols_kernel<T, TJ, 16, TK><<<grid, TJ, 0, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(y), part, I, R, K, k_per_split);
@@ -98,9 +102,9 @@ cudaError_t dispatch(const void* x, const void* y, float* part, int A, int I, in
   const Operand P{x, B, (long long)I * B, I}, Q{y, B, (long long)R * B, R};
   if (R <= 16)
     return launch_contract<T, 128, 16, 32, 4, 2>(P, Q, part, K, splits, k_per_split,
-                                                 false, st);
+                                                 false, st, info);
   return launch_contract<T, 128, 128, 16, 8, 8>(P, Q, part, K, splits, k_per_split, sym,
-                                                st);
+                                                st, info);
 }
 
 }  // namespace
@@ -127,4 +131,24 @@ extern "C" int atucker_ttt(const void* x, const void* y, void* ws, void* z, int 
   ttt_finish_kernel<<<ceil_div(n, 256), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<float*>(z), I, R, splits, mirror ? 128 : 0);
   return (int)cudaGetLastError();
+}
+
+// Launch figures of a call of this shape, for reports: out[0..3] for the
+// contraction kernel, out[4..7] for the finish kernel when it runs.
+extern "C" int atucker_ttt_info(int A, int I, int R, int B, int dtype, int splits,
+                                long long k_per_split, int sym, int* out) {
+  if (A <= 0 || I <= 0 || R <= 0 || B <= 0 || splits <= 0) return cudaErrorInvalidValue;
+  for (int i = 0; i < 12; ++i) out[i] = 0;
+  const bool mirror = sym && R > 16;
+  cudaError_t err;
+  if (dtype == kFloat32)
+    err = dispatch<float>(nullptr, nullptr, nullptr, A, I, R, B, splits, k_per_split, mirror,
+                          0, out);
+  else if (dtype == kBFloat16)
+    err = dispatch<__nv_bfloat16>(nullptr, nullptr, nullptr, A, I, R, B, splits, k_per_split,
+                                  mirror, 0, out);
+  else
+    return cudaErrorInvalidValue;
+  if (err != cudaSuccess || !(splits > 1 || mirror)) return (int)err;
+  return (int)describe(ttt_finish_kernel, 256, ceil_div((long long)I * R, 256), out + 4);
 }

@@ -36,11 +36,18 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 #: C signature of each library's entry points: name -> argtypes (all return int)
 SIGNATURES = {
-    "ttt": {"atucker_ttt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P)},
-    "matmul": {"atucker_matmul": (_P, _P, _P, _I, _I, _I, _I, _P)},
-    "ttm": {"atucker_ttm_interior": (_P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "ttt": {"atucker_ttt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P),
+            "atucker_ttt_info": (_I, _I, _I, _I, _I, _I, _L, _I, _P)},
+    "matmul": {"atucker_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
+               "atucker_matmul_info": (_I, _I, _I, _I, _P)},
+    "ttm": {"atucker_ttm_interior": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+            "atucker_ttm_interior_info": (_P, _I, _I, _I, _I, _I, _P)},
     "s6_scan": {"atucker_s6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _L, _L, _L, _L, _I, _P)},
+                                    _I, _L, _L, _L, _L, _I, _P),
+                "atucker_s6_scan_chunked": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                            _P, _I, _I, _I, _I, _I, _L, _L, _L,
+                                            _L, _I, _P),
+                "atucker_s6_scan_info": (_I, _I, _I, _I, _I, _I, _I, _P)},
 }
 
 #: ptxas report (registers, shared memory, spills) of each build, by source
@@ -190,3 +197,25 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         name = lib.atucker_error_string(err).decode()
         raise RuntimeError(f"{what}: kernel launch failed: cudaError {err} "
                            f"({name})")
+
+
+def launch_info(name: str, fn: str, *args) -> list[dict]:
+    """The launch figures that the C report function ``fn`` of library
+    ``name`` gives for one call's shape ``args``: for each CUDA kernel the
+    call runs, registers per thread, threads per block, resident blocks per
+    SM (the occupancy calculator's, with the launch's shared memory), grid
+    blocks and waves = grid blocks / (SMs × blocks per SM)."""
+    lib = load(name)
+    out = (ctypes.c_int * 12)()
+    check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    rows = []
+    for k in range(0, 12, 4):
+        regs, threads, per_sm, blocks = out[k:k + 4]
+        if threads == 0:
+            break
+        rows.append(dict(registers=regs, threads=threads, blocks_per_sm=per_sm,
+                         grid_blocks=blocks,
+                         waves=blocks / (sms * per_sm) if per_sm else None))
+    return rows

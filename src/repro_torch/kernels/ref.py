@@ -69,3 +69,56 @@ def s6_scan_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
         h = da * h + dx[:, i, :, None] * bmat[:, i, None, :]
         y[:, i] = (h * cmat[:, i, None, :]).sum(-1)
     return y, h
+
+
+def s6_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+                        cmat: torch.Tensor, a: torch.Tensor,
+                        h0: torch.Tensor | None = None, *, chunk: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked route of ``csrc/s6_scan.cu`` written out in PyTorch, for
+    the tests: the same function as :func:`s6_scan_ref`, in three phases
+    over chunks of ``chunk`` steps.
+
+    A. every chunk scans from a zero state: its local final state h_loc and
+       its step sum S = Σ dt (the chunk's decay of state n is exp(a·S));
+    B. the chunks are chained in order from h0: H_k = exp(a·S_k)·H_{k-1} +
+       h_loc_k, which gives each chunk's entry state and the final state;
+    C. every chunk rescans from its entry state and writes y.
+
+    Every exponent is dt·a ≤ 0 or a·S ≤ 0, so no factor exceeds 1 (the
+    reference's ``_s6_scan`` forms exp(-cumsum), which overflows).  The
+    last chunk is padded with dt = x = 0, which leaves a state unchanged."""
+    x, dt, bmat, cmat, a = (v.float() for v in (x, dt, bmat, cmat, a))
+    bsz, t, di = x.shape
+    n = a.shape[1]
+    k = -(-t // chunk)
+    pad = k * chunk - t
+
+    def chunks(v):   # (B, T, W) -> (B, K, chunk, W), zero-padded
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        return v.reshape(bsz, k, chunk, v.shape[-1])
+
+    xs, dts, bs, cs = (chunks(v) for v in (x, dt, bmat, cmat))
+    dxs = dts * xs
+
+    def scan(h, emit_y):
+        ys = torch.empty((bsz, k, chunk, di), dtype=torch.float32,
+                         device=x.device) if emit_y else None
+        for i in range(chunk):
+            h = (torch.exp(dts[:, :, i, :, None] * a) * h
+                 + dxs[:, :, i, :, None] * bs[:, :, i, None, :])
+            if emit_y:
+                ys[:, :, i] = (h * cs[:, :, i, None, :]).sum(-1)
+        return h, ys
+
+    zero = torch.zeros((bsz, k, di, n), dtype=torch.float32, device=x.device)
+    h_loc, _ = scan(zero, False)                               # phase A
+    decay = torch.exp(dts.sum(2)[..., None] * a)               # (B, K, Di, N)
+    h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    entry = torch.empty_like(h_loc)
+    for j in range(k):                                         # phase B
+        entry[:, j] = h
+        h = decay[:, j] * h + h_loc[:, j]
+    _, ys = scan(entry, True)                                  # phase C
+    return ys.reshape(bsz, k * chunk, di)[:, :t].contiguous(), h

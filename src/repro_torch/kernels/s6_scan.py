@@ -10,9 +10,19 @@ state that serving needs: prefill starts from the cached state and hands its
 final state to decode, and each decode step is this kernel at T = 1.  The
 CUDA source is ``csrc/s6_scan.cu``.  What bounds it on the H100: the
 T·Di·N exponentials on the SFU and the bytes of x, dt and y, about equal at
-the longest prefill.  The design keeps each channel's N states in the
-registers of 4 lanes, walks T inside the block, and stages chunks of x, dt,
-B and C in shared memory (see the source).
+the longest prefill.  It has two routes, chosen by :func:`route` from
+B·T·Di alone, so the prefill and the decode of one run always take the
+same route for the same shape:
+
+- ``"single"``: one launch that walks T inside each block, each channel's
+  N states in the registers of 4 lanes.  Decode (T = 1) and short prompts
+  take it: a launch costs the host-bound decode step ~27 µs.
+- ``"chunked"``: three launches, parallel over chunks of
+  :func:`chunk_len` steps (scan each chunk from zero; chain the chunks'
+  states; rescan each chunk from its entry state), with scratch of
+  (K, B, Di, N + 1) fp32 for K chunks.  Long prefills take it.
+
+See the source for both designs.
 
 Layouts are the reference's: x, dt (B, T, Di); bmat, cmat (B, T, N); a
 (Di, N); h0 (B, Di, N).  x, bmat and cmat share one dtype (fp32 or bf16);
@@ -32,10 +42,39 @@ import torch
 from . import _build
 from .ref import s6_scan_ref
 
-#: launches of the CUDA kernel (one per wrapper call on the card)
+#: launches of the CUDA kernel (one per wrapper call on the card, whatever
+#: the number of CUDA kernels the route runs)
 LAUNCHES = 0
 #: the kernel keeps at most 16 states per lane, 4 lanes per channel
 MAX_STATE = 64
+#: the chunked route runs from this B·T·Di on.  At (1, T, 8192, 16) on the
+#: H100 its kernels overtake the single pass at T ≈ 256 and the whole call,
+#: with its two extra launches, at T ≈ 384 (chip_smoke.py's route sweep)
+CHUNKED_MIN_WORK = 384 * 8192
+ROUTES = ("single", "chunked")
+#: shortest and longest chunk of the chunked route (steps)
+CHUNK_MIN, CHUNK_MAX = 64, 512
+#: channels per block and resident blocks per SM of its scan phases
+#: (csrc/s6_scan.cu CT and MIN_BLOCKS)
+_CT, _BLOCKS_PER_SM = 128, 8
+
+
+def route(bsz: int, t: int, di: int) -> str:
+    """The route of a scan of x (bsz, t, di): a pure function of the shape."""
+    return "chunked" if bsz * t * di >= CHUNKED_MIN_WORK else "single"
+
+
+def chunk_len(bsz: int, t: int, di: int, n_sms: int) -> int:
+    """Steps per chunk of the chunked route: the shortest power of two in
+    [CHUNK_MIN, CHUNK_MAX] whose chunks need no more blocks than the card
+    holds at once, so each scan phase runs about one wave of long chunks
+    (at (1, T, 8192, 16): 64 steps up to T = 1056, 512 at T = 8191)."""
+    blocks_per_chunk = bsz * -(-di // _CT)
+    want = -(-t * blocks_per_chunk // (_BLOCKS_PER_SM * n_sms))
+    lc = CHUNK_MIN
+    while lc < want and lc < CHUNK_MAX:
+        lc *= 2
+    return lc
 
 
 def _check(x, dt, bmat, cmat, a, h0) -> str:
@@ -99,27 +138,56 @@ def _check(x, dt, bmat, cmat, a, h0) -> str:
 
 def s6_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
             cmat: torch.Tensor, a: torch.Tensor,
-            h0: torch.Tensor | None = None
+            h0: torch.Tensor | None = None, *, force_route: str | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(y (B, T, Di), h_final (B, Di, N)), both fp32: the selective scan of
-    x under step sizes dt from state h0 (zeros when None)."""
+    x under step sizes dt from state h0 (zeros when None).  On the card
+    ``force_route`` ("single" or "chunked") overrides :func:`route`, for
+    measurements and tests of both routes at one shape."""
     kind = _check(x, dt, bmat, cmat, a, h0)
+    if force_route is not None and force_route not in ROUTES:
+        raise ValueError(f"s6_scan: force_route must be one of {ROUTES}, got "
+                         f"{force_route!r}")
     if kind == "cpu":
         return s6_scan_ref(x, dt, bmat, cmat, a, h0)
     bsz, t, di = x.shape
     n = a.shape[1]
     dev = x.device
+    chunked = (force_route or route(bsz, t, di)) == "chunked"
     with torch.cuda.device(dev):
         y = torch.empty((bsz, t, di), dtype=torch.float32, device=dev)
         hf = torch.empty((bsz, di, n), dtype=torch.float32, device=dev)
         lib = _build.load("s6_scan")
-        err = lib.atucker_s6_scan(
-            x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-            a.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), hf.data_ptr(), bsz, t, di, n,
-            bmat.stride(0), bmat.stride(1), cmat.stride(0), cmat.stride(1),
-            _build.dtype_code(x), _build.stream_ptr(dev))
+        ptrs = (x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+                a.data_ptr(), None if h0 is None else h0.data_ptr(),
+                y.data_ptr(), hf.data_ptr())
+        tail = (bmat.stride(0), bmat.stride(1), cmat.stride(0),
+                cmat.stride(1), _build.dtype_code(x), _build.stream_ptr(dev))
+        if chunked:
+            lc = chunk_len(bsz, t, di, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            k = -(-t // lc)
+            h_loc = torch.empty((k, bsz, di, n), dtype=torch.float32,
+                                device=dev)
+            ssum = torch.empty((k, bsz, di), dtype=torch.float32, device=dev)
+            err = lib.atucker_s6_scan_chunked(
+                *ptrs, h_loc.data_ptr(), ssum.data_ptr(), bsz, t, di, n, lc,
+                *tail)
+        else:
+            err = lib.atucker_s6_scan(*ptrs, bsz, t, di, n, *tail)
         _build.check(lib, err, "s6_scan")
     global LAUNCHES
     LAUNCHES += 1
     return y, hf
+
+
+def launch_info(bsz: int, t: int, di: int, n: int, dtype: torch.dtype,
+                force_route: str | None = None) -> list[dict]:
+    """Registers per thread, threads, resident blocks per SM and grid blocks
+    of each CUDA kernel that a call of this shape runs (card only)."""
+    chunked = (force_route or route(bsz, t, di)) == "chunked"
+    lc = chunk_len(bsz, t, di, torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count)
+    return _build.launch_info("s6_scan", "atucker_s6_scan_info", bsz, t, di,
+                              n, lc, int(chunked),
+                              _build.DTYPE_CODES[str(dtype)[6:]])

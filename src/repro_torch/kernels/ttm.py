@@ -7,10 +7,14 @@ unfolded.
 
 Replaces ``repro/kernels/ttm.py::ttm_interior``; the CUDA source is
 ``csrc/ttm.cu``.  What bounds it on the H100: the bytes of x (R ≤ a few
-dozen).  The design gives each thread one (a, b) column of the flattened
-A·B axis, loops over I inside the block and keeps the column's R outputs in
-registers, so x is read once, coalesced along b, with no padding of any
-axis.
+dozen).  The design is a persistent grid, one block per SM, over equal
+tiles of (a, b) columns of the flattened A·B axis (whole values of a when
+B ≤ 1024); in each block one producer warp streams x through a
+double-buffered shared-memory ring by ``cp.async.bulk`` copies on
+``mbarrier``s, and 8 consumer warps keep exactly R outputs per column in
+registers, with u in shared memory once per block.  Rows of x that are not
+16-byte multiples (B = 1, odd B) take a plain-load path of the same kernel.
+One CUDA launch per call; nothing is padded.
 
 A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.ttm_interior_ref`); a CUDA tensor launches
@@ -50,3 +54,12 @@ def ttm_interior(u: torch.Tensor, x3: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def launch_info(u: torch.Tensor, x3: torch.Tensor) -> list[dict]:
+    """Registers per thread, threads, resident blocks per SM and grid blocks
+    of the CUDA kernel that ``ttm_interior(u, x3)`` runs (card only)."""
+    a, i, b = x3.shape
+    return _build.launch_info("ttm", "atucker_ttm_interior_info",
+                              x3.data_ptr(), a, i, b, u.shape[0],
+                              _build.dtype_code(x3))

@@ -84,3 +84,17 @@ def ttt3(x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     LAUNCHES += 1
     return z
+
+
+def launch_info(x3: torch.Tensor, y3: torch.Tensor) -> list[dict]:
+    """Registers per thread, threads, resident blocks per SM and grid blocks
+    of each CUDA kernel that ``ttt3(x3, y3)`` runs: the contraction, then the
+    finish kernel where it runs (card only)."""
+    a, i, b = x3.shape
+    r = y3.shape[1]
+    sym = x3.data_ptr() == y3.data_ptr() and i == r
+    n_sms = torch.cuda.get_device_properties(x3.device).multi_processor_count
+    splits, k_per_split = split_plan(i, r, a * b, b, sym, n_sms)
+    return _build.launch_info("ttt", "atucker_ttt_info", a, i, r, b,
+                              _build.dtype_code(x3), splits, k_per_split,
+                              int(sym))

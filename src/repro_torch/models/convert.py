@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from ..core.api import _as_tensor
+from ..core.api import _as_tensor, resolve_device
 from .config import ModelConfig
 from .layers import param
 from .lm import LM, Mamba1Block, require_mamba1
@@ -32,10 +32,12 @@ def _pdict(tree: dict, keys, index=None, device=None) -> nn.ParameterDict:
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
-    """Build an :class:`LM` on ``device`` from the reference's parameter
-    tree for ``cfg`` (numpy leaves).  Raises on a missing or extra layer
-    key and on a layer axis that is not ``cfg.n_layers`` long."""
+    """Build an :class:`LM` on ``device`` (default ``cuda:0``; raises
+    without CUDA) from the reference's parameter tree for ``cfg`` (numpy
+    leaves).  Raises on a missing or extra layer key and on a layer axis
+    that is not ``cfg.n_layers`` long."""
     require_mamba1(cfg)
+    device = resolve_device(device)
     layers = tree["layers"]
     ssm = layers["ssm"]
     if set(ssm) != set(SSM_KEYS):

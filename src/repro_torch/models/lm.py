@@ -20,6 +20,7 @@ import math
 import torch
 from torch import nn
 
+from ..core.api import resolve_device
 from .config import ATTN_LOCAL, ModelConfig
 from .layers import dense_init, norm_apply, norm_init, param
 from .ssm import mamba1_apply, mamba1_init
@@ -161,9 +162,11 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
-    """Zeroed stacked decode cache for every layer.  ``seq_len`` sizes a KV
-    cache; the ssm family's state does not depend on it."""
+    """Zeroed stacked decode cache for every layer on ``device`` (default
+    ``cuda:0``; raises without CUDA).  ``seq_len`` sizes a KV cache; the ssm
+    family's state does not depend on it."""
     require_mamba1(cfg)
+    device = resolve_device(device)
     l, di, n = cfg.n_layers, cfg.d_inner, cfg.ssm_state
     return {"conv": torch.zeros((l, batch, cfg.ssm_conv - 1, di),
                                 dtype=_dt(cfg), device=device),

@@ -126,6 +126,28 @@ class TestParams:
             params_from_jax(ref_params, SMOKE.with_(n_layers=3), device="cpu")
 
 
+class TestDevices:
+    """The model entry points default to the card, as ``plan()`` and
+    ``bundle.init`` do, and never fall back to the CPU."""
+
+    def test_default_device_raises_without_cuda(self, ref_params):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present: the default device works")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            params_from_jax(ref_params, SMOKE)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            lm.init_cache(SMOKE, 2, 16)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(SMOKE).init_cache(2, 16)
+
+    def test_cpu_on_request(self, ref_params):
+        built = params_from_jax(ref_params, SMOKE, device="cpu")
+        assert {p.device.type for p in built.parameters()} == {"cpu"}
+        for cache in (lm.init_cache(SMOKE, 2, 16, device="cpu"),
+                      build(SMOKE).init_cache(2, 16, device="cpu")):
+            assert {v.device.type for v in cache.values()} == {"cpu"}
+
+
 class TestMamba1Layer:
     def test_without_cache(self, ref_params, port_params):
         h = np.random.default_rng(1).standard_normal((2, 19, 64)).astype(
