@@ -17,15 +17,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
             (``max|kernel - plain| <= 1e-4 * max|plain|``): first on the
             non-tiling shapes of the reference's kernel tests in fp32 and
             bf16 (for S6 also ragged T, Di and N, T = 1 from a nonzero
-            state, strided B/C, y and the final state), then on operands of
+            state, strided B/C, y and the final state; for the TTT/Gram
+            every route of its tensor-core kernel -- TMA, plain-load, B = 1,
+            misaligned, fp32 and bf16 -- also per entry, within 2e-4 of
+            sqrt(ttt(x∘x, y∘y)) of the float64 result), then on operands of
             more than 2**31 elements (every kernel path), then at the main
             paths' full-size shapes, where the kernel, its plain version and
             one PyTorch library call (none computes a selective scan) are
             timed (CUDA events around one call, median of warm runs; and
             the CUDA kernels' own time under torch.profiler) beside the
             bound and each CUDA kernel's registers, resident blocks per SM,
-            grid and waves.  S6 is also timed at every shape the serve run
-            gives it, on both of its routes.
+            grid and waves (the Gram beside three bounds: bytes, FFMA and
+            three TF32 products).  S6 is also timed at every shape the serve
+            run gives it, on both of its routes.
 4. main     ``plan -> execute`` with ``impl="auto"`` on the paper's Table III
             Boats (320, 240, 7000) and HSI (1021, 1340, 33, 8) tensors at full
             size: the plan must resolve to the ``hopper`` backend, every
@@ -33,7 +37,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
             must match the same plan on ``matfree``.  Warm executes are
             timed on both backends (host clock around a synchronized
             execute), and one more execute runs under torch.profiler for
-            the device's busy time, idle share and top kernels.
+            the device's busy time, idle share, top kernels and the
+            tensor-core Gram's device time (hsi_eig must run it).
 5. serve    falcon-mamba-7b at its published size (64 layers, 7.3e9
             parameters, bf16, random weights from seed 0) in ``ServeEngine``
             with 4 slots answers 6 requests (prompts of 37 to 8191 tokens,
@@ -73,9 +78,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 TOL = 1e-4          # max|kernel - plain| <= TOL * max|plain| (fp32 sums, reordered)
+#: per-entry limit of the TTT/Gram tensor-core routes: |kernel - exact| <=
+#: ENTRY_TOL * sqrt(ttt(x∘x, y∘y)), the entry's own scale, with "exact" the
+#: plain version's einsum evaluated in float64.  max|plain| is the Gram's
+#: largest diagonal entry, ~sqrt(K) times an off-diagonal one, so TOL alone
+#: would let a single-TF32 product (1.1e-3 in these units at the main
+#: path's depth) pass.  The plain version in fp32 is itself no yardstick at
+#: this depth: its own error is reported beside the kernel's.
+ENTRY_TOL = 2e-4
 WARM_RUNS = 7
-#: (HBM bytes/s, fp32 non-tensor FLOP/s) from NVIDIA's H100 data sheets
-PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12), "nvl": (3.9e12, 60e12)}
+#: (HBM bytes/s, fp32 non-tensor FLOP/s, dense TF32 tensor FLOP/s) from
+#: NVIDIA's H100 data sheets (TF32 dense is half the sheets' rate with
+#: sparsity: SXM 989, NVL 835, PCIe 756 TFLOP/s)
+PEAKS = {"sxm": (3.35e12, 67e12, 495e12), "pcie": (2.0e12, 51e12, 378e12),
+         "nvl": (3.9e12, 60e12, 417.5e12)}
 #: SFU exponentials per clock per SM on compute capability 9.0 (the CUDA C++
 #: Programming Guide's arithmetic-instruction throughput table)
 SFU_PER_CLOCK_SM = 16
@@ -185,6 +201,26 @@ def close(got, want) -> float:
     return err
 
 
+def entry_err(torch, got, x3, y3, check: bool = True) -> float:
+    """max over entries of |got - z| in units of the entry's own scale
+    sqrt(ttt(x3∘x3, y3∘y3)) (sqrt(gram(x∘x)) for a Gram), where z is
+    ttt_ref's einsum in float64 (summed over chunks of a, so that an
+    operand beyond 2**31 elements needs no float64 copy); checked against
+    ENTRY_TOL unless ``check`` is False."""
+    want = torch.zeros(got.shape, dtype=torch.float64, device=got.device)
+    scale = torch.zeros_like(want)
+    for lo in range(0, x3.shape[0], 64):
+        xc, yc = x3[lo:lo + 64].double(), y3[lo:lo + 64].double()
+        want += torch.einsum("aib,arb->ir", xc, yc)
+        scale += torch.einsum("aib,arb->ir", xc.square(), yc.square())
+        del xc, yc
+    err = float(((got.double() - want).abs_() / scale.sqrt_().clamp_min_(1e-300)).max())
+    require(not check or (math.isfinite(err) and err <= ENTRY_TOL),
+            f"max |kernel - exact| / sqrt(ttt(x∘x, y∘y)) = {err:.3e} exceeds "
+            f"{ENTRY_TOL:g}")
+    return err
+
+
 def time_ms(torch, fn, runs: int = WARM_RUNS) -> float:
     """Median of ``runs`` warm CUDA-event timings of ``fn()``."""
     fn()
@@ -243,6 +279,7 @@ def phase_kernel_shapes(torch):
     torch.cuda.synchronize()
     emit("kernels_small", cases=n, dtypes=["float32", "bfloat16"],
          max_abs_err=worst, tol_rel=TOL, ok=True)
+    phase_ttt_wide_shapes(torch)
     phase_ttm_shapes(torch)
     phase_s6_shapes(torch)
 
@@ -326,6 +363,58 @@ def phase_s6_shapes(torch):
          ok=True)
 
 
+def phase_ttt_wide_shapes(torch):
+    """The tensor-core routes of the TTT/Gram kernel (R > 16) on every
+    route, fp32 (split TF32, three products) and bf16 (one product): TMA
+    (rows of a 16-byte multiple of at least 128 bytes, aligned; B = 40, 48,
+    64, 264, 600), and the plain-load route for rows of other lengths (B =
+    19, 33, 70), B = 1 (MN-major operands) and a misaligned base.  Grams of
+    one to several 128-row tiles (diagonal and upper tiles, ragged I, split
+    and unsplit reductions) and TTTs with R = 20 to 200 across tiles.  Each
+    is held per entry against ttt_ref's einsum in float64 (ENTRY_TOL of
+    sqrt(ttt(x∘x, y∘y))).  Fails unless every route ran in both dtypes."""
+    from repro_torch.kernels import ttt3
+    ttt = ttt_module()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    # (x3 shape, R of y3; None: the Gram, y3 is x3)
+    cases = [((7, 300, 40), None), ((5, 200, 264), None), ((9, 100, 64), None),
+             ((2, 150, 600), None), ((6, 150, 48), 40), ((4, 70, 264), 200),
+             ((3, 150, 70), None), ((40, 260, 33), 30), ((5, 37, 19), None),
+             ((273, 40, 1), None), ((300, 130, 1), 20)]
+    worst, n, routes = 0.0, 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+        ops = []
+        for (a, i, b), r in cases:
+            x = rnd(a, i, b)
+            ops.append((x, x if r is None else rnd(a, r, b), b == 1))
+        flat = rnd(2 * 5 * 140 * 264 + 1)     # one element in: misaligned
+        xm = flat[1:5 * 140 * 264 + 1].view(5, 140, 264)
+        ops += [(xm, xm, False),
+                (xm, flat[1 + 5 * 140 * 264:1 + 5 * 170 * 264].view(5, 30, 264),
+                 False)]
+        for x, y, b1 in ops:
+            rt = ttt.call_route(x, y)
+            require(rt.startswith("wgmma"), f"ttt: {tuple(x.shape)} took {rt}")
+            aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+            kind = "b1" if b1 else "misaligned" if not aligned else \
+                "gram" if y is x else "ttt"
+            key = f"{rt}/{kind}/{str(dtype)[6:]}"
+            routes[key] = routes.get(key, 0) + 1
+            worst = max(worst, entry_err(torch, ttt3(x, y), x, y))
+            n += 1
+    torch.cuda.synchronize()
+    for want in ("wgmma_tma/gram", "wgmma_tma/ttt", "wgmma_plain/gram",
+                 "wgmma_plain/ttt", "wgmma_plain/b1", "wgmma_plain/misaligned"):
+        for dt in ("float32", "bfloat16"):
+            require(f"{want}/{dt}" in routes,
+                    f"ttt: no small case took {want} in {dt}")
+    emit("kernels_small", name="ttt_wide", cases=n, routes=routes,
+         dtypes=["float32", "bfloat16"], max_entry_err=worst,
+         entry_tol=ENTRY_TOL, ok=True)
+
+
 def phase_ttm_shapes(torch):
     """The interior TTM on its own: R across the widths it templates and
     its slabs (4, 10, 16, 20), B = 1 and 8 (the plain-load path), 264 (the
@@ -353,6 +442,13 @@ def phase_ttm_shapes(torch):
     emit("kernels_small", name="ttm_interior", cases=n,
          dtypes=["float32", "bfloat16"], max_abs_err=worst, tol_rel=TOL,
          ok=True)
+
+
+def ttt_module():
+    """The wrapper module of the TTT/Gram kernel (the package attribute
+    ``ttt3`` is the function)."""
+    import importlib
+    return importlib.import_module("repro_torch.kernels.ttt")
 
 
 def s6_module():
@@ -390,7 +486,20 @@ def phase_kernels_large(torch):
     for name, (kernel, plain) in cases.items():
         errs[name] = close(kernel(), plain())
         torch.cuda.empty_cache()
-    del x, xc, y, yc
+    del xc, y, yc
+    # the Gram of I = 1100 on the TMA route: 9 GB of boxes behind one map.
+    # At a 2.05e6-deep reduction every fp32 rounding of an entry near 2e6 is
+    # already 5e-5 of its scale, so the kernel is held per entry to the
+    # larger of ENTRY_TOL and the plain fp32 version's own error
+    require(ttt_module().call_route(x, x) == "wgmma_tma", "large Gram off the TMA route")
+    got = ttt3(x, x)
+    errs["gram_wgmma_tma"] = close(got, ref.gram_ref(x))
+    errs["gram_wgmma_tma_entry"] = entry_err(torch, got, x, x, check=False)
+    errs["gram_plain_entry"] = entry_err(torch, ref.gram_ref(x), x, x, check=False)
+    require(errs["gram_wgmma_tma_entry"] <= max(ENTRY_TOL, errs["gram_plain_entry"]),
+            f"large Gram: per-entry error {errs['gram_wgmma_tma_entry']:.3e} exceeds "
+            f"both {ENTRY_TOL:g} and the plain version's {errs['gram_plain_entry']:.3e}")
+    del x, got
     torch.cuda.empty_cache()
     emit("kernels_large", elements=2048 * 1100 * 1000, max_abs_err=errs,
          tol_rel=TOL, ok=True)
@@ -430,7 +539,7 @@ def phase_kernels_full(torch, peaks):
     from repro_torch.kernels import matmul, ref, s6_scan, ttm_interior, ttt3
     ttt_mod, matmul_mod, ttm_mod = (importlib.import_module(
         f"repro_torch.kernels.{m}") for m in ("ttt", "matmul", "ttm"))
-    bw, fl, sfu = peaks
+    bw, fl, tf32, sfu = peaks
     g = torch.Generator(device="cuda").manual_seed(2)
 
     def rnd(*shape):
@@ -443,11 +552,11 @@ def phase_kernels_full(torch, peaks):
     out = {}
 
     def measure(name, shape_desc, kernel, plain, library, nbytes, flops,
-                launch):
+                launch, b=None):
         got, want = kernel(), plain()
         err = close(got, want)
         del got, want
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = b or bound(nbytes, flops)
         out[name] = dict(shapes=shape_desc, max_abs_err=err,
                          ms=time_ms(torch, kernel),
                          plain_ms=time_ms(torch, plain),
@@ -514,13 +623,27 @@ def phase_kernels_full(torch, peaks):
     torch.cuda.empty_cache()
     # gram: the HSI mode-1 EIG Gram; ttm_interior: the HSI mode-1 TTM.  The
     # Gram is symmetric: the function needs only its I(I+1)/2 distinct
-    # entries, 2·A·B·I(I+1)/2 flop
+    # entries, 2·A·B·I(I+1)/2 flop.  At fp32 accuracy on the tensor cores
+    # that is three TF32 products each: the bound is the larger of the bytes
+    # and 3 x flop at the dense TF32 rate (the FFMA term is reported beside)
     x = rnd(1021, 1340, 264)
+    g_bytes, g_flops = 4 * (x.numel() + 1340 * 1340), 1.0 * 1021 * 264 * 1340 * 1341
+    terms = {"bytes": g_bytes / bw * 1e3, "fp32_ffma": g_flops / fl * 1e3,
+             "tf32x3": 3 * g_flops / tf32 * 1e3}
     measure("gram", "x (1021, 1340, 264) fp32 -> (1340, 1340)",
             lambda: ttt3(x, x), lambda: ref.gram_ref(x),
             lambda: torch.tensordot(x, x, dims=([0, 2], [0, 2])),
-            4 * (x.numel() + 1340 * 1340), 1.0 * 1021 * 264 * 1340 * 1341,
-            ttt_mod.launch_info(x, x))
+            g_bytes, g_flops, ttt_mod.launch_info(x, x),
+            b=(max(terms["bytes"], terms["tf32x3"]),
+               "bytes" if terms["bytes"] >= terms["tf32x3"] else "operations"))
+    out["gram"].update(route=ttt_mod.call_route(x, x), bound_terms_ms=terms,
+                       max_entry_err=entry_err(torch, ttt3(x, x), x, x),
+                       plain_max_entry_err=entry_err(torch, ref.gram_ref(x), x, x,
+                                                     check=False),
+                       entry_tol=ENTRY_TOL)
+    emit("kernel_full", name="gram", route=out["gram"]["route"],
+         bound_terms_ms=terms, max_entry_err=out["gram"]["max_entry_err"],
+         plain_max_entry_err=out["gram"]["plain_max_entry_err"])
     u = rnd(10, 1340)
     measure("ttm_interior", "u (10, 1340), x (1021, 1340, 264) fp32",
             lambda: ttm_interior(u, x), lambda: ref.ttm_interior_ref(u, x),
@@ -538,7 +661,7 @@ def s6_bound(bsz, t, di, n, xbytes, peaks):
     bf16 when x is) over HBM, its T·Di·N exponentials over the SFU rate and
     its 6·T·Di·N other fp32 operations over the FP32 rate.  Returns (terms
     in ms, the name of the largest, bytes, exponentials)."""
-    bw, fl, sfu = peaks
+    bw, fl, _, sfu = peaks
     nbytes = (bsz * t * di * (xbytes + 4 + 4) + 2 * bsz * t * n * xbytes
               + di * n * 4 + 2 * bsz * di * n * 4)
     exps = bsz * t * di * n
@@ -655,7 +778,9 @@ def profile_call(torch, fn, wall_ms: float) -> dict:
     return dict(device_busy_ms=busy / 1e3,
                 idle_share=max(0.0, 1.0 - busy / 1e3 / wall_ms),
                 host_kernel_launches=launches,
-                top_device_ms=[[name[:80], us / 1e3] for name, us in top])
+                top_device_ms=[[name[:80], us / 1e3] for name, us in top],
+                ttt_wide_device_ms=sum(us for name, us in by_name.items()
+                                       if "ttt_wide_kernel" in name) / 1e3)
 
 
 def projector_gap(torch, u1, u2) -> float:
@@ -731,6 +856,9 @@ def phase_main(torch):
                    execute_ms_matfree_all=[t * 1e3 for t in tm],
                    peak_bytes=peak, launches=counts,
                    profile=profile_call(torch, lambda: p.execute(x), wall))
+        if name == "hsi_eig":   # its 1340^2 Gram runs on the tensor cores
+            require(row["profile"]["ttt_wide_device_ms"] > 0,
+                    "hsi_eig: the Gram never ran on the wgmma route")
         emit("main", **row)
         results.append(row)
         del res, ref_res
@@ -957,8 +1085,10 @@ def main(argv=None) -> int:
             row["by_shape"] = m["by_shape"]
         if name == "ttt":
             row["gram"] = {k: full["gram"][k] for k in
-                           ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms", "device_ms",
+                           ("route", "max_abs_err", "max_entry_err",
+                            "plain_max_entry_err", "ms",
+                            "plain_ms", "bound_ms", "bound_by",
+                            "bound_terms_ms", "library_ms", "device_ms",
                             "library_device_ms", "launch")}
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,4 +1,5 @@
-// The shared tile kernel of ttt.cu and matmul.cu:
+// The shared FFMA tile kernel of ttt.cu's skinny route (R <= 16, 128 x 16
+// tiles) and matmul.cu (128 x 16 and 16 x 128 tiles):
 //
 //   out[w1, w2] = sum_k P(k, w1) * Q(k, w2)        (fp32 FFMA, fp32 out)
 //
@@ -97,33 +98,19 @@ __device__ __forceinline__ void load_vec(float (&dst)[M], const float* src) {
   }
 }
 
-// Upper-triangular tile pair (b1 <= b2) number t of an n x n tile grid.
-__device__ __forceinline__ void upper_tile(int t, int n, int& b1, int& b2) {
-  b1 = 0;
-  while (t >= n - b1) { t -= n - b1; ++b1; }
-  b2 = b1 + t;
-}
-
-// sym: P and Q are the same operand (a Gram); only tiles with b1 <= b2 are
-// computed, enumerated along grid.x, and the finish kernel mirrors them.
+// grid.x enumerates the output tiles (b1, b2) row-major, grid.z the splits.
 template <typename T, int TW1, int TW2, int TK, int M1, int M2>
 __global__ void __launch_bounds__((TW1 / M1) * (TW2 / M2))
 contract_kernel(Operand P, Operand Q, float* __restrict__ out, long long K,
-                long long k_per_split, int sym) {
+                long long k_per_split) {
   constexpr int N1 = TW1 / M1, N2 = TW2 / M2, THREADS = N1 * N2;
   constexpr int PAD = 4;  // keeps rows 16-byte aligned, spreads banks
   __shared__ __align__(16) float ps[TK][TW1 + PAD];
   __shared__ __align__(16) float qs[TK][TW2 + PAD];
   const int tid = threadIdx.x;
   const int t2 = tid % N2, t1 = tid / N2;
-  int b1, b2;  // output tile: grid.x enumerates (b1, b2), row-major
-  if (sym) {
-    upper_tile(blockIdx.x, (P.wdim + TW1 - 1) / TW1, b1, b2);
-  } else {
-    const int n2 = (Q.wdim + TW2 - 1) / TW2;
-    b1 = blockIdx.x / n2;
-    b2 = blockIdx.x % n2;
-  }
+  const int n2 = (Q.wdim + TW2 - 1) / TW2;
+  const int b1 = blockIdx.x / n2, b2 = blockIdx.x % n2;
   const int w10 = b1 * TW1, w20 = b2 * TW2;
   const long long kb = (long long)blockIdx.z * k_per_split;
   const long long ke = min(K, kb + k_per_split);
@@ -178,19 +165,18 @@ contract_kernel(Operand P, Operand Q, float* __restrict__ out, long long K,
 // info != nullptr: report the launch figures (describe()) instead of launching
 template <typename T, int TW1, int TW2, int TK, int M1, int M2>
 cudaError_t launch_contract(const Operand& P, const Operand& Q, float* out, long long K,
-                            int splits, long long k_per_split, bool sym,
-                            cudaStream_t st, int* info = nullptr) {
+                            int splits, long long k_per_split, cudaStream_t st,
+                            int* info = nullptr) {
   constexpr int THREADS = (TW1 / M1) * (TW2 / M2);
   if (k_per_split % TK != 0 || splits < 1 || splits > 65535) return cudaErrorInvalidValue;
   const long long n1 = (P.wdim + TW1 - 1) / TW1, n2 = (Q.wdim + TW2 - 1) / TW2;
-  if (sym && (TW1 != TW2 || P.wdim != Q.wdim)) return cudaErrorInvalidValue;
-  const long long gx = sym ? n1 * (n1 + 1) / 2 : n1 * n2;
+  const long long gx = n1 * n2;
   if (gx > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (info != nullptr)
     return describe(contract_kernel<T, TW1, TW2, TK, M1, M2>, THREADS, gx * splits, info);
   dim3 grid((unsigned)gx, 1, splits);
   contract_kernel<T, TW1, TW2, TK, M1, M2><<<grid, THREADS, 0, st>>>(
-      P, Q, out, K, k_per_split, sym ? 1 : 0);
+      P, Q, out, K, k_per_split);
   return cudaGetLastError();
 }
 

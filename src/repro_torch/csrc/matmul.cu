@@ -26,9 +26,9 @@ cudaError_t dispatch(const void* a, const void* b, float* c, int M, int N, int K
   const Operand P{a, K, (long long)M * K, M}, Q{b, 1, N, N};
   const long long k_all = ((long long)K + 31) / 32 * 32;  // one split: all of K
   if (N <= M)  // last mode: X (J, I) @ u^T
-    return launch_contract<T, 128, 16, 32, 4, 2>(P, Q, c, K, 1, k_all, false, st, info);
+    return launch_contract<T, 128, 16, 32, 4, 2>(P, Q, c, K, 1, k_all, st, info);
   // first mode: u @ X (I, J)
-  return launch_contract<T, 16, 128, 32, 2, 4>(P, Q, c, K, 1, k_all, false, st, info);
+  return launch_contract<T, 16, 128, 32, 2, 4>(P, Q, c, K, 1, k_all, st, info);
 }
 
 }  // namespace

@@ -40,6 +40,7 @@
 // fp32 FFMA accumulation (TF32 cannot meet the fp32 tolerance); bf16 x and u
 // are converted on load.  Ragged edges are masked, nothing is padded, and
 // memory is indexed in 64 bits.
+#include "async.cuh"
 #include "common.cuh"
 
 using namespace atucker;
@@ -67,54 +68,6 @@ struct Plan {
   int iseg;          // rows of u per shared-memory segment (all of I, or a multiple of TI)
   int whole;         // tiles are whole values of a: one copy per a and stage
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.b32 %0, 1, 0, p;\n}"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of the given parity to complete.  A lost arrival would
-// spin forever; after ~8 s (2^34 cycles) the kernel traps instead, so the
-// launch fails with an error rather than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - start > (1LL << 34)) __trap();
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"r"(CT) : "memory");
@@ -198,7 +151,7 @@ ttm_interior_kernel(const T* __restrict__ u, const T* __restrict__ x, float* __r
         mbar_init(&full[s], 1);
         mbar_init(&empty[s], CONSUMER_WARPS);
       }
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      mbar_init_fence();
     }
     __syncthreads();
   }

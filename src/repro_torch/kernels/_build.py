@@ -37,7 +37,8 @@ _L = ctypes.c_longlong
 #: C signature of each library's entry points: name -> argtypes (all return int)
 SIGNATURES = {
     "ttt": {"atucker_ttt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P),
-            "atucker_ttt_info": (_I, _I, _I, _I, _I, _I, _L, _I, _P)},
+            "atucker_ttt_info": (_P, _P, _I, _I, _I, _I, _I, _I, _L, _I,
+                                 _P)},
     "matmul": {"atucker_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
                "atucker_matmul_info": (_I, _I, _I, _I, _P)},
     "ttm": {"atucker_ttm_interior": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -199,14 +200,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({name})")
 
 
-def launch_info(name: str, fn: str, *args) -> list[dict]:
+def report(name: str, fn: str, *args) -> tuple[list[dict], list[int]]:
     """The launch figures that the C report function ``fn`` of library
     ``name`` gives for one call's shape ``args``: for each CUDA kernel the
     call runs, registers per thread, threads per block, resident blocks per
     SM (the occupancy calculator's, with the launch's shared memory), grid
-    blocks and waves = grid blocks / (SMs × blocks per SM)."""
+    blocks and waves = grid blocks / (SMs × blocks per SM); and the four
+    words after the three kernels' (out[12:16], zero unless the library
+    reports more)."""
     lib = load(name)
-    out = (ctypes.c_int * 12)()
+    out = (ctypes.c_int * 16)()
     check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
     sms = torch.cuda.get_device_properties(
         torch.cuda.current_device()).multi_processor_count
@@ -218,4 +221,9 @@ def launch_info(name: str, fn: str, *args) -> list[dict]:
         rows.append(dict(registers=regs, threads=threads, blocks_per_sm=per_sm,
                          grid_blocks=blocks,
                          waves=blocks / (sms * per_sm) if per_sm else None))
-    return rows
+    return rows, list(out[12:16])
+
+
+def launch_info(name: str, fn: str, *args) -> list[dict]:
+    """The kernel rows of :func:`report`."""
+    return report(name, fn, *args)[0]

@@ -32,6 +32,38 @@ def gram_ref(x3: torch.Tensor) -> torch.Tensor:
     return ttt_ref(x3, x3)
 
 
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as ``csrc/ttt.cu`` rounds (``cvt.rna.tf32.f32`` on
+    finite values): half a TF32 unit is added to the magnitude's bits, then
+    the 13 low bits are cleared."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def ttt_tf32x3_ref(x3: torch.Tensor, y3: torch.Tensor, products: int = 3,
+                   splits: int = 1) -> torch.Tensor:
+    """The split-TF32 arithmetic of the wide route of ``csrc/ttt.cu``
+    written out in PyTorch, for the tests (the kernels never call it):
+    every operand v becomes hi = rna_tf32(v) and
+    lo = rna_tf32(v - hi), and z = hi_x·hi_yᵀ + hi_x·lo_yᵀ + lo_x·hi_yᵀ
+    (products = 3; products = 1 keeps hi_x·hi_yᵀ alone, one TF32 product),
+    each product exact in fp32 and summed in fp32 over ``splits`` equal
+    chunks of a, as the kernel's split reduction does."""
+    x, y = x3.float(), y3.float()
+    xh, yh = tf32_rna(x), tf32_rna(y)
+    terms = [(xh, yh)]
+    if products == 3:
+        terms += [(xh, tf32_rna(y - yh)), (tf32_rna(x - xh), yh)]
+    z = torch.zeros((x.shape[1], y.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    for part in torch.arange(x.shape[0]).tensor_split(splits):
+        lo, hi = int(part[0]), int(part[-1]) + 1
+        for p, q in terms:
+            z += ttt_ref(p[lo:hi], q[lo:hi])
+    return z
+
+
 def ttm_full_ref(x: torch.Tensor, u: torch.Tensor, mode: int) -> torch.Tensor:
     """Full mode-n TTM via explicit matricization."""
     xm = torch.movedim(x.float(), mode, 0).reshape(x.shape[mode], -1)

@@ -5,15 +5,18 @@ the mode-(I,J) tensor-times-tensor product contracting every mode except the
 target one.  Gram (S = Y_(n) Y_(n)^T) is the special case y ≡ x.
 
 Replaces ``repro/kernels/ttt.py::ttt_pallas3``; the CUDA source is
-``csrc/ttt.cu`` (its tile kernel is ``csrc/contract.cuh``, shared with the
-boundary GEMM).  What bounds it on the H100: the bytes of x when R is
-skinny (the ALS TTT, R = 10 against I = 7000 and a 76,800-deep reduction),
-fp32 FFMA for the Gram of a wide mode (I = R = 1340).  The design splits
-the long A·B reduction across blocks so that every SM has work, finishes the
-partial sums in a second small kernel (deterministic — no atomics), reads x
-in place (no padding, any A ≥ 1 and B ≥ 1, ragged edges masked), gives the
-last mode (B = 1) a column-per-thread path whose loads coalesce along i,
-and computes only the upper tiles of a wide Gram.
+``csrc/ttt.cu``.  What bounds it on the H100: the bytes of x when R is
+skinny (the ALS TTT, R = 10 against I = 7000 and a 76,800-deep reduction:
+the ``cols`` and ``tile16`` routes, FFMA, the latter on ``csrc/contract.cuh``
+shared with the boundary GEMM), arithmetic for the Gram of a wide mode
+(I = R = 1340).  Every R > 16 runs on the tensor cores (``wgmma_tma``, or
+``wgmma_plain`` for shapes TMA cannot take): fp32 operands split into two
+TF32 halves and three products (fp32-class accuracy), bf16 one product.
+The long A·B reduction is split across blocks so that every SM has work;
+a second small kernel finishes the partial sums (deterministic — no
+atomics) and mirrors the upper tiles of a Gram.  x is read in place (no
+padding, any A ≥ 1 and B ≥ 1, ragged edges masked or zero-filled).
+:func:`route` mirrors the C code's choice, :func:`split_plan` its tiling.
 
 A CPU tensor runs the plain version (:func:`repro_torch.kernels.ref.ttt_ref`);
 a CUDA tensor launches the kernel or raises.
@@ -32,27 +35,77 @@ from .ref import ttt_ref
 LAUNCHES = 0
 
 
-def _path(i: int, r: int, b: int, sym: bool) -> tuple[int, int, int]:
-    """(output tiles, TK, blocks wanted per SM) of the path csrc/ttt.cu
-    takes for an (I x R) output of a view with inner extent B."""
-    if b == 1 and r <= 16:               # column per thread, 128 columns
-        return math.ceil(i / 128), 64, 8
-    if r <= 16:                          # 128 x 16 tiles
-        return math.ceil(i / 128) * math.ceil(r / 16), 32, 4
+#: the routes of csrc/ttt.cu, by the code its report function gives
+ROUTES = ("cols", "tile16", "wgmma_tma", "wgmma_plain")
+#: elements of k per stage of the wide routes: 128 bytes of a row
+WIDE_TK = {"float32": 32, "bfloat16": 64}
+
+
+def route(r: int, b: int, dtype: str = "float32", aligned: bool = True) -> str:
+    """The route csrc/ttt.cu takes for an (I x R) output of views with inner
+    extent B: ``cols`` (B == 1, R <= 16), ``tile16`` (other R <= 16), and
+    for R > 16 the tensor-core routes -- ``wgmma_tma`` when a row of B
+    elements is a 16-byte multiple of at least 128 bytes and both operands
+    are 16-byte aligned, else ``wgmma_plain``."""
+    if r <= 16:
+        return "cols" if b == 1 else "tile16"
+    row = b * (4 if dtype == "float32" else 2)
+    return "wgmma_tma" if row % 16 == 0 and row >= 128 and aligned \
+        else "wgmma_plain"
+
+
+def _path(i: int, r: int, a: int, b: int, sym: bool, rt: str,
+          dtype: str) -> tuple[int, int, int, int]:
+    """(output tiles, TK, blocks wanted per SM, stages of TK over the whole
+    reduction) of route ``rt``.  The TMA route walks (a, 128-byte b-run)
+    boxes, so its reduction is A·ceil(B/TK)·TK with the runs' tails padded;
+    the others walk the flat k = a·B + b."""
+    if rt == "cols":                     # column per thread, 128 columns
+        return math.ceil(i / 128), 64, 8, math.ceil(a * b / 64)
+    if rt == "tile16":                   # 128 x 16 FFMA tiles
+        return math.ceil(i / 128) * math.ceil(r / 16), 32, 4, \
+            math.ceil(a * b / 32)
     n = math.ceil(i / 128)               # 128 x 128 tiles, upper half if sym
-    return (n * (n + 1) // 2 if sym else n * math.ceil(r / 128)), 16, 4
+    tiles = n * (n + 1) // 2 if sym else n * math.ceil(r / 128)
+    tk = WIDE_TK[dtype]
+    n_k = a * math.ceil(b / tk) if rt == "wgmma_tma" else math.ceil(a * b / tk)
+    return tiles, tk, 1, n_k
 
 
-def split_plan(i: int, r: int, k: int, b: int, sym: bool,
-               n_sms: int) -> tuple[int, int]:
+def split_plan(i: int, r: int, k: int, b: int, sym: bool, n_sms: int,
+               dtype: str = "float32", aligned: bool = True
+               ) -> tuple[int, int]:
     """(splits, k_per_split) of the reduction over k = A·B: enough blocks
-    to fill every SM, each split at least eight TK-deep tiles long."""
-    tiles, tk, per_sm = _path(i, r, b, sym)
-    n_k = math.ceil(k / tk)
+    to fill every SM (one wave of the wide routes), each split at least
+    eight TK-deep stages long, the splits covering the route's stages."""
+    rt = route(r, b, dtype, aligned)
+    tiles, tk, per_sm, n_k = _path(i, r, k // b, b, sym, rt, dtype)
     want = max(1, math.ceil(per_sm * n_sms / tiles))
     splits = max(1, min(want, n_k // 8, 65535))
     per = math.ceil(n_k / splits)
     return math.ceil(n_k / per), per * tk
+
+
+def _dtype_aligned(x3: torch.Tensor, y3: torch.Tensor) -> tuple[str, bool]:
+    """The operands' dtype name, and whether both are 16-byte aligned."""
+    return (str(x3.dtype).replace("torch.", ""),
+            x3.data_ptr() % 16 == 0 and y3.data_ptr() % 16 == 0)
+
+
+def _plan(x3: torch.Tensor, y3: torch.Tensor):
+    """(A, I, R, B, sym, splits, k_per_split) of a call."""
+    a, i, b = x3.shape
+    r = y3.shape[1]
+    sym = x3.data_ptr() == y3.data_ptr() and i == r   # a Gram
+    n_sms = torch.cuda.get_device_properties(x3.device).multi_processor_count
+    splits, k_per_split = split_plan(i, r, a * b, b, sym, n_sms,
+                                     *_dtype_aligned(x3, y3))
+    return a, i, r, b, sym, splits, k_per_split
+
+
+def call_route(x3: torch.Tensor, y3: torch.Tensor) -> str:
+    """The route ``ttt3(x3, y3)`` takes on the card."""
+    return route(y3.shape[1], x3.shape[2], *_dtype_aligned(x3, y3))
 
 
 def ttt3(x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
@@ -67,10 +120,8 @@ def ttt3(x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
     if kind == "cpu":
         return ttt_ref(x3, y3)
     dev = x3.device
-    sym = x3.data_ptr() == y3.data_ptr() and i == r   # a Gram
     with torch.cuda.device(dev):
-        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits, k_per_split = split_plan(i, r, a * b, b, sym, n_sms)
+        a, i, r, b, sym, splits, k_per_split = _plan(x3, y3)
         z = torch.empty((i, r), dtype=torch.float32, device=dev)
         mirror = sym and r > 16     # csrc/ttt.cu finishes mirrored Grams
         ws = torch.empty((splits, i, r), dtype=torch.float32, device=dev) \
@@ -87,14 +138,20 @@ def ttt3(x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
 
 
 def launch_info(x3: torch.Tensor, y3: torch.Tensor) -> list[dict]:
-    """Registers per thread, threads, resident blocks per SM and grid blocks
-    of each CUDA kernel that ``ttt3(x3, y3)`` runs: the contraction, then the
-    finish kernel where it runs (card only)."""
-    a, i, b = x3.shape
-    r = y3.shape[1]
-    sym = x3.data_ptr() == y3.data_ptr() and i == r
-    n_sms = torch.cuda.get_device_properties(x3.device).multi_processor_count
-    splits, k_per_split = split_plan(i, r, a * b, b, sym, n_sms)
-    return _build.launch_info("ttt", "atucker_ttt_info", a, i, r, b,
-                              _build.dtype_code(x3), splits, k_per_split,
-                              int(sym))
+    """Registers per thread, threads, resident blocks per SM, grid blocks
+    and waves of each CUDA kernel that ``ttt3(x3, y3)`` runs: the
+    contraction, then the finish kernel where it runs (card only).  The
+    first row also carries the route and its dynamic shared memory; the
+    route is the C library's own report, checked against :func:`route`."""
+    a, i, r, b, sym, splits, k_per_split = _plan(x3, y3)
+    rows, extra = _build.report("ttt", "atucker_ttt_info", x3.data_ptr(),
+                                y3.data_ptr(), a, i, r, b,
+                                _build.dtype_code(x3), splits, k_per_split,
+                                int(sym))
+    rt = ROUTES[extra[1]]
+    if rt != call_route(x3, y3):
+        raise RuntimeError(f"ttt: csrc/ttt.cu takes route {rt}, kernels/ttt.py "
+                           f"mirrors {call_route(x3, y3)}")
+    rows[0].update(route=rt, smem_bytes=extra[0], splits=splits,
+                   k_per_split=k_per_split)
+    return rows

@@ -23,7 +23,7 @@ from repro.kernels import ops as R_ops, ref as R_ref
 from repro_torch import kernels as K
 from repro_torch.core import TuckerConfig, plan, resolve_backend
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.ttt import split_plan
+from repro_torch.kernels.ttt import _path, call_route as ttt_route, route, split_plan
 from torch_parity import lowrank, to_np
 
 TOL = {"float32": 2e-4, "bfloat16": 4e-2}
@@ -169,11 +169,15 @@ class TestWrapperChecks:
         (5, 3, 1, 1, False), (33, 4, 800, 8, False),
         (200, 300, 5000, 50, False)])
     def test_split_plan_covers_the_reduction(self, i, r, k, b, sym):
+        """The splits cover the route's reduction, padded (the TMA route's
+        runs of 32) or not, with no empty split."""
         splits, per = split_plan(i, r, k, b, sym, 132)
         assert 1 <= splits <= 65535
-        tk = 64 if b == 1 and r <= 16 else 32 if r <= 16 else 16
+        tk = 64 if b == 1 and r <= 16 else 32
         assert per % tk == 0
-        assert splits * per >= k > (splits - 1) * per
+        extent = _path(i, r, k // b, b, sym, route(r, b), "float32")[3] * tk
+        assert extent >= k
+        assert splits * per >= extent > (splits - 1) * per
 
     @pytest.mark.parametrize("i,r,k,b,sym", [
         (100000, 100000, 3_000_000_000, 1000, False),
@@ -277,6 +281,22 @@ def test_kernels_match_plain_versions_on_the_card():
                 (K.matmul(u, w), ref.matmul_ref(u, w))]:
             assert float((got - want).abs().max()) <= \
                 1e-4 * float(want.abs().max())
+        # the tensor-core routes (R > 16), per entry in units of
+        # sqrt(ttt(x∘x, y∘y)): TMA Gram and TTT, rows of odd length, B = 1
+        # and a misaligned base on the plain-load route
+        flat = torch.randn(3 * 150 * 264 + 1, generator=g, device="cuda").to(dtype)
+        xm = flat[1:].view(3, 150, 264)
+        wide = [torch.randn(s, generator=g, device="cuda").to(dtype)
+                for s in ((5, 200, 264), (5, 40, 264), (3, 150, 70), (90, 40, 1))]
+        cases = [(wide[0], wide[0]), (wide[0], wide[1]), (wide[2], wide[2]),
+                 (wide[3], wide[3]), (xm, xm)]
+        routes = set()
+        for a3, b3 in cases:
+            routes.add(ttt_route(a3, b3))
+            want = ref.ttt_ref(a3, b3)
+            scale = ref.ttt_ref(a3.float() ** 2, b3.float() ** 2).sqrt()
+            assert float(((K.ttt3(a3, b3) - want).abs() / scale).max()) <= 2e-4
+        assert routes == {"wgmma_tma", "wgmma_plain"}
 
 
 def test_kernels_take_operands_beyond_int32_elements_on_the_card():

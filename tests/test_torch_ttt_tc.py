@@ -1,0 +1,213 @@
+"""The tensor-core (wgmma) route of the TTT/Gram kernel: its arithmetic and
+its routing, on the CPU.
+
+``csrc/ttt.cu`` runs every R > 16 on the tensor cores: fp32 operands split
+into hi = rna_tf32(x) and lo = rna_tf32(x - hi) and three TF32 products
+(hi·hi + hi·lo + lo·hi), bf16 operands one product.  The kernel itself runs
+only on the card (``chip_smoke.py`` holds it per entry against ``ttt_ref``);
+here its arithmetic, written out in PyTorch as ``ref.ttt_tf32x3_ref``, is
+held against the reference's ``repro.kernels.ref.gram_ref``/``ttt_ref`` on
+the same seeded numpy inputs, and the route and tiling that
+``kernels/ttt.py`` mirrors from the C code are pinned.
+
+Errors are per entry, in units of the entry's own scale
+sqrt(ttt(x∘x, y∘y)) (sqrt(gram(x∘x)) for a Gram): a Gram's diagonal is
+~sqrt(K) times its off-diagonal entries, so a relative-to-max check would
+not see a single TF32 product's error.  Limit: 2e-4, the port's fp32 Gram
+tolerance.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as R_ref
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.ttt import ROUTES, WIDE_TK, _path, route, split_plan
+
+LIMIT = 2e-4
+#: the Gram and TTT cases of chip_smoke.py's kernels_small phase:
+#: (shape, mode) and (shape, mode, R)
+GRAM_CASES = [((5, 37, 19), 1), ((33, 12, 50), 0), ((13, 21, 40), 2),
+              ((4, 9, 11, 6), 3), ((129, 6, 7), 0), ((3, 150, 70), 1),
+              ((50, 300, 40), 1), ((600, 7, 13), 2)]
+TTT_CASES = [((5, 37, 19), 1, 7), ((13, 21, 40), 2, 5), ((9, 8, 7), 0, 3),
+             ((6, 300, 5), 1, 20), ((600, 7, 130), 2, 9),
+             ((40, 260, 33), 1, 30)]
+
+
+def view3(a: np.ndarray, mode: int) -> np.ndarray:
+    return a.reshape(math.prod(a.shape[:mode]), a.shape[mode], -1)
+
+
+def rnd(shape, seed) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def entry_err(got, want, x3: np.ndarray, y3: np.ndarray) -> np.ndarray:
+    """|got - want| / sqrt(ttt(x∘x, y∘y)) per entry (float64)."""
+    x2, y2 = x3.astype(np.float64) ** 2, y3.astype(np.float64) ** 2
+    scale = np.sqrt(np.einsum("aib,arb->ir", x2, y2))
+    diff = np.asarray(got, np.float64) - np.asarray(want, np.float64)
+    return np.abs(diff) / scale
+
+
+def normalized_close(got, want, x3, y3):
+    """allclose at rtol = atol = LIMIT in units of the entries' scales."""
+    x2, y2 = x3.astype(np.float64) ** 2, y3.astype(np.float64) ** 2
+    scale = np.sqrt(np.einsum("aib,arb->ir", x2, y2))
+    np.testing.assert_allclose(np.asarray(got, np.float64) / scale,
+                               np.asarray(want, np.float64) / scale,
+                               rtol=LIMIT, atol=LIMIT)
+
+
+class TestSplitTf32Arithmetic:
+    def test_rna_rounds_to_nearest_ties_away(self):
+        ulp = 2.0 ** -10
+        x = torch.tensor([1.0, 1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4,
+                          1 + 3 * ulp / 4, 2 - ulp / 4, 0.0, -0.0])
+        want = [1.0, 1 + ulp, -(1 + ulp), 1.0, 1 + ulp, 2.0, 0.0, -0.0]
+        assert ref.tf32_rna(x).tolist() == want
+
+    def test_hi_lo_keep_fp32_class_accuracy(self):
+        x = torch.from_numpy(rnd(100_000, 1) * 10.0 ** rnd(100_000, 2))
+        hi = ref.tf32_rna(x)
+        lo = ref.tf32_rna(x - hi)
+        bits = torch.cat([hi, lo]).view(torch.int32)
+        assert int((bits & 0x1FFF).abs().max()) == 0      # both are TF32
+        assert float(((hi - x).abs() / x.abs()).max()) <= 2.0 ** -11
+        # hi + lo misses x by at most half a TF32 unit of lo: ~2^-22 of x
+        assert float(((hi.double() + lo.double() - x.double()).abs()
+                      / x.double().abs()).max()) <= 2.0 ** -21
+
+    @pytest.mark.parametrize("shape,mode", GRAM_CASES)
+    def test_gram_cases_against_the_reference(self, shape, mode):
+        x3 = view3(rnd(shape, 11), mode)
+        xt = torch.from_numpy(x3)
+        got = ref.ttt_tf32x3_ref(xt, xt)
+        want = R_ref.gram_ref(jnp.asarray(x3))
+        assert entry_err(got, want, x3, x3).max() <= LIMIT
+        normalized_close(got, want, x3, x3)
+
+    @pytest.mark.parametrize("shape,mode,r", TTT_CASES)
+    def test_ttt_cases_against_the_reference(self, shape, mode, r):
+        x3 = view3(rnd(shape, 12), mode)
+        y3 = view3(rnd(shape[:mode] + (r,) + shape[mode + 1:], 13), mode)
+        got = ref.ttt_tf32x3_ref(torch.from_numpy(x3), torch.from_numpy(y3))
+        want = R_ref.ttt_ref(jnp.asarray(x3), jnp.asarray(y3))
+        assert entry_err(got, want, x3, y3).max() <= LIMIT
+        normalized_close(got, want, x3, y3)
+
+    def test_full_reduction_depth(self):
+        """The main path's depth, A·B = 1021·264 = 269,544, in the kernel's
+        two splits: three products stay under the limit (9.5e-5 in the CPU
+        emulation), one TF32 product exceeds it five times over."""
+        x3 = rnd((1021, 48, 264), 14)
+        xt = torch.from_numpy(x3)
+        want = R_ref.gram_ref(jnp.asarray(x3))
+        three = ref.ttt_tf32x3_ref(xt, xt, products=3, splits=2)
+        one = ref.ttt_tf32x3_ref(xt, xt, products=1, splits=2)
+        assert entry_err(three, want, x3, x3).max() <= LIMIT
+        normalized_close(three, want, x3, x3)
+        assert entry_err(one, want, x3, x3).max() > 4 * LIMIT
+        with pytest.raises(AssertionError):
+            normalized_close(one, want, x3, x3)
+
+    def test_bf16_operands_need_one_product(self):
+        """bf16 values are exact in TF32: lo is zero and the split adds
+        nothing, which is why the bf16 route takes one product."""
+        x = torch.from_numpy(rnd((7, 30, 50), 15)).bfloat16()
+        assert int(ref.tf32_rna(x.float() - ref.tf32_rna(x)).abs().max()) == 0
+        assert torch.equal(ref.ttt_tf32x3_ref(x, x, products=1),
+                           ref.ttt_tf32x3_ref(x, x, products=3))
+
+
+class TestRouteMirror:
+    @pytest.mark.parametrize("r,b,dtype,aligned,want", [
+        (1340, 264, "float32", True, "wgmma_tma"),      # the main-path Gram
+        (1340, 264, "bfloat16", True, "wgmma_tma"),
+        (40, 32, "float32", True, "wgmma_tma"),         # 128-byte rows
+        (40, 28, "float32", True, "wgmma_plain"),       # 112 bytes: short
+        (40, 70, "float32", True, "wgmma_plain"),       # 280: not 16-byte
+        (40, 1, "float32", True, "wgmma_plain"),        # B == 1: MN-major
+        (40, 264, "float32", False, "wgmma_plain"),     # misaligned base
+        (40, 40, "bfloat16", True, "wgmma_plain"),      # 80 bytes: short
+        (40, 64, "bfloat16", True, "wgmma_tma"),
+        (40, 68, "bfloat16", True, "wgmma_plain"),      # 136: not 16-byte
+        (17, 264, "float32", True, "wgmma_tma"),        # the first wide R
+    ])
+    def test_wide_routes(self, r, b, dtype, aligned, want):
+        assert route(r, b, dtype, aligned) == want
+
+    @pytest.mark.parametrize("r,b,aligned,want", [
+        (10, 1, True, "cols"), (16, 1, False, "cols"), (10, 264, True, "tile16"),
+        (16, 70, False, "tile16"), (1, 1, True, "cols")])
+    def test_skinny_routes_unchanged(self, r, b, aligned, want):
+        for dtype in ("float32", "bfloat16"):
+            assert route(r, b, dtype, aligned) == want
+
+    def test_route_codes_follow_the_c_library(self):
+        """atucker_ttt_info reports the route as its index in ROUTES, after
+        the two operand pointers it inspects for alignment."""
+        assert ROUTES == ("cols", "tile16", "wgmma_tma", "wgmma_plain")
+        argtypes = _build.SIGNATURES["ttt"]["atucker_ttt_info"]
+        assert argtypes[:2] == (_build._P, _build._P) and len(argtypes) == 11
+
+
+class TestTiling:
+    @pytest.mark.parametrize("i,r,k,b,sym,want", [
+        (7000, 10, 76800, 1, False, (20, 3840)),    # Boats' ALS TTT
+        (1340, 10, 269544, 264, False, (48, 5632)),  # HSI's ALS TTT
+        (10, 10, 76800, 1, True, (150, 512)), (33, 4, 800, 8, False, (3, 288)),
+        (5, 3, 1, 1, False, (1, 64)), (16, 16, 4000, 25, True, (14, 288))])
+    def test_skinny_split_plans_unchanged(self, i, r, k, b, sym, want):
+        """R <= 16 keeps the FFMA routes and the splits they had before the
+        tensor-core route (cols: TK 64, 8 blocks per SM; tile16: TK 32, 4)."""
+        for dtype in ("float32", "bfloat16"):
+            assert split_plan(i, r, k, b, sym, 132, dtype) == want
+
+    def test_upper_tiles_of_the_main_path_gram(self):
+        tiles, tk, per_sm, n_k = _path(1340, 1340, 1021, 264, True,
+                                       "wgmma_tma", "float32")
+        assert (tiles, tk, per_sm) == (66, 32, 1)
+        assert n_k == 1021 * 9                   # 264 = 8 runs of 32 + 8
+        # 24 of every 288 copied k are the boxes' zero fill
+        assert (288 - 264) / 288 == pytest.approx(0.0833, abs=1e-4)
+
+    def test_main_path_gram_fills_one_wave(self):
+        splits, per = split_plan(1340, 1340, 1021 * 264, 264, True, 132)
+        assert (splits, per) == (2, 4595 * 32)
+        assert 66 * splits == 132
+
+    @pytest.mark.parametrize("i,r,a,b,sym,dtype,aligned", [
+        (1340, 1340, 1021, 264, True, "float32", True),
+        (1340, 1340, 1021, 264, True, "bfloat16", True),
+        (1340, 1340, 1021, 264, True, "float32", False),
+        (33, 33, 1, 1340 * 264, True, "float32", True),
+        (1021, 1021, 1, 1340 * 264, True, "float32", True),
+        (300, 40, 6, 48, False, "float32", True),
+        (70, 200, 4, 264, False, "bfloat16", True),
+        (150, 150, 3, 70, True, "float32", True),
+        (40, 40, 273, 1, True, "float32", True),
+        (130, 20, 300, 1, False, "bfloat16", True),
+        (7, 300, 5, 37, False, "float32", True),
+    ])
+    def test_splits_cover_k_exactly(self, i, r, a, b, sym, dtype, aligned):
+        """Every split is non-empty and together they cover the route's
+        reduction, in whole TK-deep stages; the grid is one wave of 132
+        SMs, short of it only where longer splits could not be halved
+        without dropping below eight stages."""
+        rt = route(r, b, dtype, aligned)
+        assert rt.startswith("wgmma")
+        splits, per = split_plan(i, r, a * b, b, sym, 132, dtype, aligned)
+        tk = WIDE_TK[dtype]
+        tiles, _, _, n_k = _path(i, r, a, b, sym, rt, dtype)
+        extent = n_k * tk    # whole stages: A·ceil(B/TK)·TK on TMA, ≥ A·B
+        assert extent >= a * b
+        assert per % tk == 0
+        assert (splits - 1) * per < extent <= splits * per
+        assert tiles * splits < 132 + tiles
+        assert tiles * splits >= 132 or per <= 16 * tk
