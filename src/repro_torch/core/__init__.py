@@ -1,8 +1,13 @@
 """a-Tucker core on PyTorch: input-adaptive, matricization-free Tucker decomposition.
 
-Public API (this slice of the port — fixed-rank plans on one device):
+Public API (single-device plans; the sharded path is a later slice):
   TuckerConfig / plan / TuckerPlan / decompose — plan/execute front door
-      (static solver schedules, eager sweeps on the plan's device)
+      (static solver schedules, eager sweeps on the plan's device; fixed
+      ranks or an error target; the execute-time fallback ladder)
+  optimize_schedule / optimize_grouping / MemoryCapError — the schedule
+      search (mode_order="opt") under a memory cap
+  rand_sketch / rand_solve — the randomized solver behind rank-adaptive
+      plans
   TuckerTensor — decomposition result (reconstruct, rel_error, ratio)
   Selector / default_selector — adaptive solver selector, resolved per
       (platform, backend); platform is "cuda" or "cpu"
@@ -18,7 +23,8 @@ Public API (this slice of the port — fixed-rank plans on one device):
 # package.  ``from repro_torch.core.plan import ...`` still resolves the
 # module (sys.modules), and ``plan_lib`` aliases it for attribute access.
 from . import backend, cost_model, plan as plan_lib, tensor_ops
-from .api import TuckerConfig, TuckerPlan, decompose, plan, resolve_device
+from .api import (TuckerConfig, TuckerPlan, decompose, fallback_hops, plan,
+                  reset_fallback_hops, resolve_device)
 from .backend import (
     OpsBackend,
     backend_names,
@@ -31,19 +37,24 @@ from .errors import (CancelledError, DeadlineError, InputError,
                      NumericalError, ResourceError, TuckerError,
                      check_finite, classify_exception, coerce_exception)
 from .plan import ModeStep, resolve_schedule
+from .schedule_opt import (MemoryCapError, ScheduleSearch, optimize_grouping,
+                           optimize_schedule)
 from .selector import Selector, default_selector, extract_features
-from .solvers import ALS, EIG, SVD, als_solve, eig_solve, svd_solve
+from .solvers import (ALS, EIG, RAND, SVD, als_solve, eig_solve, rand_sketch,
+                      rand_solve, svd_solve)
 from .sthosvd import SthosvdResult, TuckerTensor
 
 __all__ = [
-    "ALS", "DEFAULT_COST_MODEL", "EIG", "SVD",
+    "ALS", "DEFAULT_COST_MODEL", "EIG", "RAND", "SVD",
     "CancelledError", "CostModel", "DeadlineError", "InputError",
-    "ModeStep", "NumericalError", "OpsBackend",
-    "ResourceError", "Selector", "SthosvdResult",
+    "MemoryCapError", "ModeStep", "NumericalError", "OpsBackend",
+    "ResourceError", "ScheduleSearch", "Selector", "SthosvdResult",
     "TuckerConfig", "TuckerError", "TuckerPlan", "TuckerTensor",
     "als_solve", "backend", "backend_names", "check_finite",
     "classify_exception", "coerce_exception", "cost_model", "decompose",
-    "default_selector", "eig_solve", "extract_features", "get_backend",
-    "plan", "plan_lib", "register_backend", "resolve_backend",
-    "resolve_device", "resolve_schedule", "svd_solve", "tensor_ops",
+    "default_selector", "eig_solve", "extract_features", "fallback_hops",
+    "get_backend", "optimize_grouping", "optimize_schedule", "plan",
+    "plan_lib", "rand_sketch", "rand_solve", "register_backend",
+    "reset_fallback_hops", "resolve_backend", "resolve_device",
+    "resolve_schedule", "svd_solve", "tensor_ops",
 ]

@@ -11,6 +11,26 @@ against the static shapes and freezes them; ``execute`` only runs them.
 Plans are JSON-serializable (``save``/``load``) in the reference's schema,
 so a schedule planned by the JAX package runs here unchanged.
 
+Rank-ADAPTIVE plans trade fixed ranks for an error target:
+
+    cfg = TuckerConfig(error_target=0.05)        # ||X - X̂|| ≤ 0.05·||X||
+    p   = plan(x.shape, "float32", cfg)          # freezes a rank POLICY
+    res = p.execute(x)                           # sketches ranks, refines
+    res.tucker.ranks, res.error_bound            # what the policy chose
+
+The plan carries per-step candidate grids and equi-partitioned HOSVD
+budgets instead of ranks; execution reads each mode's rank off a
+randomized sketch (matricization-free, the same TTM/TTT/Gram kernels) and
+either ships the sketch factors (``methods="rand"``) or refines at the
+chosen ranks through the ordinary fixed-rank path.
+
+``mode_order="opt"`` searches order and solver with the exact subset DP of
+:mod:`repro_torch.core.schedule_opt`, under ``memory_cap_bytes`` when set.
+A failed fixed-rank execute degrades along a bounded fallback ladder
+(als→eig on a numerical breakdown, a replan under a tighter cap on an
+out-of-memory); a kernel that fails on the card raises — nothing drops to
+``matfree`` or the CPU.
+
 Devices: entry points run on the card.  ``plan(..., device=None)`` and
 ``TuckerPlan.load(path, device=None)`` mean ``cuda:0`` and raise when CUDA
 is not available — they never drop to the CPU; pass ``device="cpu"`` to
@@ -18,32 +38,31 @@ run there.  ``execute`` copies a numpy array or a tensor on another device
 onto the plan's device.  PyTorch runs eagerly: a plan's sweep is a Python
 loop over the frozen steps (CUDA-graph capture of the sweep is later work).
 
-This slice of the port covers fixed-rank plans on one device.  The
-reference's rank-adaptive (``error_target``), sharded (``mesh``) and
-schedule-search (``mode_order="opt"``, ``memory_cap_bytes``) paths, its
-execute-time fallback ladder, ``execute_batch`` and ``for_shape`` arrive
-with later slices; asking for them raises :class:`NotImplementedError`.
+The reference's sharded (``mesh``) and mode-parallel paths,
+``execute_batch`` and ``for_shape`` arrive with later slices; asking for
+them raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import json
 import math
-from dataclasses import dataclass, field
+import time
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Any, Callable, Sequence
 
 import torch
 
 from . import tensor_ops as T
-from .backend import get_backend, resolve_backend
-from .cost_model import DEFAULT_OVERSAMPLE, DEFAULT_POWER_ITERS
-from .errors import (InputError, check_finite, check_result_finite,
-                     classify_exception)
+from .backend import backend_ops, get_backend, resolve_backend
+from .errors import (CancelledError, DeadlineError, InputError,
+                     NumericalError, ResourceError, check_finite,
+                     check_result_finite, classify_exception)
 from .plan import (ModeStep, TimedSelector, VARIANTS, project,
                    resolve_schedule, run_schedule, solve_step, sweep_hooi,
                    sweep_sthosvd, sweep_thosvd)
-from .solvers import DEFAULT_ALS_ITERS
+from .solvers import DEFAULT_ALS_ITERS, DEFAULT_OVERSAMPLE, DEFAULT_POWER_ITERS
 from .sthosvd import ModeTrace, SthosvdResult, TuckerTensor
 
 PLAN_FORMAT_VERSION = 1
@@ -58,20 +77,47 @@ def _later(feature: str, slice_name: str) -> NotImplementedError:
 class TuckerConfig:
     """Frozen description of a Tucker decomposition job (the *what*).
 
-    The fields, their defaults and ``to_dict``/``from_dict`` are the
-    reference's, so configs and plans serialize identically.
+    The fields, their defaults, their validation and ``to_dict``/
+    ``from_dict`` are the reference's, so configs and plans serialize
+    identically.
 
     ``impl`` names an ops backend from :mod:`repro_torch.core.backend`
     (``matfree`` | ``explicit`` | ``hopper`` | custom) or ``"auto"``, which
     ``plan()`` resolves for the device and compute dtype (``hopper`` on
     CUDA for fp32/bf16).  ``compute_dtype`` casts inputs before the sweep.
-    ``mode_order`` is ``None`` (the paper's 1..N), a permutation or
-    ``"shrink"``; ``"opt"`` is stored (plans that carry it load and run
-    their frozen schedule) but planning with it raises until the
-    schedule-search slice, as does ``memory_cap_bytes``.  ``donate_input``
-    is accepted, stored and serialized, and does nothing: the port's sweep
-    never aliases its input.  ``mesh``, ``error_target`` and ``rank_grid``
-    raise until their slices.
+
+    ``mode_order`` is ``None`` (the paper's 1..N), a permutation,
+    ``"shrink"`` or ``"opt"`` — the exact subset-DP schedule search
+    (:mod:`repro_torch.core.schedule_opt`) that jointly picks order AND
+    per-step solver against the cost model's predicted total, under
+    ``memory_cap_bytes`` when set.  ``memory_cap_bytes`` is a hard ceiling
+    on every step's modeled working set: plans that cannot fit raise
+    :class:`~repro_torch.core.schedule_opt.MemoryCapError` at plan time,
+    naming the binding step.
+
+    ``donate_input`` is accepted, stored and serialized; the port's sweep
+    never aliases or frees its input.  ``donate_input=False`` keeps the
+    reference's plan-level cap check: the held input must fit beside every
+    later step (see :func:`plan`).
+
+    ``error_target`` switches the plan RANK-ADAPTIVE (st-HOSVD only): pass a
+    target relative reconstruction error ε ∈ (0, 1) and ``ranks`` becomes
+    optional — the plan carries a rank POLICY, and execution reads each
+    mode's rank off a randomized sketch
+    (:func:`repro_torch.core.solvers.rand_sketch`): the smallest candidate
+    whose measured discarded energy fits the mode's share
+    ``τ_n² = ε²·||X||²/N`` of the HOSVD bound ``||X − X̂||² ≤ Σ_n τ_n²``.
+    ``ranks``, when also given, caps the per-mode rank; ``rank_grid``
+    restricts the candidates — a flat int tuple is one shared ascending
+    grid, a tuple of tuples is per-mode (default: every rank up to the
+    cap).  ``methods`` names the solver that REFINES at the chosen ranks
+    (``"auto"``/``"eig"``/``"als"`` …); ``methods="rand"`` ships the
+    sketch's own factors.  ``oversample``/``power_iters`` tune the sketch
+    (ℓ = r + oversample columns, subspace-iteration count).
+    ``SthosvdResult.error_bound`` then reports the certified bound
+    ``sqrt(Σ_n tail_n)/||X||`` measured from the executed sketch.
+
+    ``mesh`` raises until the sharded slice.
     """
     ranks: tuple[int, ...] | None = None
     variant: str = "sthosvd"
@@ -94,12 +140,46 @@ class TuckerConfig:
     def __post_init__(self):
         if self.mesh is not None or self.shard_axis is not None:
             raise _later("multi-device execution (mesh=...)", "sharded")
-        if self.error_target is not None or self.rank_grid is not None:
-            raise _later("rank-adaptive planning (error_target=..., "
-                         "rank_grid=...)", "rank-adaptive")
-        if self.ranks is None:
-            raise ValueError("TuckerConfig needs ranks=... (fixed-rank)")
-        object.__setattr__(self, "ranks", tuple(int(r) for r in self.ranks))
+        if self.ranks is not None:
+            object.__setattr__(self, "ranks",
+                               tuple(int(r) for r in self.ranks))
+        elif self.error_target is None:
+            raise ValueError("TuckerConfig needs ranks=... (fixed-rank) or "
+                             "error_target=... (rank-adaptive)")
+        if self.error_target is not None:
+            object.__setattr__(self, "error_target", float(self.error_target))
+            if not 0.0 < self.error_target < 1.0:
+                raise ValueError(f"error_target={self.error_target} must be "
+                                 "a relative error in (0, 1)")
+            if self.variant != "sthosvd":
+                raise ValueError("error_target (rank-adaptive planning) "
+                                 "needs the sequential-shrink error "
+                                 "accounting of variant='sthosvd', got "
+                                 f"{self.variant!r}")
+            if self.mode_parallel != "off":
+                raise ValueError("rank-adaptive plans are sequential (the "
+                                 "per-mode budget check threads the shrink); "
+                                 "mode_parallel must stay 'off'")
+            if self.impl == "sharded":
+                raise ValueError("rank-adaptive plans run replicated (the "
+                                 "sketch has no collective path); drop the "
+                                 "sharded impl, or resolve ranks first and "
+                                 "plan the fixed-rank sweep at the result")
+        if self.rank_grid is not None:
+            if self.error_target is None:
+                raise ValueError("rank_grid is part of the rank-adaptive "
+                                 "policy; set error_target=... too (for "
+                                 "fixed ranks pass ranks=...)")
+            rg = tuple(self.rank_grid)
+            if all(isinstance(g, int) for g in rg):
+                object.__setattr__(self, "rank_grid",
+                                   tuple(int(g) for g in rg))
+            else:
+                object.__setattr__(
+                    self, "rank_grid",
+                    tuple(tuple(int(r) for r in g) for g in rg))
+            if not rg:
+                raise ValueError("rank_grid must not be empty")
         if self.oversample < 0 or self.power_iters < 0:
             raise ValueError("oversample and power_iters must be >= 0")
         if not isinstance(self.methods, str):
@@ -135,28 +215,43 @@ class TuckerConfig:
             raise ValueError(f"mode_parallel={mp} must be >= 1")
 
     def to_dict(self) -> dict:
-        return {"ranks": list(self.ranks),
-                "variant": self.variant,
-                "methods": (self.methods if isinstance(self.methods, str)
-                            else list(self.methods)),
-                "mode_order": (list(self.mode_order)
-                               if isinstance(self.mode_order, tuple)
-                               else self.mode_order),
-                "impl": self.impl, "als_iters": self.als_iters,
-                "hooi_iters": self.hooi_iters,
-                "compute_dtype": self.compute_dtype,
-                "mesh": None,
-                "shard_axis": self.shard_axis,
-                "memory_cap_bytes": self.memory_cap_bytes,
-                "donate_input": self.donate_input,
-                "mode_parallel": self.mode_parallel}
+        d = {"ranks": None if self.ranks is None else list(self.ranks),
+             "variant": self.variant,
+             "methods": (self.methods if isinstance(self.methods, str)
+                         else list(self.methods)),
+             "mode_order": (list(self.mode_order)
+                            if isinstance(self.mode_order, tuple)
+                            else self.mode_order),
+             "impl": self.impl, "als_iters": self.als_iters,
+             "hooi_iters": self.hooi_iters,
+             "compute_dtype": self.compute_dtype,
+             "mesh": None,
+             "shard_axis": self.shard_axis,
+             "memory_cap_bytes": self.memory_cap_bytes,
+             "donate_input": self.donate_input,
+             "mode_parallel": self.mode_parallel}
+        # rank-policy keys ride only on adaptive configs, so fixed-rank
+        # config JSON stays byte-identical to the reference's
+        if self.error_target is not None:
+            d["error_target"] = self.error_target
+            d["rank_grid"] = (None if self.rank_grid is None else
+                              [list(g) if isinstance(g, tuple) else g
+                               for g in self.rank_grid])
+            d["oversample"] = self.oversample
+            d["power_iters"] = self.power_iters
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "TuckerConfig":
         if d.get("mesh") is not None:
             raise _later("multi-device execution (a plan with a mesh)",
                          "sharded")
-        return cls(ranks=tuple(d["ranks"]) if d["ranks"] is not None else None,
+        rg = d.get("rank_grid")
+        if rg is not None:
+            rg = tuple(tuple(g) if isinstance(g, list) else int(g)
+                       for g in rg)
+        ranks = d["ranks"]
+        return cls(ranks=None if ranks is None else tuple(ranks),
                    variant=d.get("variant", "sthosvd"),
                    methods=(d["methods"] if isinstance(d["methods"], str)
                             else tuple(d["methods"])),
@@ -172,7 +267,7 @@ class TuckerConfig:
                    donate_input=d.get("donate_input"),
                    mode_parallel=d.get("mode_parallel", "off"),
                    error_target=d.get("error_target"),
-                   rank_grid=d.get("rank_grid"),
+                   rank_grid=rg,
                    oversample=d.get("oversample", DEFAULT_OVERSAMPLE),
                    power_iters=d.get("power_iters", DEFAULT_POWER_ITERS))
 
@@ -234,6 +329,14 @@ class TuckerPlan:
 
     # -- introspection -------------------------------------------------------
     @property
+    def is_adaptive(self) -> bool:
+        """True when this plan carries a rank POLICY (``error_target``)
+        instead of fixed ranks: steps are sized at their rank caps (the
+        conservative figure for memory modeling) and ``execute`` reads the
+        actual per-mode ranks off a randomized sketch of each input."""
+        return self.config.error_target is not None
+
+    @property
     def backend(self) -> str:
         """The resolved ops backend this plan's steps run on (``config.impl``
         may be ``"auto"``; this is what it resolved to at plan time)."""
@@ -282,6 +385,18 @@ class TuckerPlan:
             return max(peaks)
         return max(peaks[0], max(p + self.input_bytes for p in peaks[1:]))
 
+    @property
+    def capped_peak_bytes(self) -> int:
+        """The modeled figure ``memory_cap_bytes`` holds: the largest step
+        peak, or :attr:`peak_bytes` (the held input on top of every later
+        step) when the config says ``donate_input=False`` — the reference's
+        cap on donated and undonated plans.  The port never frees the input
+        it is given, so on the card the caller's tensor stays beside each
+        step either way."""
+        if self.config.donate_input is False:
+            return self.peak_bytes
+        return max(s.peak_bytes for s in self.schedule)
+
     # -- execution -----------------------------------------------------------
     def _place(self, x) -> torch.Tensor:
         x = _as_tensor(x)
@@ -304,12 +419,18 @@ class TuckerPlan:
         and ignored (the port never donates).  ``validate="finite"`` rejects
         NaN/Inf inputs with :class:`~repro_torch.core.errors.InputError`
         naming the offending mode and checks the outputs (raising
-        :class:`~repro_torch.core.errors.NumericalError`).
+        :class:`~repro_torch.core.errors.NumericalError`, which the ladder
+        then gets a chance to recover).
 
-        There is no fallback ladder: a failure is re-raised as its
-        classified error (:func:`~repro_torch.core.errors.classify_exception`)
-        when it has one, else as itself.  On the card a kernel that fails
-        raises; nothing drops to ``matfree`` or the CPU.
+        A rank-adaptive plan runs its sketch pass and then the sketch's own
+        result or a fixed-rank refinement (:meth:`_execute_adaptive`).  A
+        fixed-rank plan runs under the fallback ladder
+        (:func:`_run_with_fallback`): als→eig on a numerical breakdown, a
+        replan under a tighter cap with ``mode_order="opt"`` on an
+        out-of-memory; each rung at most once, each hop counted
+        (:func:`fallback_hops`), and the classified error re-raised when no
+        rung is left.  A kernel that fails on the card raises: no rung
+        drops to ``matfree`` or the CPU.
         """
         del donate
         if validate not in (None, "none", "finite"):
@@ -319,25 +440,26 @@ class TuckerPlan:
             if s.n_shards > 1 or s.group is not None:
                 raise _later("executing a sharded or mode-parallel schedule",
                              "sharded")
-            if s.rank_grid is not None:
-                raise _later("executing a rank-adaptive schedule",
-                             "rank-adaptive")
         x = self._place(x)
         if validate == "finite":
             check_finite(x, name="input")
-        try:
-            res = self._run(x, record)
-        except InputError:
-            raise
-        except Exception as e:  # noqa: BLE001 - classification is the point
-            terr = classify_exception(e)
-            if terr is not None and terr is not e:
-                raise terr from e
-            raise
-        if validate == "finite":
-            check_result_finite(res.tucker.core, res.tucker.factors,
-                                context=f"{self.config.variant} sweep")
-        return res
+        if self.is_adaptive:
+            try:
+                return self._execute_adaptive(x, record=record)
+            except Exception as e:  # noqa: BLE001 - classification is the point
+                terr = classify_exception(e)
+                if terr is not None and terr is not e:
+                    raise terr from e
+                raise
+
+        def run(p: "TuckerPlan") -> SthosvdResult:
+            res = p._run(x, record)
+            if validate == "finite":
+                check_result_finite(res.tucker.core, res.tucker.factors,
+                                    context=f"{p.config.variant} sweep")
+            return res
+
+        return _run_with_fallback(self, run)
 
     def _run(self, x: torch.Tensor, record: bool) -> SthosvdResult:
         cfg = self.config
@@ -396,15 +518,181 @@ class TuckerPlan:
             factors[step.mode] = res.u
         return project(x, factors, steps[0].backend), factors, seconds
 
+    # -- rank-adaptive execution ---------------------------------------------
+    def resolve_ranks(self, x) -> tuple[tuple[int, ...], float]:
+        """Run ONLY the sketch pass on ``x``: the per-mode ranks the policy
+        chooses for this input plus the certified relative-error bound —
+        without building the decomposition.  Adaptive plans only."""
+        if not self.is_adaptive:
+            raise ValueError("resolve_ranks needs a rank-adaptive plan "
+                             "(TuckerConfig(error_target=...)); this plan's "
+                             f"ranks are fixed at {self.config.ranks}")
+        ranks, tails, *_ = self._sketch_pass(self._place(x))
+        return ranks, math.sqrt(sum(tails.values()))
+
+    def _sketch_pass(self, x: torch.Tensor):
+        """The rank-adaptive sweep core: sequential randomized sketches
+        (:func:`repro_torch.core.solvers.rand_sketch`) in schedule order,
+        reading each mode's rank off its sketched eigenvalue tail.
+
+        Per step, the captured energy of a rank-r truncation of the current
+        tensor equals the sum of the top-r eigenvalues of the sketched Gram
+        — exact for the factor actually used — so the smallest grid
+        candidate whose discarded energy fits the step's budget
+        ``tau·||X||²`` is chosen.  ``||X||²`` is the energy measured at step
+        0, which makes ``sqrt(Σ_n tail_n)`` of the recorded fractional tails
+        a guaranteed relative-error bound via the sequential HOSVD
+        inequality.
+
+        The captured energy of each Ritz direction is summed from the
+        rotated sketch core ``z = TTM(b, Vᵀ, mode)`` itself
+        (:func:`~repro_torch.core.solvers.mode_energies`, float64 across
+        runs), not read off the eigenvalues of the fp32 sketched Gram as in
+        the reference: over a 3.5e5-deep reduction that Gram's trace is off
+        by ~5e-6 of ||X||² on the card, a twentieth of the tail a 1%-noise
+        input leaves.  The Gram still gives the rotation; the tail is the
+        exact discarded energy of the factor that is used, and the shrunk
+        core is the first r slices of z.
+
+        The sketch width is input-adaptive: each mode starts at
+        ``max(16, 2·oversample, smallest candidate + oversample)`` and
+        doubles only while no candidate ≤ the current width meets the
+        budget, up to ``rank cap + oversample`` (capped at I_n).  A narrower
+        sketch can only under-capture — the measured tail of the factor it
+        yields is still exact — so widening never weakens the guarantee.
+        The host reads the eigenvalues and the energy once a width (one
+        copy, one synchronization).
+
+        Returns ``(ranks, tails, factors, core, seconds, js, missed)``:
+        per-mode chosen ranks and fractional tails, the sketch's own
+        orthonormal factors, the shrunk core, per-step wall-clock, the J_n
+        each step saw, and the modes whose budget no grid candidate met even
+        at the cap width — the miss that triggers the rand→eig hop in
+        :meth:`_execute_adaptive`.
+        """
+        from .solvers import _accum, _sq_norm, mode_energies, rand_sketch
+        cfg = self.config
+        if cfg.compute_dtype:
+            x = x.to(T.torch_dtype(cfg.compute_dtype))
+        wdtype = x.dtype
+        y = x
+        total = None
+        chosen: dict[int, int] = {}
+        tails: dict[int, float] = {}
+        factors: dict[int, torch.Tensor] = {}
+        seconds: list[float] = []
+        js: list[int] = []
+        missed: list[int] = []
+        for s in self.schedule:
+            t0 = time.perf_counter()
+            js.append(y.numel() // y.shape[s.mode])
+            width_cap = min(s.i_n, s.rank_grid[-1] + cfg.oversample)
+            width = min(width_cap, max(16, 2 * cfg.oversample,
+                                       s.rank_grid[0] + cfg.oversample))
+            ttm = backend_ops(s.backend)[0]
+            energy_t = _sq_norm(y.to(_accum(y.dtype)))   # once a mode
+            while True:
+                q, b, _, vecs, _ = rand_sketch(
+                    y, s.mode, width, power_iters=cfg.power_iters,
+                    impl=s.backend, energy=energy_t)
+                v = vecs.flip(1).to(q.dtype)   # Ritz vectors, descending
+                z = ttm(b, v.T, s.mode)        # the rotated sketch core
+                host = torch.cat([mode_energies(z, s.mode),
+                                  energy_t.reshape(1)]).cpu()
+                energy = float(host[-1])
+                if total is None:
+                    total = energy or 1.0  # step 0: ||X||², the budget basis
+                csum = host[:-1].cumsum(0)    # csum[r-1] = top-r captured
+                budget = s.tau * total
+                r = tail = None
+                for cand in s.rank_grid:    # ascending: smallest fit wins
+                    if cand > width:
+                        break
+                    t = max(energy - float(csum[cand - 1]), 0.0)
+                    if t <= budget:
+                        r, tail = cand, t
+                        break
+                if r is not None or width >= width_cap:
+                    break
+                width = min(2 * width, width_cap)
+            if r is None:   # no candidate fits even at the cap width: take
+                            # the largest grid rank the sketch can express
+                r = max(g for g in s.rank_grid if g <= width)
+                tail = max(energy - float(csum[r - 1]), 0.0)
+                missed.append(s.mode)
+            chosen[s.mode], tails[s.mode] = int(r), tail / total
+            # top-r Ritz rotation of the range basis; the shrunk core is the
+            # first r slices of the rotated sketch — no pass over the input
+            factors[s.mode] = (q @ v[:, :r]).to(wdtype)
+            y = z.narrow(s.mode, 0, r).contiguous().to(wdtype)
+            if y.device.type == "cuda":
+                torch.cuda.synchronize(y.device)
+            seconds.append(time.perf_counter() - t0)
+        ranks = tuple(chosen[m] for m in range(len(self.shape)))
+        return ranks, tails, factors, y, seconds, js, missed
+
+    def _execute_adaptive(self, x: torch.Tensor, *,
+                          record: bool = False) -> SthosvdResult:
+        """Two-phase rank-adaptive execution.
+
+        Phase 1 resolves ranks per mode (:meth:`_sketch_pass`).  Phase 2:
+        with ``methods="rand"`` the sketch's own factors and shrunk core ARE
+        the result, certified by the measured bound; any other ``methods``
+        re-plans at the chosen FIXED ranks and runs the ordinary eig/als
+        sweep as refinement, with the sketch time reported as
+        ``select_overhead_s`` and the measured per-mode tails riding the
+        refined trace as ``tail_err``.  A sketch-only plan that missed a
+        mode's budget at the cap width takes the rand→eig hop: it refines
+        with exact eig solves at the chosen ranks instead of shipping the
+        under-converged sketch, and reports the measured (missed) bound."""
+        cfg = self.config
+        ranks, tails, factors, core, seconds, js, missed = \
+            self._sketch_pass(x)
+        bound = math.sqrt(sum(tails.values()))
+        m = cfg.methods
+        sketch_only = m == "rand" or \
+            (not isinstance(m, str) and all(q == "rand" for q in m))
+        hop_methods = None
+        if sketch_only and missed:
+            hop_methods = "eig"
+            sketch_only = False
+            _emit_hop("rand_to_eig", self.backend)
+        if not sketch_only:
+            rcfg = replace(cfg, ranks=ranks, error_target=None,
+                           rank_grid=None,
+                           mode_order=tuple(s.mode for s in self.schedule))
+            if hop_methods is not None:
+                rcfg = replace(rcfg, methods=hop_methods)
+            res = plan(self.shape, self.dtype, rcfg,
+                       device=self.device).execute(x, record=record)
+            for t in res.trace:
+                t.tail_err = tails[t.mode]
+            return SthosvdResult(
+                tucker=res.tucker, trace=res.trace,
+                select_overhead_s=res.select_overhead_s + sum(seconds),
+                error_bound=bound)
+        n = len(self.shape)
+        trace = [ModeTrace(s.mode, "rand", s.i_n, ranks[s.mode], j, dt,
+                           backend=s.backend, predicted_s=s.predicted_s,
+                           tail_err=tails[s.mode])
+                 for s, j, dt in zip(self.schedule, js, seconds)]
+        return SthosvdResult(
+            tucker=TuckerTensor(core=core,
+                                factors=[factors[mm] for mm in range(n)]),
+            trace=trace, select_overhead_s=0.0, error_bound=bound)
+
     # -- reporting -----------------------------------------------------------
     def describe(self) -> str:
         """Human-readable plan report (the reference's text): the frozen
         schedule in execution order with modeled cost and peak per step,
-        plus the totals, donation policy, and memory cap."""
+        the rank policy of an adaptive plan, plus the totals, donation
+        policy, and memory cap."""
         cfg = self.config
         cap = cfg.memory_cap_bytes
+        head = (f"error_target={cfg.error_target:g} (rank-adaptive)"
+                if self.is_adaptive else f"ranks {cfg.ranks}")
         lines = [
-            f"TuckerPlan {self.shape} {self.dtype} -> ranks {cfg.ranks} "
+            f"TuckerPlan {self.shape} {self.dtype} -> {head} "
             f"[{cfg.variant}, backend={self.backend}]",
             f"  mode_order={cfg.mode_order!r}  "
             + (f"mode_parallel={cfg.mode_parallel!r}  "
@@ -413,19 +701,28 @@ class TuckerPlan:
             f"donate_input={'auto' if cfg.donate_input is None else cfg.donate_input}"
             " (resolves: undonated)",
         ]
+        if self.is_adaptive:
+            lines.append(
+                f"  rank policy: tau²={self.schedule[0].tau:.3g}·||X||² "
+                f"per mode  oversample={cfg.oversample}  "
+                f"power_iters={cfg.power_iters}  "
+                "(steps sized at grid caps; ranks resolve per input)")
         for k, s in enumerate(self.schedule):
             pred = f"  pred={s.predicted_s * 1e3:.3f}ms" if s.predicted_s \
                 else ""
+            pol = (f"  grid={s.rank_grid[0]}..{s.rank_grid[-1]}"
+                   f"({len(s.rank_grid)})"
+                   if s.rank_grid is not None else "")
             lines.append(
                 f"  step {k}: mode {s.mode} {s.method:>3s}  "
                 f"I={s.i_n} R={s.r_n} J={s.j_n}  "
-                f"flops={s.flops:.3g}  peak={s.peak_bytes:,}B{pred}")
+                f"flops={s.flops:.3g}  peak={s.peak_bytes:,}B{pol}{pred}")
         total_pred = self.total_predicted_s
         lines.append(
             f"  total: flops={self.total_flops:.3g}  "
             f"peak={self.peak_bytes:,}B"
             + (f"  predicted={total_pred * 1e3:.3f}ms" if total_pred else "")
-            + (f"  cap_headroom={cap - self.peak_bytes:,}B"
+            + (f"  cap_headroom={cap - self.capped_peak_bytes:,}B"
                if cap is not None else ""))
         return "\n".join(lines)
 
@@ -470,6 +767,88 @@ class TuckerPlan:
 # plan / decompose
 # ---------------------------------------------------------------------------
 
+def _resolve_rank_policy(shape: tuple[int, ...],
+                         config: TuckerConfig) -> tuple[tuple, tuple]:
+    """Per-mode candidate grids + sizing caps for a rank-adaptive config.
+
+    The cap (each step's ``r_n`` — what scratch/peak modeling and the
+    schedule DP see) is the largest candidate: ``ranks`` when given, else
+    the grid maximum, else the full mode dimension.  A flat int
+    ``rank_grid`` is one shared grid applied to every mode; a tuple of
+    tuples is per-mode.  Candidates are deduplicated, clamped to
+    ``[1, cap]``, and sorted ascending — the execute-time budget check
+    walks them smallest-first."""
+    n = len(shape)
+    rg = config.rank_grid
+    if rg is not None and all(isinstance(g, int) for g in rg):
+        rg = tuple(rg for _ in range(n))
+    if rg is not None and len(rg) != n:
+        raise ValueError(f"rank_grid has {len(rg)} mode entries for an "
+                         f"order-{n} tensor of shape {shape}")
+    if config.ranks is not None and len(config.ranks) != n:
+        raise ValueError(f"ranks {config.ranks} do not match order-{n} "
+                         f"shape {shape}")
+    grids = []
+    for m in range(n):
+        hi = shape[m] if config.ranks is None \
+            else max(1, min(int(config.ranks[m]), shape[m]))
+        if rg is None:
+            g = tuple(range(1, hi + 1))
+        else:
+            g = tuple(sorted({max(1, min(int(r), hi)) for r in rg[m]}))
+        grids.append(g)
+    return tuple(grids), tuple(g[-1] for g in grids)
+
+
+def _plan_adaptive(shape: tuple[int, ...], dtype: str, config: TuckerConfig,
+                   device: torch.device) -> "TuckerPlan":
+    """Rank-adaptive planning: freeze a rank POLICY, not ranks.
+
+    The schedule is sized at each mode's rank CAP (see
+    :func:`_resolve_rank_policy`) — the conservative figure for scratch
+    modeling and ``memory_cap_bytes`` — with every step pinned to the
+    ``rand`` sketch solver.  ``mode_order="opt"`` runs the schedule DP with
+    the rank grid as its third decision axis, so the sweep order is chosen
+    for the policy, not just the caps.  Each step then carries its
+    ``rank_grid`` and the equi-partitioned HOSVD budget share
+    ``tau = error_target²/N``; the actual ranks resolve per input at
+    execute time (:meth:`TuckerPlan._sketch_pass`)."""
+    n = len(shape)
+    compute_dtype = T.dtype_name(config.compute_dtype or dtype)
+    backend = resolve_backend(config.impl, platform=device.type,
+                              dtype=compute_dtype, shape=shape)
+    if not backend.supports_solver("rand"):
+        raise ValueError(f"backend {backend.name!r} cannot run the 'rand' "
+                         "sketch solver rank-adaptive plans are built on "
+                         f"(capabilities: {backend.solvers})")
+    grids, caps = _resolve_rank_policy(shape, config)
+    from .selector import default_selector
+    cost_model = default_selector(device.type,
+                                  backend=backend.name).cost_model
+    t0 = time.perf_counter()
+    mode_order = config.mode_order
+    if mode_order == "opt":
+        from .schedule_opt import optimize_schedule
+        mode_order = optimize_schedule(
+            shape, caps, methods=["rand"] * n, als_iters=config.als_iters,
+            itemsize=T.itemsize(compute_dtype), cost_model=cost_model,
+            memory_cap_bytes=config.memory_cap_bytes,
+            rank_grid=grids).order
+    schedule = resolve_schedule(
+        shape, caps, variant="sthosvd", methods="rand",
+        mode_order=mode_order, als_iters=config.als_iters,
+        itemsize=T.itemsize(compute_dtype), backend=backend.name,
+        platform=device.type, cost_model=cost_model,
+        memory_cap_bytes=config.memory_cap_bytes)
+    tau = float(config.error_target) ** 2 / n
+    schedule = tuple(replace(s, rank_grid=grids[s.mode], tau=tau)
+                     for s in schedule)
+    return TuckerPlan(shape=shape, dtype=dtype, config=config,
+                      schedule=schedule,
+                      select_seconds=time.perf_counter() - t0,
+                      device=device)
+
+
 def plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
          selector: Callable[..., str] | None = None,
          device=None) -> TuckerPlan:
@@ -482,10 +861,22 @@ def plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
     never selects or resolves again.  ``dtype`` is a name (``"float32"``),
     a ``torch.dtype`` or a numpy dtype.  ``device`` None means ``cuda:0``
     and raises when CUDA is not available.
+
+    A config with ``error_target=`` routes to rank-adaptive planning
+    (:func:`_plan_adaptive`): the plan freezes a rank policy and sweep
+    order; per-mode ranks resolve per input at execute time.
+
+    ``memory_cap_bytes`` holds every step's modeled peak (the schedule
+    search and :func:`~repro_torch.core.schedule_opt.validate_schedule_cap`);
+    with ``donate_input=False`` the plan must also fit with the held input
+    beside every later step (:attr:`TuckerPlan.capped_peak_bytes`), as the
+    reference's undonated plans must.
     """
     shape = tuple(int(s) for s in shape)
     dtype = T.dtype_name(dtype)
     device = resolve_device(device)
+    if config.error_target is not None:
+        return _plan_adaptive(shape, dtype, config, device)
     platform = device.type
     compute_dtype = T.dtype_name(config.compute_dtype or dtype)
     backend = resolve_backend(config.impl, platform=platform,
@@ -509,10 +900,111 @@ def plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
         platform=platform, cost_model=cost_model,
         memory_cap_bytes=config.memory_cap_bytes,
         mode_parallel=config.mode_parallel)
-    return TuckerPlan(shape=shape, dtype=dtype, config=config,
-                      schedule=schedule,
-                      select_seconds=timed.seconds if timed else 0.0,
-                      device=device)
+    p = TuckerPlan(shape=shape, dtype=dtype, config=config,
+                   schedule=schedule,
+                   select_seconds=timed.seconds if timed else 0.0,
+                   device=device)
+    cap = config.memory_cap_bytes
+    if cap is not None and p.capped_peak_bytes > cap:
+        # every step fits, but the held input does not fit beside them
+        from .schedule_opt import MemoryCapError
+        raise MemoryCapError(
+            f"schedule fits memory_cap_bytes={cap:,} per step, but the "
+            f"undonated sweep's modeled peak is {p.peak_bytes:,} bytes — "
+            f"the caller-held input copy ({p.input_bytes:,} bytes) rides on "
+            "every step after the first; raise the cap")
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Execute-time fallback ladder
+# ---------------------------------------------------------------------------
+
+#: ladder hops taken in this process, by (hop, backend) — ``als_to_eig``,
+#: ``replan_cap`` and the adaptive ``rand_to_eig``.  It stands in for the
+#: reference's ``atucker_fallback_hops_total`` metric until the port's
+#: metrics registry lands.
+_HOPS: dict[tuple[str, str], int] = {}
+
+
+def fallback_hops() -> dict[tuple[str, str], int]:
+    """A copy of the ladder's hop counts, keyed (hop, backend)."""
+    return dict(_HOPS)
+
+
+def reset_fallback_hops() -> None:
+    _HOPS.clear()
+
+
+def _emit_hop(name: str, backend: str) -> None:
+    _HOPS[(name, backend)] = _HOPS.get((name, backend), 0) + 1
+
+
+def _replan_safe(p: TuckerPlan, cfg: TuckerConfig) -> TuckerPlan | None:
+    """Plan a ladder hop's degraded config, or None when the hop itself
+    cannot be planned (e.g. the tighter cap admits no schedule) — the
+    ladder then gives up rather than masking the original failure with a
+    planning error."""
+    try:
+        return plan(p.shape, p.dtype, cfg, device=p.device)
+    except ValueError:   # MemoryCapError included
+        return None
+
+
+def _next_hop(p: TuckerPlan, err: BaseException,
+              applied: list[str]) -> tuple[str, TuckerPlan] | None:
+    """The next ladder rung for a classified failure, or None when the
+    ladder is exhausted.  Each rung applies at most once, in a fixed order,
+    so the ladder is bounded and deterministic.
+
+    The reference's ``pallas_to_matfree`` rung has no counterpart (a kernel
+    that fails on the card raises), and its ``donate_off`` rung has nothing
+    to turn off (the port never donates)."""
+    cfg = p.config
+    if isinstance(err, NumericalError):
+        if "als_to_eig" not in applied and \
+                any(s.method == "als" for s in p.schedule):
+            methods = tuple("eig" if m == "als" else m for m in p.methods)
+            p2 = _replan_safe(p, replace(cfg, methods=methods))
+            if p2 is not None:
+                return "als_to_eig", p2
+        return None
+    if isinstance(err, ResourceError) and "replan_cap" not in applied:
+        # replan the whole sweep under a tighter cap
+        current = cfg.memory_cap_bytes or p.capped_peak_bytes
+        cap = max(1, int(0.75 * current))
+        p2 = _replan_safe(p, replace(cfg, memory_cap_bytes=cap,
+                                     mode_order="opt"))
+        if p2 is not None:
+            return "replan_cap", p2
+    return None
+
+
+def _run_with_fallback(p0: TuckerPlan,
+                       run: Callable[[TuckerPlan], SthosvdResult]
+                       ) -> SthosvdResult:
+    """Drive ``run(plan)`` through the fallback ladder: classify each
+    failure, degrade one rung at a time, re-raise the classified error once
+    no rung remains.  Input-side failures (bad input, deadline,
+    cancellation) never hop — retrying cannot fix the caller's data."""
+    p = p0
+    applied: list[str] = []
+    while True:
+        try:
+            return run(p)
+        except Exception as e:  # noqa: BLE001 - classification is the point
+            if isinstance(e, (InputError, DeadlineError, CancelledError)):
+                raise
+            terr = classify_exception(e)
+            hop = _next_hop(p, terr if terr is not None else e, applied)
+            if hop is None:
+                if terr is not None and terr is not e:
+                    raise terr from e
+                raise
+            name, p2 = hop
+            applied.append(name)
+            _emit_hop(name, p.backend)
+            p = p2
 
 
 def decompose(x, config: TuckerConfig, *,

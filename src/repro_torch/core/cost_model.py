@@ -17,12 +17,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-from .solvers import DEFAULT_ALS_ITERS
-
-# the sketch constants of the randomized solver, which ports with the
-# rank-adaptive slice; the same values as the reference's solvers
-DEFAULT_OVERSAMPLE = 8
-DEFAULT_POWER_ITERS = 1
+from .solvers import DEFAULT_ALS_ITERS, DEFAULT_OVERSAMPLE, DEFAULT_POWER_ITERS
 
 #: model JSON schema version (bumped when the constant set changes)
 COST_MODEL_VERSION = 1

@@ -25,10 +25,12 @@ that no unclassified exception escapes to a caller.  The subclassing of
 the matching builtins keeps every pre-taxonomy ``except ValueError`` /
 ``except TimeoutError`` call site working unchanged.
 
-The port has no execute-time fallback ladder yet: ``TuckerPlan.execute``
-re-raises a failure as its classified error.  When the ladder is ported,
-its ``pallas → matfree`` rung does not become ``hopper → matfree``: on the
-card a kernel that fails raises.
+``TuckerPlan.execute`` drives a failed fixed-rank sweep through the
+fallback ladder (``core/api.py``: als→eig on a :class:`NumericalError`, a
+replan under a tighter cap on a :class:`ResourceError`) and re-raises the
+classified error when no rung is left.  The reference's ``pallas → matfree``
+rung has no ``hopper → matfree`` counterpart: on the card a kernel that
+fails raises.
 """
 
 from __future__ import annotations

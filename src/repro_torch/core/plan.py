@@ -13,9 +13,10 @@ refines from an st-HOSVD init).
 ``sweep_*`` functions run the same schedules without timing.  PyTorch runs
 eagerly, so both are plain Python loops over the steps.
 
-This slice of the port covers single-device, sequential schedules: the
-reference's sharded and mode-parallel branches, the ``mode_order="opt"``
-search and ``memory_cap_bytes`` arrive with their own slices.
+This slice of the port covers single-device, sequential schedules, with
+the ``mode_order="opt"`` search and ``memory_cap_bytes`` of
+:mod:`repro_torch.core.schedule_opt`; the reference's sharded and
+mode-parallel branches arrive with the sharded slice.
 """
 
 from __future__ import annotations
@@ -30,12 +31,9 @@ import torch
 from .backend import backend_ops, get_backend
 from .cost_model import als_flops, eig_flops, rand_flops, svd_flops
 from .errors import NumericalError
-from .solvers import ALS, DEFAULT_ALS_ITERS, SOLVERS
+from .solvers import ALS, DEFAULT_ALS_ITERS, DEFAULT_OVERSAMPLE, SOLVERS
 
 VARIANTS = ("sthosvd", "thosvd", "hooi")
-
-#: where each reference feature that this slice leaves out will land
-_PLANNING_SLICE = "the schedule-search slice (core/schedule_opt.py)"
 
 
 @dataclass(frozen=True)
@@ -46,11 +44,12 @@ class ModeStep:
     The JSON schema is the reference's unchanged: ``shard_mode``/``n_shards``
     (sharded schedules), ``group`` (mode-parallel groups) and the rank-policy
     fields ``rank_grid``/``tau`` (rank-adaptive plans) are carried and
-    serialized as they are, though this slice only builds sequential,
-    single-device, fixed-rank steps (``None``/``1``/``None``/``0.0``).
+    serialized as they are; the port builds sequential, single-device
+    steps (``None``/``1``/``None``), with ``rank_grid``/``tau`` set on the
+    steps of rank-adaptive plans.
     """
     mode: int
-    method: str          # "eig" | "als" | "svd"
+    method: str          # "eig" | "als" | "svd" | "rand"
     i_n: int             # mode dimension at solve time
     r_n: int             # truncation rank
     j_n: int             # product of the remaining dims at solve time
@@ -127,9 +126,9 @@ def resolve_mode_order(shape: Sequence[int], ranks: Sequence[int],
     if mode_order is None:
         return list(range(n))
     if mode_order == "opt":
-        raise NotImplementedError(
-            "mode_order='opt' (the exact schedule DP) is not part of the "
-            f"PyTorch port yet; it lands with {_PLANNING_SLICE}")
+        raise ValueError("mode_order='opt' is resolved by resolve_schedule "
+                         "(the DP search needs solver costs and the memory "
+                         "cap), not by resolve_mode_order")
     if mode_order == "shrink":
         return sorted(range(n), key=lambda m: ranks[m] / shape[m])
     order = [int(m) for m in mode_order]
@@ -164,10 +163,6 @@ def _resolve_methods(methods, n_modes: int):
 
 
 def _check_solver(m: str) -> None:
-    if m == "rand":
-        raise NotImplementedError(
-            "the randomized 'rand' solver is not part of the PyTorch port "
-            "yet; it lands with the rank-adaptive slice")
     if m not in SOLVERS:
         raise ValueError(f"unknown solver {m!r}")
 
@@ -184,31 +179,61 @@ def _step_cost(method: str, i_n: int, r_n: int, j_n: int,
 
 
 def _solver_scratch_bytes(method: str, i_n: int, r_n: int, j_n: int,
-                          itemsize: int) -> int:
+                          itemsize: int, n_shards: int = 1) -> int:
     """Modeled solver scratch only (no I/O tensors): EIG's I_n×I_n Gram,
-    ALS's L/R iterates (+ fp32 input cast for sub-fp32 dtypes), SVD's
-    explicit unfolding plus its left singular block.  Scratch lives in the
-    *accumulation* dtype."""
+    ALS's L/R iterates (+ fp32 input cast for sub-fp32 dtypes), RAND's
+    sketch, SVD's explicit unfolding plus its left singular block.  Scratch
+    lives in the *accumulation* dtype; with ``n_shards > 1`` the sharded
+    parts (ALS's R-tensor and cast) divide by the shard count while
+    replicated scratch does not (the reference's per-device model, which
+    the schedule search prices shard counts with)."""
     accum = max(itemsize, 4)   # bf16/fp16 accumulate in fp32; fp64 stays 8
     if method == "eig":
         return i_n * i_n * accum
     if method == "als":
         scratch = (2 * i_n * r_n + 2 * r_n * r_n) * accum \
-            + 2 * r_n * j_n * accum
+            + 2 * r_n * j_n * accum // n_shards
         if accum != itemsize:
-            scratch += i_n * j_n * accum   # yc: fp32 input cast
+            scratch += i_n * j_n * accum // n_shards   # yc: fp32 input cast
+        return scratch
+    if method == "rand":
+        # Gaussian test tensor Ω (ℓ·J) + range sample / Q (I·ℓ) + the ℓ-wide
+        # projected tensor b (ℓ·J) + the ℓ×ℓ sketched Gram; plus the fp32
+        # input cast for sub-fp32 dtypes (like ALS)
+        ell = min(i_n, r_n + DEFAULT_OVERSAMPLE)
+        scratch = (2 * ell * j_n + i_n * ell + ell * ell) * accum
+        if accum != itemsize:
+            scratch += i_n * j_n * accum
         return scratch
     # svd materializes the unfolding and U
     return (i_n * j_n + i_n * min(i_n, j_n)) * accum
 
 
 def _step_peak_bytes(method: str, i_n: int, r_n: int, j_n: int,
-                     itemsize: int) -> int:
+                     itemsize: int, n_shards: int = 1) -> int:
     """Modeled peak working set: input + output tensors plus solver scratch
     (see :func:`_solver_scratch_bytes`).  I/O tensors live in the compute
-    dtype (``itemsize``)."""
-    io = (i_n * j_n + r_n * j_n) * itemsize
-    return int(io + _solver_scratch_bytes(method, i_n, r_n, j_n, itemsize))
+    dtype (``itemsize``); with ``n_shards > 1`` the figure is per device
+    (the I/O slabs divide by the shard count)."""
+    io = (i_n * j_n + r_n * j_n) * itemsize // n_shards
+    return int(io + _solver_scratch_bytes(method, i_n, r_n, j_n, itemsize,
+                                          n_shards))
+
+
+def _group_peak_bytes(entries, in_elems: int, out_elems: int,
+                      itemsize: int, n_shards: int = 1) -> int:
+    """Modeled per-device peak of one mode-parallel group: the shared
+    un-shrunk input slab (charged once), the fused multi-TTM's truncated
+    output slab, plus every member's solver scratch at once.  ``entries``
+    is a sequence of ``(method, i_n, r_n, j_n)`` at the group's entry
+    shape; a singleton reduces to :func:`_step_peak_bytes`.  Only the
+    schedule search prices groups: the port's plans run no group until the
+    sharded slice."""
+    io = (in_elems + out_elems) * itemsize // n_shards
+    scratch = sum(_solver_scratch_bytes(meth, i_n, r_n, j_n, itemsize,
+                                        n_shards)
+                  for meth, i_n, r_n, j_n in entries)
+    return int(io + scratch)
 
 
 def _make_step(mode: int, method, selector, i_n: int, r_n: int, j_n: int,
@@ -268,10 +293,20 @@ def resolve_schedule(
     no seconds unit, so uncalibrated schedules record 0.0.  When a selector
     is auto-resolved here, its embedded cost model is used.
 
+    ``mode_order="opt"`` (st-HOSVD and the HOOI init sweep) runs the exact
+    subset DP of :mod:`repro_torch.core.schedule_opt`, jointly choosing
+    mode order AND per-step solver (respecting pinned ``methods``) to
+    minimize the cost model's predicted total under ``memory_cap_bytes``.
+
+    ``memory_cap_bytes`` is a hard ceiling on every step's modeled
+    ``peak_bytes``: fixed-order schedules that exceed it (and ``"opt"``
+    searches that cannot fit under it) raise
+    :class:`~repro_torch.core.schedule_opt.MemoryCapError` at plan time,
+    naming the binding step.
+
     ``mode_parallel`` accepts ``"off"``, ``"auto"`` and ``1`` — what the
     reference does on a single device (``"auto"`` and ``1`` stay
-    sequential).  ``mode_order="opt"`` and ``memory_cap_bytes`` raise
-    :class:`NotImplementedError` until the schedule-search slice.
+    sequential).
     """
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
@@ -284,10 +319,6 @@ def resolve_schedule(
     if mode_parallel != "off" and variant != "sthosvd":
         raise ValueError("mode_parallel applies to the sequential st-HOSVD "
                          f"sweep only; leave it 'off' for variant {variant!r}")
-    if memory_cap_bytes is not None:
-        raise NotImplementedError(
-            "memory_cap_bytes is not part of the PyTorch port yet; it lands "
-            f"with {_PLANNING_SLICE}")
     shape = tuple(int(s) for s in shape)
     ranks = validate_ranks(shape, ranks)
     n = len(shape)
@@ -303,6 +334,15 @@ def resolve_schedule(
     def method_for(mode):
         return None if fixed is None else fixed[mode]
 
+    def _capped(steps_t: tuple[ModeStep, ...]) -> tuple[ModeStep, ...]:
+        # hard plan-time cap: "opt" schedules were searched under it, but the
+        # check runs uniformly so fixed orders (and HOOI refinements, which
+        # the DP does not reorder) fail loudly too
+        if memory_cap_bytes is not None:
+            from .schedule_opt import validate_schedule_cap
+            validate_schedule_cap(steps_t, memory_cap_bytes)
+        return steps_t
+
     steps: list[ModeStep] = []
     if variant == "thosvd":
         if mode_order is not None:
@@ -315,20 +355,30 @@ def resolve_schedule(
             steps.append(_make_step(mode, method_for(mode), selector,
                                     i_n, r_n, size // i_n, als_iters,
                                     itemsize, backend, cost_model=cost_model))
-        return tuple(steps)
+        return _capped(tuple(steps))
 
     # st-HOSVD sweep (also HOOI's init): the tensor shrinks between steps
     if variant == "sthosvd" or include_init:
+        if mode_order == "opt":
+            from .schedule_opt import optimize_schedule
+            search = optimize_schedule(
+                shape, ranks, methods=fixed, als_iters=als_iters,
+                itemsize=itemsize, cost_model=cost_model,
+                memory_cap_bytes=memory_cap_bytes)
+            order, flat_methods = list(search.order), list(search.methods)
+        else:
+            order = resolve_mode_order(shape, ranks, mode_order)
+            flat_methods = [method_for(m) for m in order]
         cur = list(shape)
-        for mode in resolve_mode_order(shape, ranks, mode_order):
+        for mode, method in zip(order, flat_methods):
             i_n, r_n = cur[mode], ranks[mode]
             j_n = math.prod(cur) // i_n
-            steps.append(_make_step(mode, method_for(mode), selector,
+            steps.append(_make_step(mode, method, selector,
                                     i_n, r_n, j_n, als_iters, itemsize,
                                     backend, cost_model=cost_model))
             cur[mode] = r_n
     if variant == "sthosvd":
-        return tuple(steps)
+        return _capped(tuple(steps))
 
     # HOOI refinement sweeps: mode n sees x projected on all OTHER factors,
     # i.e. shape (R_0 .. I_n .. R_{N-1}) — static, so resolvable up front.
@@ -340,7 +390,7 @@ def resolve_schedule(
             steps.append(_make_step(mode, method_for(mode), selector,
                                     i_n, r_n, j_n, als_iters, itemsize,
                                     backend, cost_model=cost_model))
-    return tuple(steps)
+    return _capped(tuple(steps))
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +402,9 @@ def solve_step(y: torch.Tensor, step: ModeStep, *,
     """THE solver dispatch point: every variant's mode solve funnels here.
 
     ``impl`` overrides the step's recorded ops backend; by default each step
-    runs on the backend frozen into it at schedule-resolution time.
+    runs on the backend frozen into it at schedule-resolution time.  A
+    ``"rand"`` step sketches at the default oversample and power
+    iterations, as the reference's compiled sweeps do.
     """
     impl = step.backend if impl is None else impl
     if step.method == ALS:

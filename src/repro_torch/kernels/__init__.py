@@ -38,10 +38,19 @@ def launch_counts() -> dict[str, int]:
     return {k: _module(k).LAUNCHES for k in KERNEL_MODULES}
 
 
+def ttt_route_counts() -> dict[str, int]:
+    """Launches of the TTT/Gram kernel since the last
+    :func:`reset_launch_counts`, by route and symmetry
+    (``"wgmma_tma/ttt"``, ``"tile16/gram"``, …)."""
+    return dict(_module("ttt").ROUTE_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     for k in KERNEL_MODULES:
         _module(k).LAUNCHES = 0
+    _module("ttt").ROUTE_LAUNCHES.clear()
 
 
 __all__ = ["KERNEL_MODULES", "launch_counts", "matmul", "ops", "ref",
-           "reset_launch_counts", "s6_scan", "ttm_interior", "ttt3"]
+           "reset_launch_counts", "s6_scan", "ttm_interior", "ttt3",
+           "ttt_route_counts"]

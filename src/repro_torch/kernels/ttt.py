@@ -33,6 +33,9 @@ from .ref import ttt_ref
 
 #: launches of the CUDA kernel (one per wrapper call on the card)
 LAUNCHES = 0
+#: the same launches by route and symmetry, keyed "<route>/gram" (y is x)
+#: or "<route>/ttt", e.g. "wgmma_tma/ttt" for a wide TTT with y ≠ x
+ROUTE_LAUNCHES: dict[str, int] = {}
 
 
 #: the routes of csrc/ttt.cu, by the code its report function gives
@@ -134,6 +137,8 @@ def ttt3(x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
         _build.check(lib, err, "ttt")
     global LAUNCHES
     LAUNCHES += 1
+    key = f"{call_route(x3, y3)}/{'gram' if sym else 'ttt'}"
+    ROUTE_LAUNCHES[key] = ROUTE_LAUNCHES.get(key, 0) + 1
     return z
 
 

@@ -20,8 +20,8 @@ import pytest
 import torch
 
 import repro.core as R
-from repro_torch.core import (InputError, NumericalError, TuckerConfig,
-                              TuckerPlan, decompose, plan)
+from repro_torch.core import (InputError, MemoryCapError, NumericalError,
+                              TuckerConfig, TuckerPlan, decompose, plan)
 from repro_torch.core import tensor_ops as PT
 from torch_parity import assert_tucker_close, lowrank
 
@@ -259,7 +259,7 @@ class TestDevicesAndErrors:
 
     @pytest.mark.parametrize("kw,exc", [
         (dict(mesh=object()), NotImplementedError),
-        (dict(error_target=0.1), NotImplementedError),
+        (dict(error_target=1.5), ValueError),
         (dict(impl="sharded"), NotImplementedError),
         (dict(impl="magic"), ValueError),
         (dict(variant="cp"), ValueError),
@@ -270,15 +270,34 @@ class TestDevicesAndErrors:
             TuckerConfig(ranks=(2, 2, 2), **kw)
 
     @pytest.mark.parametrize("kw,exc", [
-        (dict(mode_order="opt"), NotImplementedError),
-        (dict(memory_cap_bytes=10 ** 9), NotImplementedError),
-        (dict(methods="rand"), NotImplementedError),
+        (dict(mode_order="opt", memory_cap_bytes=1000), MemoryCapError),
+        (dict(memory_cap_bytes=1000), MemoryCapError),
+        (dict(methods=("rand", "eig")), ValueError),
         (dict(mode_parallel=2), ValueError),
         (dict(variant="thosvd", mode_order=(2, 0, 1)), ValueError)])
     def test_plan_rejects(self, kw, exc):
         with pytest.raises(exc):
             plan((10, 12, 8), "float32", TuckerConfig(ranks=(3, 4, 2), **kw),
                  device="cpu")
+
+    @pytest.mark.parametrize("kw", [
+        dict(ranks=(3, 4, 2), mode_order="opt"),
+        dict(ranks=(3, 4, 2), memory_cap_bytes=10 ** 9),
+        dict(ranks=(3, 4, 2), methods="rand"),
+        dict(error_target=0.1)])
+    def test_search_and_adaptive_configs_plan_and_execute(self, kw):
+        """The configs the port once refused now plan and execute: the
+        result is within 0.1 of the input (noise 1e-2) and, for the error
+        target, within 1.05 × its certified bound (the reference's limit)."""
+        x = lowrank((10, 12, 8), (3, 4, 2), seed=5, noise=1e-2)
+        p = plan(x.shape, "float32", TuckerConfig(**kw), device="cpu")
+        res = p.execute(x)
+        err = float(res.tucker.rel_error(x))
+        assert err <= 0.1
+        if "error_target" in kw:
+            assert res.error_bound <= 0.1 and err <= 1.05 * res.error_bound
+        else:
+            assert res.tucker.ranks == (3, 4, 2)
 
     def test_single_device_mode_parallel_stays_sequential(self):
         for mp in ("auto", 1):
