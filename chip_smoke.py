@@ -22,7 +22,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
             state, strided B/C, y and the final state; for the TTT/Gram
             every route of its tensor-core kernel -- TMA, plain-load, B = 1,
             misaligned, fp32 and bf16 -- also per entry, within 2e-4 of
-            sqrt(ttt(x∘x, y∘y)) of the float64 result), then on operands of
+            sqrt(ttt(x∘x, y∘y)) of the float64 result; for the boundary
+            GEMM's wide route -- the first mode at R > 16 on the tensor
+            cores -- R = 17 to 300 with K = 7 and 1021, ragged N, both of
+            x's loads (TMA, plain) and a misaligned x, per entry within
+            2e-4 of sqrt((u∘u) @ (x∘x))), then on operands of
             more than 2**31 elements (every kernel path), then at the main
             paths' full-size shapes, where the kernel, its plain version and
             one PyTorch library call (none computes a selective scan) are
@@ -33,8 +37,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
             three TF32 products).  The adaptive path's widest range sample,
             a TTT with y ≠ x at R = 64 on the tensor-core route, is held
             per entry and timed the same way (beside ``tensordot``), and the
-            interior TTM at the sketch's 64 rows.  S6 is also timed at every
-            shape the serve run gives it, on both of its routes.
+            interior TTM at the sketch's 64 rows; and the boundary GEMM at
+            adapt_wide's mode 0, u (R, 1021) @ x (1021, 353760) at R = 64
+            and 40 (row 2b), on its wide route beside the slab route it
+            replaced and torch.matmul, per entry in fp32 and bf16.  S6 is
+            also timed at every shape the serve run gives it, on both of
+            its routes.
 4. main     ``plan -> execute`` with ``impl="auto"`` on the paper's Table III
             Boats (320, 240, 7000) and HSI (1021, 1340, 33, 8) tensors at full
             size: the plan must resolve to the ``hopper`` backend, every
@@ -43,7 +51,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
             timed on both backends (host clock around a synchronized
             execute), and one more execute runs under torch.profiler for
             the device's busy time, idle share, top kernels and the
-            tensor-core Gram's device time (hsi_eig must run it).
+            tensor-core Gram's device time (hsi_eig must run it) and the
+            first-mode GEMM's by route.
 5. adaptive the adaptive path at full size with ``impl="auto"`` (every plan
             must resolve to ``hopper``), each case also on ``matfree`` and
             timed on both (host clock, median of 3 warm runs), the launch
@@ -65,10 +74,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
                        0.8 x the free plan's largest step peak, or the least
                        cap the search admits when that is infeasible: every
                        step's modeled peak fits, and step by step through
-                       ``solve_step`` the memory allocated beyond the input
-                       fits the cap at every step boundary, and the input
-                       plus the most allocated inside any step fits it;
-                       rel_error <= 0.02.
+                       ``solve_step`` the input plus the memory allocated
+                       beyond it fits the cap at every step boundary and
+                       inside every step, and each step's modeled peak;
+                       rel_error <= 0.02;
+            opt_cap_eig the same input with ``methods="eig"`` at the least
+                       cap the search admits on hopper (whose steps also
+                       model the TTT's split-K workspace, eigh's workspace
+                       and the held input), held the same way; matfree's
+                       least cap reported beside; eigh's allocation at
+                       every Gram size of the plans within its model.
+            adapt_wide must run the GEMM's wide route; every case reports
+            the GEMM's launches and device time by route.
             Each sketch also prints its widths, the tail at the chosen rank
             from the kernel's Gram and from a float64 Gram of the same b,
             and ||X||² in fp32 and float64.
@@ -90,7 +107,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
             decode step.
 7. kernels  one JSON line listing every kernel with its numbers (the TTT
             row carries the Gram's under "gram" and the range sample's under
-            "sketch"; ``launches_adaptive`` counts the adaptive phase); then the
+            "sketch", the GEMM row its wide route's under "wide";
+            ``launches_adaptive`` counts the adaptive phase); then the
             ``nvidia-smi`` name/power-limit line; then the final
             ``{"ok": true, "device": ...}`` line.
 
@@ -220,7 +238,7 @@ def phase_build():
     libs = _build.build_all()
     secs = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "arning" in ln]
              for n, log in _build.BUILD_LOG.items()}
     emit("build", seconds=secs, libraries=[str(p.relative_to(ROOT))
                                           for p in libs.values()],
@@ -319,6 +337,7 @@ def phase_kernel_shapes(torch):
     emit("kernels_small", cases=n, dtypes=["float32", "bfloat16"],
          max_abs_err=worst, tol_rel=TOL, ok=True)
     phase_ttt_wide_shapes(torch)
+    phase_matmul_wide_shapes(torch)
     phase_ttm_shapes(torch)
     phase_s6_shapes(torch)
 
@@ -454,6 +473,77 @@ def phase_ttt_wide_shapes(torch):
          entry_tol=ENTRY_TOL, ok=True)
 
 
+#: first-mode GEMMs of the wide route in kernels_small: every R with K = 7
+#: and K = 1021, N cycling through an odd width (plain loads), a 16-byte
+#: multiple for fp32 only and one for both dtypes (TMA); R = 130 and 300
+#: split R between the warpgroups, 300 also crosses a chunk of 256
+MATMUL_WIDE_CASES = [(r, k, (1283, 2052, 2056)[j % 3]) for j, (r, k) in
+                     enumerate((r, k) for r in (17, 24, 40, 64, 130, 300)
+                               for k in (7, 1021))]
+
+
+def gemm_entry_err(torch, got, a, b, check: bool = True) -> float:
+    """max over entries of |got - C| in units of the entry's own scale
+    sqrt((a∘a) @ (b∘b)), with C = a @ b in float64; checked against
+    ENTRY_TOL unless ``check`` is False."""
+    ad, bd = a.double(), b.double()
+    want = ad @ bd
+    scale = (ad.square() @ bd.square()).sqrt_().clamp_min_(1e-300)
+    del ad, bd
+    err = float(((got.double() - want).abs_() / scale).max())
+    require(not check or (math.isfinite(err) and err <= ENTRY_TOL),
+            f"max |kernel - exact| / sqrt((a∘a) @ (b∘b)) = {err:.3e} exceeds "
+            f"{ENTRY_TOL:g}")
+    return err
+
+
+def matmul_module():
+    """The wrapper module of the boundary GEMM (the package attribute
+    ``matmul`` is the function)."""
+    import importlib
+    return importlib.import_module("repro_torch.kernels.matmul")
+
+
+def phase_matmul_wide_shapes(torch):
+    """The wide route of the boundary GEMM (first mode, R > 16) on
+    MATMUL_WIDE_CASES and on an x whose base is not 16-byte aligned, fp32
+    (split TF32, three products) and bf16 (one product): each held per
+    entry against ``matmul_ref``'s product in float64 (ENTRY_TOL of
+    sqrt((a∘a) @ (b∘b))) and against ``matmul_ref`` itself
+    (max|kernel - plain| <= TOL max|plain|).  Fails unless every case took
+    the wide route -- the C library's report, checked against route() --
+    and both of x's loads (TMA, plain) ran in both dtypes."""
+    from repro_torch.kernels import matmul, ref
+    mm = matmul_module()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    worst, worst_plain, n, seen = 0.0, 0.0, 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+        ops = [(rnd(r, k), rnd(k, nn)) for r, k, nn in MATMUL_WIDE_CASES]
+        flat = rnd(33 * 2056 + 1)            # one element in: misaligned
+        ops.append((rnd(40, 33), flat[1:].view(33, 2056)))
+        for a, b in ops:
+            info = mm.launch_info(a, b)[0]
+            require(info["route"] == "wide",
+                    f"matmul: {tuple(a.shape)} @ {tuple(b.shape)} took "
+                    f"{info['route']}")
+            key = f"{info['loads']}/{str(dtype)[6:]}"
+            seen[key] = seen.get(key, 0) + 1
+            got = matmul(a, b)
+            worst_plain = max(worst_plain, close(got, ref.matmul_ref(a, b)))
+            worst = max(worst, gemm_entry_err(torch, got, a, b))
+            n += 1
+    torch.cuda.synchronize()
+    for want in ("tma", "plain"):
+        for dt in ("float32", "bfloat16"):
+            require(f"{want}/{dt}" in seen,
+                    f"matmul: no small case loaded x by {want} in {dt}")
+    emit("kernels_small", name="matmul_wide", cases=n, loads=seen,
+         dtypes=["float32", "bfloat16"], max_entry_err=worst,
+         entry_tol=ENTRY_TOL, max_abs_err=worst_plain, tol_rel=TOL, ok=True)
+
+
 def phase_ttm_shapes(torch):
     """The interior TTM on its own: R across the widths it templates and
     its slabs (4, 10, 16, 20), B = 1 and 8 (the plain-load path), 264 (the
@@ -510,12 +600,15 @@ def phase_kernels_large(torch):
     require(x.numel() > 2 ** 31, "the large operand must exceed 2**31 elements")
     xc = x.view(2048 * 1100, 1000, 1)          # the last-mode (B = 1) view
     u0, u1, u2 = rnd(10, 2048), rnd(10, 1100), rnd(1000, 10)
+    uw = rnd(40, 2048)          # the boundary GEMM's wide route
     y, yc = rnd(2048, 10, 1000), rnd(2048 * 1100, 10, 1)
     cases = {
         "ttt": (lambda: ttt3(x, y), lambda: ref.ttt_ref(x, y)),
         "ttt_cols": (lambda: ttt3(xc, yc), lambda: ref.ttt_ref(xc, yc)),
         "matmul_first": (lambda: matmul(u0, x.view(2048, -1)),
                          lambda: ref.matmul_ref(u0, x.view(2048, -1))),
+        "matmul_first_wide": (lambda: matmul(uw, x.view(2048, -1)),
+                              lambda: ref.matmul_ref(uw, x.view(2048, -1))),
         "matmul_last": (lambda: matmul(x.view(-1, 1000), u2),
                         lambda: ref.matmul_ref(x.view(-1, 1000), u2)),
         "ttm_interior": (lambda: ttm_interior(u1, x),
@@ -733,9 +826,67 @@ def phase_kernels_full(torch, peaks):
             ttm_mod.launch_info(u, x), b=b)
     out["ttm_interior_l64"]["bound_terms_ms"] = terms
     emit("kernel_full", name="ttm_interior_l64", bound_terms_ms=terms)
-    del x, u
+    del u
+    phase_matmul_wide_full(torch, x.view(1021, -1), rnd, tf32x3_bound,
+                           measure, out)
+    del x
     torch.cuda.empty_cache()
     return out
+
+
+def phase_matmul_wide_full(torch, xw, rnd, tf32x3_bound, measure, out):
+    """Row 2b: the boundary GEMM's wide route at adapt_wide's mode 0, u (R,
+    1021) @ x (1021, 353,760) fp32 at R = 64 (the sketch's projection) and R
+    = 40 (the refinement), beside the slab route it replaced (16-row slabs,
+    each reading x: run as R <= 16 calls on the same u and x, which take
+    that route) and torch.matmul:
+    ms and device ms of each, the plain version, the tf32x3_bound terms,
+    per-entry errors (kernel, slab, plain fp32) in units of sqrt((u∘u) @
+    (x∘x)), achieved bytes/s by device time, and each route's launch
+    figures.  bf16 operands of the same shape are held per entry too."""
+    from repro_torch.kernels import matmul, ref
+    mm = matmul_module()
+    k, n = xw.shape
+    for r in (64, 40):
+        u = rnd(r, k)
+        require(mm.route(r, n) == "wide", f"matmul R = {r}: not the wide route")
+        nbytes = 4 * (xw.numel() + u.numel() + r * n)
+        flops = 2.0 * r * k * n
+        b, terms = tf32x3_bound(nbytes, flops)
+        name = f"matmul_wide_r{r}"
+        measure(name, f"u ({r}, {k}) @ x ({k}, {n}) fp32",
+                lambda: matmul(u, xw), lambda: ref.matmul_ref(u, xw),
+                lambda: torch.matmul(u, xw), nbytes, flops,
+                mm.launch_info(u, xw), b=b)
+        row = out[name]
+
+        def slab():
+            return [matmul(u[i:i + 16], xw) for i in range(0, r, 16)]
+        row.update(
+            route="wide", bound_terms_ms=terms,
+            max_entry_err=gemm_entry_err(torch, matmul(u, xw), u, xw),
+            plain_max_entry_err=gemm_entry_err(
+                torch, ref.matmul_ref(u, xw), u, xw, check=False),
+            slab_max_entry_err=gemm_entry_err(torch, torch.cat(slab()), u,
+                                              xw, check=False),
+            entry_tol=ENTRY_TOL,
+            slab_ms=time_ms(torch, slab), slab_device_ms=device_ms(torch, slab),
+            slab_launch=mm.launch_info(u[:16], xw),
+            bytes_per_s=nbytes / (row["device_ms"] * 1e-3),
+            slab_bytes_per_s=None)
+        row["slab_bytes_per_s"] = nbytes / (row["slab_device_ms"] * 1e-3)
+        if r == 64:
+            ub, xb = u.bfloat16(), xw.bfloat16()
+            row["bf16_max_entry_err"] = gemm_entry_err(torch, matmul(ub, xb),
+                                                       ub, xb)
+            del ub, xb
+        emit("kernel_full", name=name, **{key: row[key] for key in (
+            "route", "bound_terms_ms", "max_entry_err", "plain_max_entry_err",
+            "slab_max_entry_err", "slab_ms", "slab_device_ms", "slab_launch",
+            "bytes_per_s", "slab_bytes_per_s") if key in row},
+            bf16_max_entry_err=row.get("bf16_max_entry_err"))
+        del u
+        torch.cuda.empty_cache()
 
 
 def s6_bound(bsz, t, di, n, xbytes, peaks):
@@ -863,7 +1014,22 @@ def profile_call(torch, fn, wall_ms: float) -> dict:
                 host_kernel_launches=launches,
                 top_device_ms=[[name[:80], us / 1e3] for name, us in top],
                 ttt_wide_device_ms=sum(us for name, us in by_name.items()
-                                       if "ttt_wide_kernel" in name) / 1e3)
+                                       if "ttt_wide_kernel" in name) / 1e3,
+                gemm_first_mode_device_ms=gemm_by_route(by_name))
+
+
+def gemm_by_route(by_name: dict) -> dict:
+    """Device ms of the first-mode boundary GEMM by route, from profiler
+    kernel names: ``wide`` (gemm_wide_kernel and the kernel that splits u)
+    and ``slab`` (contract_kernel's 16 x 128 tile; its 128 x 16 tile is the
+    last mode's and the TTT's)."""
+    out = {"wide": 0.0, "slab": 0.0}
+    for name, us in by_name.items():
+        if "gemm_wide_kernel" in name or "gemm_image_kernel" in name:
+            out["wide"] += us / 1e3
+        elif "contract_kernel" in name and ", 16, 128, " in name:
+            out["slab"] += us / 1e3
+    return out
 
 
 def projector_gap(torch, u1, u2) -> float:
@@ -878,6 +1044,7 @@ def phase_main(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     data = {}
     launched = {k: 0 for k in KERNELS}
+    launched["matmul_routes"] = {}
     results = []
     for name, shape, ranks, methods in cases:
         if shape not in data:
@@ -896,6 +1063,8 @@ def phase_main(torch):
         res = p.execute(x)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
+        for rt, v in kernels.matmul_route_counts().items():
+            launched["matmul_routes"][rt] = launched["matmul_routes"].get(rt, 0) + v
         peak = torch.cuda.max_memory_allocated()
         for k, v in counts.items():
             launched[k] += v
@@ -1085,6 +1254,7 @@ def adaptive_case(torch, name, x, cfg_kw, want_ranks, launched,
     res = p.execute(x)
     torch.cuda.synchronize()
     counts, routes = kernels.launch_counts(), kernels.ttt_route_counts()
+    mroutes = kernels.matmul_route_counts()
     hops = {f"{h}/{b}": n for (h, b), n in fallback_hops().items()}
     peak = torch.cuda.max_memory_allocated()
     for k, v in counts.items():
@@ -1111,10 +1281,13 @@ def adaptive_case(torch, name, x, cfg_kw, want_ranks, launched,
                sketch=probe.tails(res.tucker.ranks, p.schedule[0].mode,
                                   {t.mode: t.tail_err for t in res.trace}),
                hops=hops, launches=counts, ttt_routes=routes,
+               matmul_routes=mroutes,
                execute_ms=wall, execute_ms_all=times,
                execute_ms_matfree=statistics.median(times_m),
                execute_ms_matfree_all=times_m, peak_bytes=peak,
-               profile=profile_call(torch, lambda: p.execute(x), wall))
+               profile=profile_call(torch, lambda: p.execute(x), wall),
+               profile_matfree=profile_call(torch, lambda: pm.execute(x),
+                                            statistics.median(times_m)))
     emit("adaptive", **row)
     require(res.tucker.ranks == res_m.tucker.ranks and
             want_ranks in (None, res.tucker.ranks),
@@ -1146,18 +1319,120 @@ def least_cap(plan_capped) -> int:
     return hi
 
 
+def capped_steps(torch, name, p, x, cap):
+    """Run plan ``p``'s steps one by one through ``solve_step`` on ``x`` and
+    hold its memory to ``cap`` with the input beside every step (the port
+    never frees it): the input plus the memory allocated beyond it at every
+    step boundary and inside every step fits the cap, and inside every step
+    fits that step's own modeled peak (a ``hopper`` step models the input
+    it holds).  Returns (the core, the factors by mode, the boundary and
+    in-step figures beyond the input, the launch counts)."""
+    from repro_torch import kernels
+    from repro_torch.core.plan import solve_step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    y, factors, boundary, inside = x, {}, [], []
+    for step in p.schedule:
+        torch.cuda.reset_peak_memory_stats()
+        res = solve_step(y, step, als_iters=p.config.als_iters)
+        torch.cuda.synchronize()
+        inside.append(torch.cuda.max_memory_allocated() - base)
+        factors[step.mode], y = res.u, res.y_new
+        del res
+        boundary.append(torch.cuda.memory_allocated() - base)
+    x_bytes = x.numel() * x.element_size()
+    require(x_bytes + max(boundary) <= cap and x_bytes + max(inside) <= cap,
+            f"{name}: the input's {x_bytes} bytes and {max(boundary)} beyond "
+            f"it at a step boundary or {max(inside)} inside a step exceed "
+            f"the cap {cap} (steps over: "
+            f"{[k for k, b in enumerate(inside) if x_bytes + b > cap]})")
+    over = [k for k, (s, b) in enumerate(zip(p.schedule, inside))
+            if x_bytes + b > s.peak_bytes]
+    require(not over, f"{name}: steps {over} allocated more than their "
+            f"modeled peaks {[s.peak_bytes for s in p.schedule]} (input "
+            f"plus in-step: {[x_bytes + b for b in inside]})")
+    counts = kernels.launch_counts()
+    counts["matmul_routes"] = kernels.matmul_route_counts()
+    return y, factors, boundary, inside, counts
+
+
+def opt_cap_eig_case(torch, x, launched):
+    """Boats with ``methods="eig"`` under ``mode_order="opt"`` at the least
+    cap the search admits on hopper: each EIG step models the TTT's split-K
+    workspace (9,011,200 B for mode 0's Gram on 132 SMs), ``eigh``'s
+    cuSOLVER workspace (about 4 I² beside the eigenvectors) and, after the
+    first step, the held input.  Held step by step as opt_cap is; the
+    matfree plan's least cap (the reference's figure) is reported beside.
+    Then ``eigh``'s own allocation at each Gram size the plans run is held
+    to its model (``repro_torch.core.plan._eigh_bytes``)."""
+    from repro_torch.core import TuckerConfig, plan
+    from repro_torch.core import tensor_ops as T
+    from repro_torch.core.plan import _eigh_bytes
+    shape, ranks = BOATS
+
+    def capped(c, impl="auto"):
+        return plan(shape, "float32", TuckerConfig(
+            ranks=ranks, methods="eig", mode_order="opt",
+            memory_cap_bytes=c, impl=impl))
+    cap = least_cap(capped)
+    cap_matfree = least_cap(lambda c: capped(c, "matfree"))
+    p = capped(cap)
+    require(p.backend == "hopper",
+            f"opt_cap_eig: impl='auto' resolved to {p.backend!r}")
+    y, factors, boundary, inside, counts = capped_steps(
+        torch, "opt_cap_eig", p, x, cap)
+    mroutes = counts.pop("matmul_routes")
+    for k, v in counts.items():
+        launched[k] += v
+    x_bytes = x.numel() * x.element_size()
+    rel = float(T.rel_error(x, y, [factors[m] for m in range(len(shape))]))
+    del y, factors
+    eigh = []
+    for n in sorted({*shape, *HSI[0]}):
+        g = torch.randn((n, n), device="cuda")
+        g = g @ g.T
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = torch.linalg.eigh(g)
+        torch.cuda.synchronize()
+        eigh.append(dict(n=n, allocated=torch.cuda.max_memory_allocated()
+                         - before, modeled=_eigh_bytes(n, 4)))
+        del g, out
+    torch.cuda.empty_cache()
+    row = dict(case="opt_cap_eig", shape=list(shape), ranks=list(ranks),
+               cap=cap, cap_matfree=cap_matfree,
+               schedule=[dict(mode=s.mode, method=s.method, i_n=s.i_n,
+                              r_n=s.r_n, j_n=s.j_n, peak_bytes=s.peak_bytes)
+                         for s in p.schedule],
+               input_bytes=x_bytes, cap_room_beside_input=cap - x_bytes,
+               allocated_beyond_input_at_boundaries=boundary,
+               max_allocated_beyond_input_inside_steps=inside,
+               max_allocated_with_input_inside_steps=[x_bytes + b
+                                                      for b in inside],
+               eigh_fp32_bytes=eigh,
+               rel_error=rel, launches=counts, matmul_routes=mroutes)
+    emit("adaptive", **row)
+    require(math.isfinite(rel) and rel <= 0.02,
+            f"opt_cap_eig: rel_error {rel} > 0.02")
+    require(all(e["allocated"] <= e["modeled"] for e in eigh),
+            f"opt_cap_eig: eigh allocated more than its model: {eigh}")
+    return row
+
+
 def opt_cap_case(torch, gen, launched):
     """Boats under a memory cap with ``mode_order="opt"``: 0.8 x the free
     plan's largest step peak, or the least cap the search admits when that
     is infeasible.  Every step's modeled peak must fit; run step by step
-    through ``solve_step``, the memory allocated beyond the held input must
-    fit the cap at every step boundary (the reference's runtime cap smoke),
-    and the held input plus the most allocated beyond it inside any step
-    must fit the cap too (the port never frees the input)."""
-    from repro_torch import kernels
+    through ``solve_step`` (capped_steps), the held input plus the memory
+    allocated beyond it must fit the cap at every step boundary and inside
+    every step (the port never frees the input), and each step's own
+    modeled peak.  Then the EIG case on the same input (opt_cap_eig_case).
+    Returns both rows."""
     from repro_torch.core import MemoryCapError, TuckerConfig, plan
     from repro_torch.core import tensor_ops as T
-    from repro_torch.core.plan import solve_step
     shape, ranks = BOATS
     x = lowrank(torch, shape, ranks, gen)
     free = plan(shape, "float32", TuckerConfig(ranks=ranks, impl="auto"))
@@ -1179,30 +1454,12 @@ def opt_cap_case(torch, gen, launched):
             f"opt_cap: impl='auto' resolved to {p.backend!r}, not 'hopper'")
     require(all(s.peak_bytes <= cap for s in p.schedule),
             f"opt_cap: a step models more than the cap {cap}")
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    kernels.reset_launch_counts()
-    y, factors, boundary, inside = x, {}, [], []
-    for step in p.schedule:
-        torch.cuda.reset_peak_memory_stats()
-        res = solve_step(y, step, als_iters=p.config.als_iters)
-        torch.cuda.synchronize()
-        inside.append(torch.cuda.max_memory_allocated() - base)
-        factors[step.mode], y = res.u, res.y_new
-        del res
-        boundary.append(torch.cuda.memory_allocated() - base)
-    counts = kernels.launch_counts()
+    y, factors, boundary, inside, counts = capped_steps(torch, "opt_cap", p,
+                                                        x, cap)
+    mroutes = counts.pop("matmul_routes")
     for k, v in counts.items():
         launched[k] += v
     x_bytes = x.numel() * x.element_size()
-    require(max(boundary) <= cap,
-            f"opt_cap: {max(boundary)} bytes beyond the input at a step "
-            f"boundary exceed the cap {cap}")
-    require(x_bytes + max(inside) <= cap,
-            f"opt_cap: the input's {x_bytes} bytes and {max(inside)} "
-            f"allocated beyond it inside a step exceed the cap {cap} by "
-            f"{x_bytes + max(inside) - cap}")
     rel = float(T.rel_error(x, y, [factors[m] for m in range(len(shape))]))
     res = p.execute(x)
     res_m = pm.execute(x)
@@ -1229,6 +1486,7 @@ def opt_cap_case(torch, gen, launched):
                rel_error=rel, rel_error_execute=rel_x,
                rel_error_matfree=rel_m, max_projector_gap=max(gaps),
                rel_error_free_plan=rel_free, launches=counts,
+               matmul_routes=mroutes,
                execute_ms=statistics.median(times), execute_ms_all=times,
                execute_ms_matfree=statistics.median(times_m),
                execute_ms_matfree_all=times_m)
@@ -1238,9 +1496,11 @@ def opt_cap_case(torch, gen, launched):
     require(rel_x <= 0.02, f"opt_cap: execute's rel_error {rel_x} > 0.02")
     require(max(gaps) <= 1e-3,
             f"opt_cap: projector gap {max(gaps)} to matfree > 1e-3")
-    del x, y, factors
+    del y, factors
+    eig_row = opt_cap_eig_case(torch, x, launched)
+    del x
     torch.cuda.empty_cache()
-    return row
+    return row, eig_row
 
 
 def phase_adaptive(torch):
@@ -1288,6 +1548,9 @@ def phase_adaptive(torch):
             "adapt_wide: the refinement did not run eig/als after the sketch")
     require(row["ttt_routes"].get("wgmma_tma/ttt", 0) > 0,
             f"adapt_wide: no TTT with y ≠ x on wgmma_tma: {row['ttt_routes']}")
+    require(row["matmul_routes"].get("wide", 0) > 0,
+            f"adapt_wide: no first-mode GEMM on the wide route: "
+            f"{row['matmul_routes']}")
     rows.append(row)
     del x
     torch.cuda.empty_cache()
@@ -1298,12 +1561,15 @@ def phase_adaptive(torch):
             require(row["rel_error"] <= 1.05 * row["error_bound"],
                     f"{row['case']}: rel_error {row['rel_error']} > 1.05 x "
                     f"bound {row['error_bound']}")
-    rows.append(opt_cap_case(torch, gen, launched))
+    rows.extend(opt_cap_case(torch, gen, launched))
     for k in ("ttt", "matmul", "ttm_interior"):
         require(launched[k] > 0,
                 f"kernel {k} never launched on the adaptive path")
     launched["ttt_sketch"] = sum(r["ttt_routes"].get("wgmma_tma/ttt", 0)
                                  for r in rows if "ttt_routes" in r)
+    launched["matmul_routes"] = {
+        rt: sum(r.get("matmul_routes", {}).get(rt, 0) for r in rows)
+        for rt in ("slab", "wide")}
     return launched
 
 
@@ -1539,6 +1805,21 @@ def main(argv=None) -> int:
                   "bound_by", "bound_terms_ms", "library_ms", "device_ms",
                   "library_device_ms", "tile_fill", "launch")},
                 launches=adaptive["ttt_sketch"])
+        if name == "matmul":
+            # row 2b: the first-mode GEMM at R > 16 on its wide route (R =
+            # 64 and 40 at adapt_wide's mode 0), with the slab route it
+            # replaced; launches: wrapper calls by route on each path
+            row["wide"] = {f"r{r}": {k: full[f"matmul_wide_r{r}"][k] for k in (
+                "shapes", "route", "max_abs_err", "max_entry_err",
+                "plain_max_entry_err", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "bound_terms_ms", "library_ms",
+                "library_device_ms", "slab_ms", "slab_device_ms",
+                "bytes_per_s", "launch")} for r in (64, 40)}
+            row["wide"]["launches"] = launched["matmul_routes"].get("wide", 0)
+            row["wide"]["launches_adaptive"] = \
+                adaptive["matmul_routes"].get("wide", 0)
+            row["launches_by_route"] = launched["matmul_routes"]
+            row["launches_adaptive_by_route"] = adaptive["matmul_routes"]
         if name == "ttm_interior":
             # the sketch's projection at ℓ = 64 (four 16-row slabs)
             row["l64"] = {k: full["ttm_interior_l64"][k] for k in

@@ -833,13 +833,15 @@ def _plan_adaptive(shape: tuple[int, ...], dtype: str, config: TuckerConfig,
             shape, caps, methods=["rand"] * n, als_iters=config.als_iters,
             itemsize=T.itemsize(compute_dtype), cost_model=cost_model,
             memory_cap_bytes=config.memory_cap_bytes,
-            rank_grid=grids).order
+            rank_grid=grids, backend=backend.name,
+            n_sms=_device_sms(device)).order
     schedule = resolve_schedule(
         shape, caps, variant="sthosvd", methods="rand",
         mode_order=mode_order, als_iters=config.als_iters,
         itemsize=T.itemsize(compute_dtype), backend=backend.name,
         platform=device.type, cost_model=cost_model,
-        memory_cap_bytes=config.memory_cap_bytes)
+        memory_cap_bytes=config.memory_cap_bytes,
+        n_sms=_device_sms(device))
     tau = float(config.error_target) ** 2 / n
     schedule = tuple(replace(s, rank_grid=grids[s.mode], tau=tau)
                      for s in schedule)
@@ -847,6 +849,16 @@ def _plan_adaptive(shape: tuple[int, ...], dtype: str, config: TuckerConfig,
                       schedule=schedule,
                       select_seconds=time.perf_counter() - t0,
                       device=device)
+
+
+def _device_sms(device: torch.device) -> int | None:
+    """The SM count of a CUDA ``device``, which sizes a ``hopper`` step's
+    split-K workspace in its ``peak_bytes``; None for the CPU, where the
+    plan sizes it for the H100 SXM's 132 SMs
+    (:data:`repro_torch.core.plan.H100_SMS`)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
@@ -899,7 +911,7 @@ def plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
         itemsize=T.itemsize(compute_dtype), backend=backend.name,
         platform=platform, cost_model=cost_model,
         memory_cap_bytes=config.memory_cap_bytes,
-        mode_parallel=config.mode_parallel)
+        mode_parallel=config.mode_parallel, n_sms=_device_sms(device))
     p = TuckerPlan(shape=shape, dtype=dtype, config=config,
                    schedule=schedule,
                    select_seconds=timed.seconds if timed else 0.0,

@@ -220,6 +220,118 @@ def _step_peak_bytes(method: str, i_n: int, r_n: int, j_n: int,
                                           n_shards))
 
 
+#: SMs of the H100 SXM: the count a ``hopper`` plan built without a card
+#: (``device="cpu"``) sizes the TTT's split-K workspace for
+H100_SMS = 132
+
+
+def _eigh_bytes(n: int, itemsize: int) -> int:
+    """Bytes ``torch.linalg.eigh`` of an n × n matrix allocates beyond its
+    input on the card: the eigenvectors (n²) and cuSOLVER's ``syevd``
+    workspace, 5.02–5.16 n² elements from n = 1021 on and under 1.2 MB
+    (fp32) / 2 MB (fp64) in all below n = 512, as measured on an H100 with
+    torch 2.11 and CUDA 12.8; bounded by 5.25 n² + 2¹⁸ elements
+    (``chip_smoke.py`` holds the bound at every size the plans run)."""
+    return (21 * n * n // 4 + (1 << 18)) * itemsize
+
+
+def _qr_bytes(i: int, ell: int, itemsize: int) -> int:
+    """Bytes a reduced ``torch.linalg.qr`` of an (i, ℓ) matrix, with the
+    cast copy that feeds it, allocates on the card: a fixed 3 MiB (fp32) /
+    6 MiB (fp64) cuSOLVER workspace a call (as measured on an H100 with
+    torch 2.11 and CUDA 12.8), plus the copy, Q, R and tau."""
+    return ((3 << 18) + 3 * i * ell + ell * ell + 1024) * itemsize
+
+
+def _hopper_workspace_bytes(method: str, a: int, i_n: int, r_n: int, b: int,
+                            itemsize: int, n_sms: int,
+                            first_mode: bool = False) -> int:
+    """The most bytes that one call of a ``hopper`` step allocates beyond
+    the reference's model of the step, over the calls the step's solver
+    makes at its (A, I_n, B) view.  TTT/Gram calls hold the split-K
+    workspace (:func:`repro_torch.kernels.ttt.workspace_bytes`): EIG the
+    I_n² Gram (in the accumulation dtype); ALS the (I_n, R_n) TTT and the
+    R-tensor's (R_n, R_n) Gram; RAND the (I_n, ℓ) range samples and the (ℓ,
+    ℓ) Gram (fp32, as those solvers iterate).  On the first mode the TTMs
+    are GEMMs, whose wide route holds u's pre-split image
+    (:func:`repro_torch.kernels.matmul.workspace_bytes`): EIG u (R_n, I_n);
+    ALS L (R_n, I_n) and R̂ (R_n, R_n); RAND Q (ℓ, I_n) and V (R_n, ℓ).
+    The dense factorizations hold cuSOLVER's workspace: EIG's ``eigh`` of
+    the Gram (:func:`_eigh_bytes`, whose eigenvectors then stay beside the
+    core update's GEMM image); ALS's fp32 QR of L (I_n, R_n) and RAND's
+    float64 QR of (I_n, ℓ) (:func:`_qr_bytes`) and ``eigh`` of the ℓ²
+    Gram.  SVD runs no kernel.  The TTT's route, and so its split, depends
+    on B and on the operands' alignment: the larger of the aligned and
+    unaligned figures is charged.  One call's buffers are freed before the
+    next call allocates its own, so the step holds the largest one.  The
+    reference's model has no such term, so only ``hopper`` steps carry
+    it."""
+    from ..kernels.matmul import workspace_bytes as gemm_workspace_bytes
+    from ..kernels.ttt import workspace_bytes
+    ell = min(i_n, r_n + DEFAULT_OVERSAMPLE)
+    accum = max(itemsize, 4)
+    if method == "eig":
+        dtype = "bfloat16" if itemsize == 2 else "float32"
+        ttts, gemms = [(i_n, i_n, True)], [(r_n, i_n)]
+    elif method == "als":
+        dtype = "float32"
+        ttts, gemms = [(i_n, r_n, False), (r_n, r_n, True)], \
+            [(r_n, i_n), (r_n, r_n)]
+    elif method == "rand":
+        dtype = "float32"
+        ttts, gemms = [(i_n, ell, False), (ell, ell, True)], \
+            [(ell, i_n), (r_n, ell)]
+    else:
+        return 0
+    need = [workspace_bytes(a, i, r, b, sym, n_sms, dtype, aligned)
+            for i, r, sym in ttts for aligned in (True, False)]
+    image = max(gemm_workspace_bytes(m, b, k, dtype) for m, k in gemms) \
+        if first_mode else 0
+    if method == "eig":
+        need += [_eigh_bytes(i_n, accum), i_n * i_n * accum + image]
+    elif method == "als":
+        need += [_qr_bytes(i_n, r_n, 4), image]
+    else:
+        need += [_qr_bytes(i_n, ell, 8), _eigh_bytes(ell, 8) + ell * ell * 8,
+                 image]
+    return max(need)
+
+
+def _held_bytes(shape: Sequence[int], factors, itemsize: int,
+                input_held: bool = True) -> int:
+    """What a ``hopper`` step holds beside its own working set: the factors
+    already solved (``factors``: (mode, rank) pairs) and, once the sweep has
+    left it (``input_held``, and at least one factor solved), the caller's
+    input, which the port never donates.  The reference's model counts
+    neither (it donates the input), so only ``hopper`` steps carry it."""
+    factors = list(factors)
+    held = sum(shape[m] * r for m, r in factors)
+    if input_held and factors:
+        held += math.prod(shape)
+    return held * itemsize
+
+
+def _backend_peak_bytes(method: str, shape: Sequence[int], mode: int,
+                        r_n: int, itemsize: int, backend: str,
+                        n_sms: int | None, n_shards: int = 1,
+                        held_bytes: int = 0) -> int:
+    """:func:`_step_peak_bytes` of solving ``mode`` of a tensor of the
+    current ``shape`` at rank ``r_n``, plus, on the ``hopper`` backend, the
+    largest workspace of the step's calls at its (A, I_n, B) view
+    (:func:`_hopper_workspace_bytes`; ``n_sms`` None means
+    :data:`H100_SMS`) and ``held_bytes`` (:func:`_held_bytes`).  Other
+    backends keep the reference's figure."""
+    i_n = shape[mode]
+    j_n = math.prod(shape) // i_n
+    peak = _step_peak_bytes(method, i_n, r_n, j_n, itemsize, n_shards)
+    if backend == "hopper":
+        peak += held_bytes + _hopper_workspace_bytes(
+            method, math.prod(shape[:mode]), i_n, r_n,
+            math.prod(shape[mode + 1:]), itemsize,
+            H100_SMS if n_sms is None else n_sms, first_mode=mode == 0)
+    return peak
+
+
 def _group_peak_bytes(entries, in_elems: int, out_elems: int,
                       itemsize: int, n_shards: int = 1) -> int:
     """Modeled per-device peak of one mode-parallel group: the shared
@@ -236,9 +348,15 @@ def _group_peak_bytes(entries, in_elems: int, out_elems: int,
     return int(io + scratch)
 
 
-def _make_step(mode: int, method, selector, i_n: int, r_n: int, j_n: int,
+def _make_step(mode: int, method, selector, shape: Sequence[int], r_n: int,
                als_iters: int, itemsize: int, backend: str,
-               cost_model=None) -> ModeStep:
+               cost_model=None, n_sms: int | None = None,
+               held_bytes: int = 0) -> ModeStep:
+    """The step solving ``mode`` of a tensor of the current ``shape`` (the
+    step's (A, I_n, B) view sizes the ``hopper`` workspace; ``held_bytes``
+    is what a ``hopper`` step holds beside it, :func:`_held_bytes`)."""
+    i_n = shape[mode]
+    j_n = math.prod(shape) // i_n
     m = selector(i_n=i_n, r_n=r_n, j_n=j_n) if method is None else method
     _check_solver(m)
     if not get_backend(backend).supports_solver(m):
@@ -254,7 +372,9 @@ def _make_step(mode: int, method, selector, i_n: int, r_n: int, j_n: int,
         if cost_model is not None and cost_model.calibrated else 0.0
     return ModeStep(mode=mode, method=m, i_n=i_n, r_n=r_n, j_n=j_n,
                     flops=scale * _step_cost(m, i_n, r_n, j_n, als_iters),
-                    peak_bytes=_step_peak_bytes(m, i_n, r_n, j_n, itemsize),
+                    peak_bytes=_backend_peak_bytes(
+                        m, shape, mode, r_n, itemsize, backend, n_sms,
+                        held_bytes=held_bytes),
                     backend=backend, predicted_s=predicted_s)
 
 
@@ -275,6 +395,7 @@ def resolve_schedule(
     cost_model=None,
     memory_cap_bytes: int | None = None,
     mode_parallel: str | int = "off",
+    n_sms: int | None = None,
 ) -> tuple[ModeStep, ...]:
     """Resolve the full per-mode solver schedule ahead of execution.
 
@@ -303,6 +424,14 @@ def resolve_schedule(
     searches that cannot fit under it) raise
     :class:`~repro_torch.core.schedule_opt.MemoryCapError` at plan time,
     naming the binding step.
+
+    ``n_sms`` is the SM count of the card the plan is built for; a
+    ``hopper`` step's ``peak_bytes`` adds the largest workspace of its
+    calls, whose split-K part that count sizes (:func:`_backend_peak_bytes`;
+    None means :data:`H100_SMS`, the H100 SXM's 132), and what it holds
+    beside its working set: the factors already solved and, after the first
+    step, the caller's input (:func:`_held_bytes`; the port never donates
+    it).  Other backends keep the reference's figures.
 
     ``mode_parallel`` accepts ``"off"``, ``"auto"`` and ``1`` — what the
     reference does on a single device (``"auto"`` and ``1`` stay
@@ -349,12 +478,13 @@ def resolve_schedule(
             raise ValueError("mode_order is meaningless for thosvd (factors "
                              "are computed independently from the original "
                              "tensor); leave it None")
-        size = math.prod(shape)
-        for mode in range(n):
-            i_n, r_n = shape[mode], ranks[mode]
+        for mode in range(n):   # every step reads the input itself
+            held = _held_bytes(shape, zip(range(mode), ranks), itemsize,
+                               input_held=False)
             steps.append(_make_step(mode, method_for(mode), selector,
-                                    i_n, r_n, size // i_n, als_iters,
-                                    itemsize, backend, cost_model=cost_model))
+                                    shape, ranks[mode], als_iters,
+                                    itemsize, backend, cost_model=cost_model,
+                                    n_sms=n_sms, held_bytes=held))
         return _capped(tuple(steps))
 
     # st-HOSVD sweep (also HOOI's init): the tensor shrinks between steps
@@ -364,32 +494,35 @@ def resolve_schedule(
             search = optimize_schedule(
                 shape, ranks, methods=fixed, als_iters=als_iters,
                 itemsize=itemsize, cost_model=cost_model,
-                memory_cap_bytes=memory_cap_bytes)
+                memory_cap_bytes=memory_cap_bytes, backend=backend,
+                n_sms=n_sms)
             order, flat_methods = list(search.order), list(search.methods)
         else:
             order = resolve_mode_order(shape, ranks, mode_order)
             flat_methods = [method_for(m) for m in order]
         cur = list(shape)
-        for mode, method in zip(order, flat_methods):
-            i_n, r_n = cur[mode], ranks[mode]
-            j_n = math.prod(cur) // i_n
+        for k, (mode, method) in enumerate(zip(order, flat_methods)):
+            held = _held_bytes(shape, ((m, ranks[m]) for m in order[:k]),
+                               itemsize)
             steps.append(_make_step(mode, method, selector,
-                                    i_n, r_n, j_n, als_iters, itemsize,
-                                    backend, cost_model=cost_model))
-            cur[mode] = r_n
+                                    cur, ranks[mode], als_iters, itemsize,
+                                    backend, cost_model=cost_model,
+                                    n_sms=n_sms, held_bytes=held))
+            cur[mode] = ranks[mode]
     if variant == "sthosvd":
         return _capped(tuple(steps))
 
     # HOOI refinement sweeps: mode n sees x projected on all OTHER factors,
-    # i.e. shape (R_0 .. I_n .. R_{N-1}) — static, so resolvable up front.
-    rank_prod = math.prod(ranks)
+    # i.e. shape (R_0 .. I_n .. R_{N-1}) — static, so resolvable up front;
+    # the input and every factor are held beside it
+    held = _held_bytes(shape, zip(range(n), ranks), itemsize)
     for _ in range(hooi_iters):
         for mode in range(n):
-            i_n, r_n = shape[mode], ranks[mode]
-            j_n = rank_prod // r_n
+            projected = ranks[:mode] + (shape[mode],) + ranks[mode + 1:]
             steps.append(_make_step(mode, method_for(mode), selector,
-                                    i_n, r_n, j_n, als_iters, itemsize,
-                                    backend, cost_model=cost_model))
+                                    projected, ranks[mode], als_iters,
+                                    itemsize, backend, cost_model=cost_model,
+                                    n_sms=n_sms, held_bytes=held))
     return _capped(tuple(steps))
 
 

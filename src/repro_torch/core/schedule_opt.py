@@ -173,16 +173,22 @@ def _candidates(methods, mode: int,
 
 
 def _priced_candidates(shape, ranks, methods, itemsize, n_shards, cur, m,
-                       search=SEARCH_METHODS, rank_grid=None):
+                       search=SEARCH_METHODS, rank_grid=None,
+                       backend="matfree", n_sms=None, done=()):
     """Every (method, peak_bytes, i_n, r_n, j_n) candidate for solving mode
     ``m`` at the DP state whose current (partially shrunk) dims are ``cur``
     — the ONE place the shard-participation and per-device peak rules live,
     shared by the DP transition loop and the infeasibility message.  With a
     ``rank_grid`` the rank axis opens: one candidate per (solver, grid rank)
-    pair instead of the single fixed ``ranks[m]``."""
-    from .plan import _step_peak_bytes   # shared model; plan.py imports us
-    i_n = shape[m]                       # lazily, so no cycle
+    pair instead of the single fixed ``ranks[m]``.  ``backend`` and
+    ``n_sms`` price a candidate as the plan prices its step
+    (:func:`repro_torch.core.plan._backend_peak_bytes`: a ``hopper`` step
+    adds the kernels' workspace at the state's view, and holds the factors
+    of the modes ``done`` and, after the first step, the input)."""
+    from .plan import _backend_peak_bytes, _held_bytes   # shared model;
+    i_n = shape[m]                  # plan.py imports us lazily, so no cycle
     j_n = math.prod(cur) // i_n
+    held = _held_bytes(shape, ((d, cur[d]) for d in done), itemsize)
     rank_cands = (ranks[m],) if rank_grid is None else tuple(rank_grid[m])
     if n_shards > 1:
         shard = pick_shard_mode(tuple(cur), m, n_shards)
@@ -192,7 +198,8 @@ def _priced_candidates(shape, ranks, methods, itemsize, n_shards, cur, m,
         eff = n_shards if (shard is not None and meth not in ("svd", "rand")) \
             else 1
         for r_n in rank_cands:
-            yield meth, _step_peak_bytes(meth, i_n, r_n, j_n, itemsize, eff), \
+            yield meth, _backend_peak_bytes(meth, cur, m, r_n, itemsize,
+                                            backend, n_sms, eff, held), \
                 i_n, r_n, j_n
 
 
@@ -295,6 +302,8 @@ def optimize_schedule(
     max_group: int = 1,
     search_methods: Sequence[str] = SEARCH_METHODS,
     rank_grid: Sequence[Sequence[int]] | None = None,
+    backend: str = "matfree",
+    n_sms: int | None = None,
 ) -> ScheduleSearch:
     """Exact subset DP over st-HOSVD schedules.
 
@@ -315,6 +324,12 @@ def optimize_schedule(
     the chosen rank shrinks ``cur`` for all later steps, so order × solver
     × rank is searched jointly.  Incompatible with ``max_group > 1``
     (groups are rank-fixed; see :func:`_price_group`).
+
+    ``backend`` and ``n_sms`` price every sequential candidate as the plan
+    prices its step: a ``hopper`` candidate adds its calls' workspace at
+    the state's view and what it holds beside it (:func:`_priced_candidates`),
+    so the search never picks a schedule that the capped check then refuses.
+    Groups keep the reference's figures (the port runs none yet).
 
     Raises :class:`MemoryCapError` when no complete order fits the cap; the
     message names the cheapest-memory step (or group) that still exceeds it
@@ -350,10 +365,11 @@ def optimize_schedule(
             continue
         cur = list(state[6])
         rem = [m for m in range(n) if not mask >> m & 1]
+        done = [m for m in range(n) if mask >> m & 1]
         for m in rem:   # sequential edges, exactly the max_group=1 DP
             for meth, peak, i_n, r_n, j_n in _priced_candidates(
                     shape, ranks, methods, itemsize, n_shards, cur, m,
-                    search, rank_grid):
+                    search, rank_grid, backend, n_sms, done):
                 if memory_cap_bytes is not None and peak > memory_cap_bytes:
                     continue
                 c = step_cost(cm, meth, i_n, r_n, j_n, als_iters)
@@ -383,7 +399,8 @@ def optimize_schedule(
         raise MemoryCapError(_infeasible_message(
             shape, ranks, methods, als_iters, itemsize, n_shards,
             memory_cap_bytes, best, max_group=max_group, cost_model=cm,
-            search=search, rank_grid=rank_grid))
+            search=search, rank_grid=rank_grid, backend=backend,
+            n_sms=n_sms))
 
     groups: list[tuple[int, ...]] = []
     meths: list[tuple[str, ...]] = []
@@ -419,6 +436,8 @@ def optimize_grouping(
     cost_model: CostModel | None = None,
     memory_cap_bytes: int | None = None,
     max_group: int | None = None,
+    backend: str = "matfree",
+    n_sms: int | None = None,
 ) -> ScheduleSearch:
     """Mode-parallel grouping search along a FIXED mode order (the
     ``mode_parallel="auto"`` path when the user pinned ``mode_order``):
@@ -446,7 +465,8 @@ def optimize_grouping(
                for i in range(len(shape))]
         m = order[k]
         for meth, peak, i_n, r_n, j_n in _priced_candidates(
-                shape, ranks, methods, itemsize, n_shards, cur, m):
+                shape, ranks, methods, itemsize, n_shards, cur, m,
+                backend=backend, n_sms=n_sms, done=order[:k]):
             if memory_cap_bytes is not None and peak > memory_cap_bytes:
                 continue
             c = step_cost(cm, meth, i_n, r_n, j_n, als_iters)
@@ -476,7 +496,9 @@ def optimize_grouping(
             order[deepest:deepest + size]
             for size in range(2, min(max_group, n - deepest) + 1)]
         binding = _min_peak_binding(shape, ranks, methods, als_iters,
-                                    itemsize, n_shards, cur, cands, cm)
+                                    itemsize, n_shards, cur, cands, cm,
+                                    backend=backend, n_sms=n_sms,
+                                    done=order[:deepest])
         raise MemoryCapError(_format_binding(
             shape, ranks, memory_cap_bytes, sorted(done), binding, n_shards))
 
@@ -503,7 +525,8 @@ def optimize_grouping(
 
 def _min_peak_binding(shape, ranks, methods, als_iters, itemsize, n_shards,
                       cur, candidate_groups, cost_model,
-                      search=SEARCH_METHODS, rank_grid=None):
+                      search=SEARCH_METHODS, rank_grid=None,
+                      backend="matfree", n_sms=None, done=()):
     """The cheapest-memory candidate over ``candidate_groups`` (each a tuple
     of modes; singletons are plain sequential steps) at the state whose
     current dims are ``cur`` — the step/group any schedule must eventually
@@ -514,7 +537,7 @@ def _min_peak_binding(shape, ranks, methods, als_iters, itemsize, n_shards,
         if len(g) == 1:
             for meth, peak, i_n, r_n, j_n in _priced_candidates(
                     shape, ranks, methods, itemsize, n_shards, cur, g[0],
-                    search, rank_grid):
+                    search, rank_grid, backend, n_sms, done):
                 if binding is None or peak < binding[0]:
                     binding = (peak, g, (meth,), (i_n, r_n, j_n))
         else:
@@ -550,7 +573,8 @@ def _format_binding(shape, ranks, cap, done, binding, n_shards) -> str:
 
 def _infeasible_message(shape, ranks, methods, als_iters, itemsize, n_shards,
                         cap, best, max_group=1, cost_model=None,
-                        search=SEARCH_METHODS, rank_grid=None) -> str:
+                        search=SEARCH_METHODS, rank_grid=None,
+                        backend="matfree", n_sms=None) -> str:
     """Name the binding step (or group): at the deepest reachable state, the
     remaining candidate whose cheapest-memory pricing still exceeds the cap
     by the least — the transition any schedule must eventually pay."""
@@ -564,7 +588,8 @@ def _infeasible_message(shape, ranks, methods, als_iters, itemsize, n_shards,
     for size in range(2, min(max_group, len(rem)) + 1):
         cands.extend(combinations(rem, size))
     binding = _min_peak_binding(shape, ranks, methods, als_iters, itemsize,
-                                n_shards, cur, cands, cm, search, rank_grid)
+                                n_shards, cur, cands, cm, search, rank_grid,
+                                backend, n_sms, done)
     return _format_binding(shape, ranks, cap, done, binding, n_shards)
 
 

@@ -45,12 +45,20 @@ def ttt_route_counts() -> dict[str, int]:
     return dict(_module("ttt").ROUTE_LAUNCHES)
 
 
+def matmul_route_counts() -> dict[str, int]:
+    """Launches of the boundary GEMM since the last
+    :func:`reset_launch_counts`, by route (``"slab"``, ``"wide"``)."""
+    return dict(_module("matmul").ROUTE_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     for k in KERNEL_MODULES:
         _module(k).LAUNCHES = 0
-    _module("ttt").ROUTE_LAUNCHES.clear()
+    for k in ("ttt", "matmul"):
+        _module(k).ROUTE_LAUNCHES.clear()
 
 
-__all__ = ["KERNEL_MODULES", "launch_counts", "matmul", "ops", "ref",
+__all__ = ["KERNEL_MODULES", "launch_counts", "matmul", "matmul_route_counts",
+           "ops", "ref",
            "reset_launch_counts", "s6_scan", "ttm_interior", "ttt3",
            "ttt_route_counts"]

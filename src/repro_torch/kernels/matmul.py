@@ -1,23 +1,35 @@
 """Boundary-mode TTM GEMM for Hopper: C (M, N) = A (M, K) @ B (K, N), fp32 out.
 
 Used for the first-mode / last-mode TTM of the matricization-free st-HOSVD
-(paper Fig. 4: the boundary modes collapse to a single GEMM).
+(paper Fig. 4: the boundary modes collapse to a single GEMM): u (R, I) @
+x (I, J) on the first mode, x (J, I) @ uᵀ (I, R) on the last.
 
 Replaces ``repro/kernels/matmul.py::matmul``; the CUDA source is
-``csrc/matmul.cu`` (its tile kernel is ``csrc/contract.cuh``, shared with
-the TTT).  What bounds it on the H100: the bytes of the tensor operand —
-the output is skinny (R ≤ a few dozen) while x is large (537.6 M elements
-for a (320, 240, 7000) tensor).  The design streams x through memory once:
-each block holds all R outputs of its row strip (last mode) or column strip
-(first mode) instead of padding R to a 128-wide tile as the TPU kernel's
-wrapper does, and issues the next tile's loads before it consumes the
-current one.  Ragged edges are masked; nothing is padded.
+``csrc/matmul.cu``.  Two routes, a pure function of (M, N) that
+:func:`route` mirrors:
 
-A CPU tensor runs the plain version (:func:`repro_torch.kernels.ref.matmul_ref`);
+* ``slab`` -- R ≤ 16 on the first mode, and the last mode (N ≤ M).  Bound by
+  the bytes of x.  The FFMA tile kernel of ``csrc/contract.cuh`` (shared
+  with the TTT): each block holds all R outputs of its 16 × 128 (first
+  mode) or 128 × 16 (last mode) strip of x, so x is read once; a last-mode
+  R above 16 takes more 16-wide tiles, each reading x again.
+* ``wide`` -- the first mode at R > 16 (M > 16, N > M).  One pass over x
+  (R ≤ 256; chunks of 256 outputs above) on the tensor cores at fp32
+  accuracy: Cᵀ = xᵀ·uᵀ on ``wgmma`` with x's split-TF32 halves from
+  registers (three products; bf16 one), x arriving by TMA (:func:`loads`),
+  each 32-deep stage summed from zero and added in fp32.  u is split once a
+  call into a pre-split image in a workspace of :func:`workspace_bytes`,
+  which the ``hopper`` plans charge to the step's peak
+  (``core/plan.py``).
+
+Ragged edges are masked or zero-filled; nothing is padded in memory.  A CPU
+tensor runs the plain version (:func:`repro_torch.kernels.ref.matmul_ref`);
 a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,6 +38,54 @@ from .ref import matmul_ref
 
 #: launches of the CUDA kernel (one per wrapper call on the card)
 LAUNCHES = 0
+#: the same launches by route ("slab", "wide")
+ROUTE_LAUNCHES: dict[str, int] = {}
+
+#: the routes of csrc/matmul.cu, by the code its report function gives
+ROUTES = ("slab", "wide")
+#: outputs per pass of the wide route, and k rows per stage
+CHUNK, WIDE_TK = 256, 32
+
+
+def route(m: int, n: int) -> str:
+    """The route csrc/matmul.cu takes for C (M, N): ``wide`` for the first
+    mode at R > 16 (M > 16 and N > M), ``slab`` otherwise.  K, the dtype and
+    the alignment do not change it; alignment picks the wide route's loads
+    (:func:`loads`)."""
+    return "wide" if n > m > 16 else "slab"
+
+
+def loads(n: int, dtype: str = "float32", aligned: bool = True) -> str:
+    """How the wide route brings x (K, N) in: ``tma`` when a row of N
+    elements is a 16-byte multiple and x is 16-byte aligned, else ``plain``
+    (the producer warps' own loads into the same layout)."""
+    es = 4 if dtype == "float32" else 2
+    return "tma" if aligned and n * es % 16 == 0 else "plain"
+
+
+def image_rows(rows: int) -> int:
+    """Rows of u's pre-split image for a chunk of ``rows`` outputs: the
+    wgmma width of a consumer warpgroup (32, 64 or 128), or 2 × 128 when
+    the two warpgroups split R (rows > 128)."""
+    for w in (32, 64, 128):
+        if rows <= w:
+            return w
+    return 2 * 128
+
+
+def workspace_bytes(m: int, n: int, k: int, dtype: str = "float32") -> int:
+    """Bytes that :func:`matmul` allocates beyond C for (M, K) @ (K, N): on
+    the wide route u's pre-split image -- ceil(K / 32) stages of (hi, lo)
+    fp32 tiles (one tile for bf16) of :func:`image_rows` rows × 128 bytes,
+    sized for the first (largest) chunk of 256 outputs -- else 0."""
+    if route(m, n) != "wide":
+        return 0
+    planes = 2 if dtype == "float32" else 1
+    return math.ceil(k / WIDE_TK) * planes * image_rows(min(m, CHUNK)) * 128
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -38,22 +98,48 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{tuple(b.shape)}")
     if kind == "cpu":
         return matmul_ref(a, b)
+    rt = route(m, n)
     dev = a.device
     with torch.cuda.device(dev):
         c = torch.empty((m, n), dtype=torch.float32, device=dev)
+        n_ws = workspace_bytes(m, n, k, _dtype_name(a))
+        ws = torch.empty(n_ws, dtype=torch.uint8, device=dev) if n_ws else None
         lib = _build.load("matmul")
         err = lib.atucker_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                 0 if ws is None else ws.data_ptr(),
                                  m, n, k, _build.dtype_code(a),
                                  _build.stream_ptr(dev))
         _build.check(lib, err, "matmul")
     global LAUNCHES
     LAUNCHES += 1
+    ROUTE_LAUNCHES[rt] = ROUTE_LAUNCHES.get(rt, 0) + 1
     return c
 
 
 def launch_info(a: torch.Tensor, b: torch.Tensor) -> list[dict]:
-    """Registers per thread, threads, resident blocks per SM and grid blocks
-    of the CUDA kernel that ``matmul(a, b)`` runs (card only)."""
+    """Registers per thread, threads, resident blocks per SM, grid blocks
+    and waves of each CUDA kernel that ``matmul(a, b)`` runs (card only):
+    the GEMM, then on the wide route the kernel that splits u.  The first
+    row also carries the route -- the C library's own report, checked
+    against :func:`route` -- and on the wide route x's loads (checked
+    against :func:`loads`), the dynamic shared memory and the ring's
+    stages."""
     (m, k), n = a.shape, b.shape[1]
-    return _build.launch_info("matmul", "atucker_matmul_info", m, n, k,
-                              _build.dtype_code(a))
+    rt = route(m, n)
+    rows, extra = _build.report(
+        "matmul", "atucker_matmul_info", b.data_ptr(), m, n, k,
+        _build.dtype_code(a))
+    got = ROUTES[extra[1]]
+    if got != rt:
+        raise RuntimeError(f"matmul: csrc/matmul.cu takes route {got}, "
+                           f"kernels/matmul.py mirrors {rt}")
+    rows[0]["route"] = got
+    if got == "wide":
+        want = loads(n, _dtype_name(b), b.data_ptr() % 16 == 0)
+        got_loads = "tma" if extra[2] else "plain"
+        if got_loads != want:
+            raise RuntimeError(f"matmul: csrc/matmul.cu loads x by "
+                               f"{got_loads}, kernels/matmul.py mirrors {want}")
+        rows[0].update(loads=got_loads, smem_bytes=extra[0],
+                       ring_stages=extra[3])
+    return rows

@@ -64,6 +64,52 @@ def ttt_tf32x3_ref(x3: torch.Tensor, y3: torch.Tensor, products: int = 3,
     return z
 
 
+def matmul_tf32x3_ref(a: torch.Tensor, b: torch.Tensor, products: int = 3,
+                      stage: int = 32, truncate: bool = False) -> torch.Tensor:
+    """The arithmetic of the wide route of ``csrc/matmul.cu`` written out in
+    PyTorch, for the tests (the kernels never call it): C = a @ b with every
+    operand v split into hi = rna_tf32(v) and lo = rna_tf32(v - hi), and
+    C = hi_a·hi_b + hi_a·lo_b + lo_a·hi_b (products = 3; products = 1 keeps
+    hi_a·hi_b alone, one TF32 product, which is exact for bf16 operands).
+    Each ``stage`` of k is summed from zero and the stages are added in
+    fp32, as the kernel does.  The kernel sums a stage on the tensor cores,
+    whose fp32 accumulator truncates; here the sums round, unless
+    ``truncate``: then each 8-deep ``wgmma`` step is emulated in the
+    kernel's order (per k-step hi·lo and lo·hi, then every hi·hi), its
+    exact products added to the accumulator and the result rounded toward
+    zero, which is what biases the wide route's sums toward zero."""
+    a, b = a.float(), b.float()
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    terms = [(ah, bh)]
+    if products == 3:
+        terms = [(ah, tf32_rna(b - bh)), (tf32_rna(a - ah), bh), (ah, bh)]
+    c = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                    device=a.device)
+    for k0 in range(0, a.shape[1], stage):
+        k1 = min(k0 + stage, a.shape[1])
+        part = torch.zeros_like(c)
+        if not truncate:
+            for p, q in terms:
+                part += p[:, k0:k1] @ q[k0:k1]
+        else:
+            steps = range(k0, k1, 8)
+            order = [(p, q, k) for k in steps for p, q in terms[:-1]] + \
+                [(*terms[-1], k) for k in steps]
+            for p, q, k in order:
+                exact = part.double() + p[:, k:min(k + 8, k1)].double() \
+                    @ q[k:min(k + 8, k1)].double()
+                part = _round_toward_zero(exact)
+        c += part
+    return c
+
+
+def _round_toward_zero(v: torch.Tensor) -> torch.Tensor:
+    """float64 ``v`` rounded to fp32 toward zero."""
+    r = v.float()
+    return torch.where(r.double().abs() > v.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
 def ttm_full_ref(x: torch.Tensor, u: torch.Tensor, mode: int) -> torch.Tensor:
     """Full mode-n TTM via explicit matricization."""
     xm = torch.movedim(x.float(), mode, 0).reshape(x.shape[mode], -1)

@@ -16,7 +16,8 @@ The long A·B reduction is split across blocks so that every SM has work;
 a second small kernel finishes the partial sums (deterministic — no
 atomics) and mirrors the upper tiles of a Gram.  x is read in place (no
 padding, any A ≥ 1 and B ≥ 1, ragged edges masked or zero-filled).
-:func:`route` mirrors the C code's choice, :func:`split_plan` its tiling.
+:func:`route` mirrors the C code's choice, :func:`split_plan` its tiling
+and :func:`workspace_bytes` the split-K workspace it needs beside z.
 
 A CPU tensor runs the plain version (:func:`repro_torch.kernels.ref.ttt_ref`);
 a CUDA tensor launches the kernel or raises.
@@ -89,6 +90,26 @@ def split_plan(i: int, r: int, k: int, b: int, sym: bool, n_sms: int,
     return math.ceil(n_k / per), per * tk
 
 
+def workspace_bytes(a: int, i: int, r: int, b: int, sym: bool, n_sms: int,
+                    dtype: str = "float32", aligned: bool = True) -> int:
+    """Bytes that :func:`ttt3` allocates beyond z for a call on an (A, I, B)
+    x and an (A, R, B) y (``sym``: y is x): the split-K workspace of
+    splits × I × R fp32 partial sums when the reduction is split
+    (:func:`split_plan`) or the Gram is mirrored (R > 16), else 0.  ``ttt3``
+    allocates exactly this, so the plan's memory model (``core/plan.py``)
+    and the allocation cannot drift apart."""
+    splits, _ = split_plan(i, r, a * b, b, sym, n_sms, dtype, aligned)
+    return _workspace(splits, i, r, sym)
+
+
+def _workspace(splits: int, i: int, r: int, sym: bool) -> int:
+    """The workspace bytes of a call split ``splits`` ways: csrc/ttt.cu
+    writes partial sums there and finishes them into z when the reduction
+    is split or the Gram is mirrored (R > 16)."""
+    mirror = sym and r > 16
+    return splits * i * r * 4 if splits > 1 or mirror else 0
+
+
 def _dtype_aligned(x3: torch.Tensor, y3: torch.Tensor) -> tuple[str, bool]:
     """The operands' dtype name, and whether both are 16-byte aligned."""
     return (str(x3.dtype).replace("torch.", ""),
@@ -126,9 +147,8 @@ def ttt3(x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         a, i, r, b, sym, splits, k_per_split = _plan(x3, y3)
         z = torch.empty((i, r), dtype=torch.float32, device=dev)
-        mirror = sym and r > 16     # csrc/ttt.cu finishes mirrored Grams
-        ws = torch.empty((splits, i, r), dtype=torch.float32, device=dev) \
-            if splits > 1 or mirror else z
+        n_ws = _workspace(splits, i, r, sym) // 4
+        ws = torch.empty(n_ws, dtype=torch.float32, device=dev) if n_ws else z
         lib = _build.load("ttt")
         err = lib.atucker_ttt(x3.data_ptr(), y3.data_ptr(), ws.data_ptr(),
                               z.data_ptr(), a, i, r, b, _build.dtype_code(x3),

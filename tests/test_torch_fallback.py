@@ -21,8 +21,9 @@ import torch
 
 import repro.core as R
 from repro_torch.core import (CancelledError, DeadlineError, InputError,
-                              NumericalError, ResourceError, TuckerConfig,
-                              fallback_hops, plan, reset_fallback_hops)
+                              MemoryCapError, NumericalError, ResourceError,
+                              TuckerConfig, fallback_hops, plan,
+                              reset_fallback_hops)
 from repro_torch.core import api as A
 from repro_torch.core import solvers as S
 from repro_torch.kernels import ops as K
@@ -32,6 +33,11 @@ SHAPE, RANKS = (12, 10, 8), (3, 3, 3)
 #: the natural order's bottleneck is avoidable by reordering, so a replan
 #: under 0.75 × its peak exists (mode 0 barely compresses)
 WIDE, WIDE_RANKS = (16, 96, 64), (12, 4, 8)
+#: the same on ``hopper``, whose steps also hold their calls' workspace
+#: (``eigh``'s alone is over a MiB) and, after the first step, the input:
+#: WIDE's replan under 0.75 × its hopper peak is infeasible, this larger
+#: tensor's is not
+HOPPER_WIDE, HOPPER_WIDE_RANKS = (16, 32, 32, 64), (12, 4, 4, 4)
 
 
 @pytest.fixture(autouse=True)
@@ -178,11 +184,33 @@ class TestHopperOpsRaise:
     def test_a_hopper_oom_replans_on_hopper(self, monkeypatch):
         monkeypatch.setattr(K, "gram", failing(
             K.gram, RuntimeError("CUDA error: out of memory")))
-        p = plan(WIDE, "float32", TuckerConfig(
-            ranks=WIDE_RANKS, methods="eig", impl="hopper"), device="cpu")
-        res = p.execute(lowrank(WIDE, WIDE_RANKS, seed=9))
+        p = plan(HOPPER_WIDE, "float32", TuckerConfig(
+            ranks=HOPPER_WIDE_RANKS, methods="eig", impl="hopper"),
+            device="cpu")
+        res = p.execute(lowrank(HOPPER_WIDE, HOPPER_WIDE_RANKS, seed=9))
         assert fallback_hops() == {("replan_cap", "hopper"): 1}
         assert {t.backend for t in res.trace} == {"hopper"}
+
+    def test_a_hopper_oom_without_a_replan_raises_the_resource_error(
+            self, monkeypatch):
+        """WIDE on hopper: no schedule fits 0.75 × its hopper peak (every
+        step holds eigh's workspace, and every later one the input), so the
+        rung is not taken and the classified error is raised; matfree
+        plans of the same tensor still replan."""
+        oom = RuntimeError("CUDA error: out of memory")
+        monkeypatch.setattr(K, "gram", failing(K.gram, oom))
+        p = plan(WIDE, "float32", TuckerConfig(
+            ranks=WIDE_RANKS, methods="eig", impl="hopper"), device="cpu")
+        with pytest.raises(MemoryCapError):
+            plan(WIDE, "float32", TuckerConfig(
+                ranks=WIDE_RANKS, methods="eig", impl="hopper",
+                mode_order="opt",
+                memory_cap_bytes=int(0.75 * p.capped_peak_bytes)),
+                device="cpu")
+        with pytest.raises(ResourceError) as e:
+            p.execute(lowrank(WIDE, WIDE_RANKS, seed=9))
+        assert e.value.__cause__ is oom
+        assert fallback_hops() == {}
 
 
 class TestNeverHops:
