@@ -52,7 +52,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
             execute), and one more execute runs under torch.profiler for
             the device's busy time, idle share, top kernels and the
             tensor-core Gram's device time (hsi_eig must run it) and the
-            first-mode GEMM's by route.
+            first-mode GEMM's by route.  These executes replay the plans'
+            captured sweeps (the first one captures them).
+4b. graphs the cached sweep captured into CUDA graphs on main's inputs
+            (hsi's, and boats' made again from the same seed): boats, hsi
+            and hsi_eig on hopper and boats on matfree, each from a clear
+            sweep cache.  The eager sweep (``TuckerPlan._run``) runs once
+            under ``torch.cuda.set_sync_debug_mode("warn")`` to list its
+            sync points; then 5 executes (builds 1, hits 4, one trace a
+            captured segment), the captured result bitwise equal to the
+            eager one, the kernels' launches (and TTT/GEMM routes) on one
+            replay equal to one eager sweep's, eager and captured ms (3
+            warm runs each, in turns), device busy ms, idle share and host
+            launches (a graph replay counts once) of each, the segments,
+            the graphs' pool bytes and the static input's bytes.  Then
+            ``obs``: hsi planned and executed from a clear cache inside one
+            ``obs.capture()`` and one ``MemoryWatch`` writes a Chrome trace
+            to ``chiprun_out/graphs_hsi_trace.json`` holding the plan,
+            execute, cache, capture (one a segment) and compile events, and
+            the watch's high water is at least the eager sweep's peak; and
+            ``chaos``: a ``sweep_out`` poison on boats takes the
+            ``als_to_eig`` hop on hopper, counted once in the registry.
 5. adaptive the adaptive path at full size with ``impl="auto"`` (every plan
             must resolve to ``hopper``), each case also on ``matfree`` and
             timed on both (host clock, median of 3 warm runs), the launch
@@ -70,6 +90,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
                        ``error_target=0.03`` (sketch widths 16 -> 32 -> 64,
                        then the eig/als refinement): the same checks, and
                        the TTT ran its tensor-core route with y ≠ x;
+            (Capped plans run their sweep eagerly: checked.)
             opt_cap    Boats under ``mode_order="opt"`` and a memory cap of
                        0.8 x the free plan's largest step peak, or the least
                        cap the search admits when that is infeasible: every
@@ -104,7 +125,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
             reported beside it).  Prints
             prefill ms by prompt length, decode ms per step, tokens/s, peak
             memory, and the idle share and top kernels of one profiled
-            decode step.
+            decode step.  The decode step is a CUDA graph captured when the
+            engine is made; the same 6 requests then run on an engine whose
+            decode step runs eagerly: every token identical, 64 S6 launches
+            a step there too, decode ms and decode tokens/s of both.
 7. kernels  one JSON line listing every kernel with its numbers (the TTT
             row carries the Gram's under "gram" and the range sample's under
             "sketch", the GEMM row its wide route's under "wide";
@@ -1114,11 +1138,275 @@ def phase_main(torch):
         emit("main", **row)
         results.append(row)
         del res, ref_res
-    data.clear()
-    torch.cuda.empty_cache()
     for k in ("ttt", "matmul", "ttm_interior"):
         require(launched[k] > 0, f"kernel {k} never launched on the main path")
-    return launched
+    # the graphs phase reuses the last input (hsi) and the rows' peaks
+    return launched, data, {r["case"]: r for r in results}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the cached sweep captured into CUDA graphs, against the eager
+# sweep; the obs trace and a chaos hop on the card
+# ---------------------------------------------------------------------------
+
+#: warm runs a case, eager and captured each
+GRAPH_RUNS = 3
+#: host calls that put work on the device, as the profiler names them (a
+#: graph replay is one)
+ENQUEUES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+            "cudaMemcpyAsync", "cudaMemsetAsync", "cudaLaunchCooperative")
+
+
+def profile_enqueues(torch, fn, wall_ms: float) -> dict:
+    """One call of ``fn`` under torch.profiler: device busy ms (summed
+    device events, one stream), the idle share of the unprofiled wall time,
+    the host calls that enqueue device work by name (a graph replay counts
+    once), and the device events seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, n_dev, calls = 0.0, 0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.time_range.elapsed_us()
+            n_dev += 1
+        elif e.name.startswith(ENQUEUES):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return dict(device_busy_ms=busy / 1e3, device_events=n_dev,
+                idle_share=max(0.0, 1.0 - busy / 1e3 / wall_ms),
+                host_launches=sum(calls.values()), host_calls=calls)
+
+
+def sync_points(torch, fn) -> dict:
+    """The calls of ``fn`` that synchronize the host with the card, by
+    source line, from ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    out = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def all_launches(kernels) -> dict:
+    counts = kernels.launch_counts()
+    counts["ttt_routes"] = kernels.ttt_route_counts()
+    counts["matmul_routes"] = kernels.matmul_route_counts()
+    return counts
+
+
+def synced_ms(torch, fn, runs: int = GRAPH_RUNS) -> list[float]:
+    """Host-clock ms of ``runs`` synchronized calls of ``fn``."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def same_tucker(torch, a, b) -> bool:
+    return torch.equal(a.core, b.core) and all(
+        torch.equal(u, v) for u, v in zip(a.factors, b.factors))
+
+
+def graph_case(torch, name, shape, ranks, methods, impl, x) -> dict:
+    """One uncapped plan, eager sweep (``TuckerPlan._run``) against the
+    captured one (``execute``): the eager sweep's sync points, 5 executes
+    from a clear cache (builds 1, hits 4, one trace a segment), the
+    captured result bitwise equal to the eager one, the same kernel
+    launches (and routes) on one replay as on one eager sweep, eager and
+    captured ms, device busy ms, idle share and host launches."""
+    from repro_torch import kernels
+    from repro_torch.core import CACHE_STATS, TuckerConfig, clear_sweep_cache
+    from repro_torch.core import plan
+    clear_sweep_cache()
+    p = plan(shape, "float32", TuckerConfig(
+        ranks=ranks, methods=methods, mode_order="shrink", impl=impl))
+    require(p.captures, f"{name}: an uncapped plan on the card must capture")
+    eager_run = lambda: p._run(x, False)   # noqa: E731 - the eager sweep
+    syncs = sync_points(torch, eager_run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    eager = eager_run().tucker
+    torch.cuda.synchronize()
+    eager_counts = all_launches(kernels)
+    eager_peak = torch.cuda.max_memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    first = p.execute(x).tucker
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(4):
+        got = p.execute(x).tucker
+    stats = dict(CACHE_STATS)
+    segments = p.graph_segments
+    require(stats == {"builds": 1, "hits": 4, "traces": segments},
+            f"{name}: CACHE_STATS after 5 executes {stats}, want builds 1, "
+            f"hits 4, traces {segments}")
+    kernels.reset_launch_counts()
+    got = p.execute(x).tucker
+    torch.cuda.synchronize()
+    replay_counts = all_launches(kernels)
+    require(replay_counts == eager_counts,
+            f"{name}: launches on a replay {replay_counts} != eager "
+            f"{eager_counts}")
+    bitwise = same_tucker(torch, got, eager) and same_tucker(torch, first,
+                                                             eager)
+    require(bitwise, f"{name}: the captured sweep is not bitwise the eager "
+            "one: max |core diff| "
+            f"{float((got.core - eager.core).abs().max())}")
+    gstats = p.graph_stats()
+    require(gstats["segments"] == segments,
+            f"{name}: {gstats['segments']} graphs captured, the plan names "
+            f"{segments}")
+    # in turns (eager, captured, captured, eager), each turn after one
+    # untimed call: 3 timed runs of each
+    eager_ms, graph_ms = [], []
+    for fn, out in ((eager_run, eager_ms), (lambda: p.execute(x), graph_ms),
+                    (lambda: p.execute(x), graph_ms), (eager_run, eager_ms)):
+        fn()
+        out.extend(synced_ms(torch, fn, 1 if out else 2))
+    med_e, med_g = statistics.median(eager_ms), statistics.median(graph_ms)
+    row = dict(case=name, impl=p.backend, methods=list(p.methods),
+               segments=segments, host_ops=gstats["host_ops"],
+               describe=p.describe().splitlines()[2:],
+               sync_points_eager=syncs, cache_stats=stats,
+               bitwise_equal=bitwise, launches=replay_counts,
+               execute_ms_eager=med_e, execute_ms_eager_all=eager_ms,
+               execute_ms_captured=med_g, execute_ms_captured_all=graph_ms,
+               first_execute_ms=build_ms,
+               pool_bytes=gstats["pool_bytes"],
+               static_input_bytes=gstats["input_bytes"],
+               reserved_growth_bytes=torch.cuda.memory_reserved() - reserved0,
+               eager_peak_beyond_input=eager_peak - base,
+               eager_peak_bytes=eager_peak,
+               profile_eager=profile_enqueues(torch, eager_run, med_e),
+               profile_captured=profile_enqueues(
+                   torch, lambda: p.execute(x), med_g))
+    emit("graphs", **row)
+    del eager, first, got
+    return row
+
+
+def graphs_obs_check(torch, x, eager_peak: int, main_peak: int) -> dict:
+    """hsi planned and executed inside one obs.capture() and one
+    MemoryWatch, from a clear cache: the Chrome trace under chiprun_out/
+    holds the plan, execute, cache, capture and compile events, and the
+    watch's high-water mark is at least the eager sweep's peak."""
+    from repro_torch import obs
+    from repro_torch.core import TuckerConfig, clear_sweep_cache, plan
+    from repro_torch.obs.drift import MemoryWatch
+    clear_sweep_cache()
+    shape, ranks = HSI
+    with MemoryWatch() as mw, obs.capture() as buf:
+        p = plan(shape, "float32", TuckerConfig(
+            ranks=ranks, mode_order="shrink", impl="auto"))
+        p.execute(x)
+    out = ROOT / "chiprun_out" / "graphs_hsi_trace.json"
+    out.parent.mkdir(exist_ok=True)
+    doc = obs.write_chrome(buf.events(), out)
+    events = buf.events()
+    spans = {e["name"] for e in obs.iter_spans(events)}
+    kinds = {e["kind"] for e in events}
+    require({"plan", "execute", "capture", "compile"} <= spans
+            and "cache" in kinds,
+            f"obs: the trace holds spans {sorted(spans)}, kinds "
+            f"{sorted(kinds)}")
+    n_capture = sum(e.get("name") == "capture" for e in events)
+    require(n_capture == p.graph_segments,
+            f"obs: {n_capture} capture spans for {p.graph_segments} graphs")
+    require(mw.high_water >= eager_peak,
+            f"obs: MemoryWatch high water {mw.high_water} < the eager "
+            f"sweep's peak {eager_peak}")
+    row = dict(check="obs", trace=str(out.relative_to(ROOT)),
+               trace_events=len(doc["traceEvents"]), spans=sorted(spans),
+               kinds=sorted(kinds), capture_spans=n_capture,
+               memory_high_water=mw.high_water,
+               eager_sweep_peak=eager_peak, main_phase_peak=main_peak)
+    emit("graphs", **row)
+    return row
+
+
+def graphs_chaos_check(torch, x) -> dict:
+    """A sweep_out poison on boats (an all-ALS plan): validate="finite"
+    turns it into a NumericalError, the ladder takes the als_to_eig hop on
+    hopper, and the registry counts it."""
+    from repro_torch import chaos
+    from repro_torch.core import (TuckerConfig, fallback_hops, plan,
+                                  reset_fallback_hops)
+    from repro_torch.core.api import HOPS_METRIC
+    from repro_torch.obs import REGISTRY
+    shape, ranks = BOATS
+    p = plan(shape, "float32", TuckerConfig(ranks=ranks, mode_order="shrink",
+                                            impl="auto"))
+    reset_fallback_hops()
+    chaos.install([chaos.Rule(seam="sweep_out", action="nan", at=0,
+                              times=1)])
+    try:
+        res = p.execute(x, validate="finite")
+    finally:
+        fired = chaos.fired()
+        chaos.reset()
+    torch.cuda.synchronize()
+    hops = fallback_hops()
+    counted = REGISTRY.counter(HOPS_METRIC).value(hop="als_to_eig",
+                                                  backend="hopper")
+    rel = float(res.tucker.rel_error(x))
+    row = dict(check="chaos", plan_methods=list(p.methods),
+               result_methods=list(res.methods), fired=fired,
+               hops={f"{h}/{b}": n for (h, b), n in hops.items()},
+               registry_count=counted, rel_error=rel)
+    emit("graphs", **row)
+    require(set(p.methods) == {"als"}, f"chaos: boats plans {p.methods}")
+    require(hops == {("als_to_eig", "hopper"): 1} and counted == 1,
+            f"chaos: hops {hops}, registry {counted}")
+    require(res.methods == ("eig",) * 3 and math.isfinite(rel)
+            and rel <= 0.02, f"chaos: methods {res.methods}, rel {rel}")
+    reset_fallback_hops()
+    return row
+
+
+def phase_graphs(torch, data, main_rows):
+    """The cached sweep captured into CUDA graphs, on main's inputs (hsi's
+    kept, boats' made again from the same seed): boats, hsi and hsi_eig on
+    hopper and boats on matfree (graph_case); then the obs trace and the
+    chaos hop."""
+    from repro_torch.core import clear_sweep_cache
+    x_hsi = data[HSI[0]]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x_boats = lowrank(torch, *BOATS, gen)       # main's first draw
+    rows = [graph_case(torch, "boats", *BOATS, "auto", "auto", x_boats),
+            graph_case(torch, "hsi", *HSI, "auto", "auto", x_hsi),
+            graph_case(torch, "hsi_eig", *HSI, "eig", "auto", x_hsi),
+            graph_case(torch, "boats_matfree", *BOATS,
+                       main_rows["boats"]["methods"], "matfree", x_boats)]
+    for r in rows[:3]:
+        require(r["impl"] == "hopper", f"{r['case']}: backend {r['impl']}")
+    graphs_obs_check(torch, x_hsi, rows[1]["eager_peak_bytes"],
+                     main_rows["hsi"]["peak_bytes"])
+    graphs_chaos_check(torch, x_boats)
+    clear_sweep_cache()
+    del x_boats
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1329,6 +1617,8 @@ def capped_steps(torch, name, p, x, cap):
     in-step figures beyond the input, the launch counts)."""
     from repro_torch import kernels
     from repro_torch.core.plan import solve_step
+    require(not p.captures, f"{name}: a capped plan must run its sweep "
+            "eagerly (no CUDA graph pool beside its steps)")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -1680,6 +1970,9 @@ def phase_serve(torch):
         profile_decode_step=prof,
         outputs={q.rid: q.output[:8] for q in reqs})
 
+    row["graphs"] = serve_graph_check(torch, bundle, params, reqs, decode_ms,
+                                      decode_tokens, eng, inner_decode)
+
     # the state-carry check: the same full-size model in fp32, the watched
     # request alone on 4 slots (decode at batch 4, the fresh prefill at 1)
     del eng
@@ -1711,6 +2004,67 @@ def phase_serve(torch):
     del eng32, params
     torch.cuda.empty_cache()
     return counts["s6_scan"]
+
+
+def serve_graph_check(torch, bundle, params, reqs, decode_ms, decode_tokens,
+                      eng, replay) -> dict:
+    """The same 6 requests on an engine whose decode step runs eagerly
+    (its ``_eager_decode``, the step it captured): every request's 32
+    tokens identical to the captured engine's, 64 S6 launches a step there
+    too; decode-step ms and decode tokens/s of both, and one profiled step
+    of each (host launches per step, a graph replay counting once)."""
+    from repro_torch import kernels
+    from repro_torch.serve import Request, ServeEngine
+    require(eng.captured, "serve: the engine on the card did not capture "
+            "its decode step")
+    eager = ServeEngine(bundle, params, batch_slots=4, max_len=8320)
+    inner, ms, active = eager._eager_decode, [], []
+
+    def timed(tok, cache, pos):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(tok, cache, pos)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        active.append(sum(r is not None for r in eager.slot_req))
+        return out
+
+    eager._decode = timed
+    again = [Request(prompt=r.prompt, max_new_tokens=MAX_NEW, rid=r.rid,
+                     temperature=r.temperature) for r in reqs]
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        eager.run(again)
+    torch.cuda.synchronize()
+    s6 = kernels.launch_counts()["s6_scan"]
+    same = {r.rid: r.output == q.output for r, q in zip(reqs, again)}
+    steps = len(reqs) + len(ms)
+    tok = torch.zeros((eager.b, 1), dtype=torch.long, device="cuda")
+    pos = torch.from_numpy(eager.pos.copy())
+    med_e, med_g = statistics.median(ms), statistics.median(decode_ms)
+    with torch.no_grad():
+        prof_e = profile_enqueues(torch, lambda: inner(tok, eager.cache, pos),
+                                  med_e)
+        prof_g = profile_enqueues(torch, lambda: replay(tok, eng.cache, pos),
+                                  med_g)
+    row = dict(decode_ms_eager=med_e, decode_ms_eager_all=ms,
+               decode_ms_captured=med_g,
+               decode_tokens_per_s_eager=sum(active) / (sum(ms) / 1e3),
+               decode_tokens_per_s_captured=decode_tokens
+               / (sum(decode_ms) / 1e3),
+               tokens_identical=same, s6_launches_eager=s6,
+               s6_per_step_eager=s6 / steps,
+               graph_launches_per_replay={f"{k}/{rt}": v for (k, rt), v in
+                                          eng._graph_launches.items()},
+               profile_step_eager=prof_e, profile_step_captured=prof_g)
+    emit("graphs", check="serve", **row)
+    require(all(same.values()), f"serve: the eager engine's tokens differ "
+            f"from the captured engine's: {same}")
+    require(s6 == 64 * steps, f"serve: eager S6 launches {s6}, want 64 x "
+            f"{steps}")
+    del eager
+    torch.cuda.empty_cache()
+    return row
 
 
 def watched_row(eng, logits):
@@ -1768,7 +2122,9 @@ def main(argv=None) -> int:
             return 0
         phase_kernels_large(torch)
         full = phase_kernels_full(torch, peaks)
-        launched = phase_main(torch)
+        launched, data, main_rows = phase_main(torch)
+        phase_graphs(torch, data, main_rows)
+        del data
         adaptive = phase_adaptive(torch)
         launched["s6_scan"] = phase_serve(torch)
     except SmokeFailure as e:

@@ -2,8 +2,12 @@
 
 Public API (single-device plans; the sharded path is a later slice):
   TuckerConfig / plan / TuckerPlan / decompose — plan/execute front door
-      (static solver schedules, eager sweeps on the plan's device; fixed
+      (static solver schedules, cached sweeps on the plan's device —
+      captured into CUDA graphs on the card —, batched execution; fixed
       ranks or an error target; the execute-time fallback ladder)
+  clear_sweep_cache / CACHE_STATS — the process-wide sweep cache
+  sthosvd / sthosvd_eig / sthosvd_als / sthosvd_svd, variants.thosvd /
+      variants.hooi — legacy per-call wrappers over plan/execute
   optimize_schedule / optimize_grouping / MemoryCapError — the schedule
       search (mode_order="opt") under a memory cap
   rand_sketch / rand_solve — the randomized solver behind rank-adaptive
@@ -22,9 +26,10 @@ Public API (single-device plans; the sharded path is a later slice):
 # front-door entry point), which shadows the ``plan`` submodule on the
 # package.  ``from repro_torch.core.plan import ...`` still resolves the
 # module (sys.modules), and ``plan_lib`` aliases it for attribute access.
-from . import backend, cost_model, plan as plan_lib, tensor_ops
-from .api import (TuckerConfig, TuckerPlan, decompose, fallback_hops, plan,
-                  reset_fallback_hops, resolve_device)
+from . import backend, cost_model, plan as plan_lib, tensor_ops, variants
+from .api import (CACHE_STATS, TuckerConfig, TuckerPlan, clear_sweep_cache,
+                  decompose, fallback_hops, plan, reset_fallback_hops,
+                  resolve_device)
 from .backend import (
     OpsBackend,
     backend_names,
@@ -42,19 +47,22 @@ from .schedule_opt import (MemoryCapError, ScheduleSearch, optimize_grouping,
 from .selector import Selector, default_selector, extract_features
 from .solvers import (ALS, EIG, RAND, SVD, als_solve, eig_solve, rand_sketch,
                       rand_solve, svd_solve)
-from .sthosvd import SthosvdResult, TuckerTensor
+from .sthosvd import (SthosvdResult, TuckerTensor, sthosvd, sthosvd_als,
+                      sthosvd_eig, sthosvd_svd)
 
 __all__ = [
-    "ALS", "DEFAULT_COST_MODEL", "EIG", "RAND", "SVD",
+    "ALS", "CACHE_STATS", "DEFAULT_COST_MODEL", "EIG", "RAND", "SVD",
     "CancelledError", "CostModel", "DeadlineError", "InputError",
     "MemoryCapError", "ModeStep", "NumericalError", "OpsBackend",
     "ResourceError", "ScheduleSearch", "Selector", "SthosvdResult",
     "TuckerConfig", "TuckerError", "TuckerPlan", "TuckerTensor",
     "als_solve", "backend", "backend_names", "check_finite",
-    "classify_exception", "coerce_exception", "cost_model", "decompose",
+    "classify_exception", "clear_sweep_cache", "coerce_exception",
+    "cost_model", "decompose",
     "default_selector", "eig_solve", "extract_features", "fallback_hops",
     "get_backend", "optimize_grouping", "optimize_schedule", "plan",
     "plan_lib", "rand_sketch", "rand_solve", "register_backend",
     "reset_fallback_hops", "resolve_backend", "resolve_device",
-    "resolve_schedule", "svd_solve", "tensor_ops",
+    "resolve_schedule", "sthosvd", "sthosvd_als", "sthosvd_eig",
+    "sthosvd_svd", "svd_solve", "tensor_ops", "variants",
 ]

@@ -5,11 +5,19 @@ All input-adaptive decisions move to a one-time ``plan`` step:
     cfg  = TuckerConfig(ranks=(10, 10, 5), methods="auto")
     p    = plan(x.shape, "float32", cfg)      # selector runs here, never again
     res  = p.execute(x)                       # runs the frozen schedule
+    ress = p.execute_batch(xs)                # the same sweep, item by item
 
 ``plan`` resolves the per-mode solver schedule, mode order and ops backend
 against the static shapes and freezes them; ``execute`` only runs them.
-Plans are JSON-serializable (``save``/``load``) in the reference's schema,
-so a schedule planned by the JAX package runs here unchanged.
+The sweep is cached process-wide by ``(shape, dtype, schedule+backend,
+variant, als_iters, compute_dtype, batched, device, captured)``
+(``CACHE_STATS``, :func:`clear_sweep_cache`).  On the card a fixed-rank
+plan without ``memory_cap_bytes`` runs its sweep as CUDA graphs captured at
+its first execute (:mod:`repro_torch.core.graphs`), the counterpart of the
+reference's jitted sweep; capped plans (whose cap holds step by step),
+rank-adaptive plans and ``record=True`` run eagerly.  Plans are
+JSON-serializable (``save``/``load``) in the reference's schema, so a
+schedule planned by the JAX package runs here unchanged.
 
 Rank-ADAPTIVE plans trade fixed ranks for an error target:
 
@@ -35,12 +43,16 @@ Devices: entry points run on the card.  ``plan(..., device=None)`` and
 ``TuckerPlan.load(path, device=None)`` mean ``cuda:0`` and raise when CUDA
 is not available — they never drop to the CPU; pass ``device="cpu"`` to
 run there.  ``execute`` copies a numpy array or a tensor on another device
-onto the plan's device.  PyTorch runs eagerly: a plan's sweep is a Python
-loop over the frozen steps (CUDA-graph capture of the sweep is later work).
+onto the plan's device.
 
-The reference's sharded (``mesh``) and mode-parallel paths,
-``execute_batch`` and ``for_shape`` arrive with later slices; asking for
-them raises :class:`NotImplementedError`.
+Every layer reports to :mod:`repro_torch.obs` (``plan``/``execute`` spans,
+cache misses, the first run's ``compile`` span and one ``capture`` span per
+captured graph, each fallback hop as a ``fallback`` event and in the
+``atucker_fallback_hops_total`` counter) and carries the chaos seams of
+:mod:`repro_torch.chaos` (``sweep``, ``sweep_out``, ``sketch``).
+
+The reference's sharded (``mesh``) and mode-parallel paths arrive with a
+later slice; asking for them raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -54,14 +66,19 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from .. import chaos as _chaos
+from ..obs import drift as _drift
+from ..obs import metrics as _metrics
+from ..obs import trace as _obs
+from . import graphs as G
 from . import tensor_ops as T
 from .backend import backend_ops, get_backend, resolve_backend
 from .errors import (CancelledError, DeadlineError, InputError,
                      NumericalError, ResourceError, check_finite,
                      check_result_finite, classify_exception)
-from .plan import (ModeStep, TimedSelector, VARIANTS, project,
-                   resolve_schedule, run_schedule, solve_step, sweep_hooi,
-                   sweep_sthosvd, sweep_thosvd)
+from .plan import (ModeStep, TimedSelector, VARIANTS, observe_solve,
+                   project, resolve_schedule, run_schedule, solve_step,
+                   sweep_hooi, sweep_sthosvd, sweep_thosvd)
 from .solvers import DEFAULT_ALS_ITERS, DEFAULT_OVERSAMPLE, DEFAULT_POWER_ITERS
 from .sthosvd import ModeTrace, SthosvdResult, TuckerTensor
 
@@ -306,6 +323,83 @@ def _as_tensor(x) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Process-wide sweep cache
+# ---------------------------------------------------------------------------
+
+_SWEEP_CACHE: dict[tuple, "_Sweep"] = {}
+
+#: builds = cache entries made; hits = cache reuses; traces = first runs of
+#: an eager entry plus captured CUDA graphs (one per segment of a captured
+#: sweep) — the reference's XLA compilations
+CACHE_STATS = {"builds": 0, "hits": 0, "traces": 0}
+
+
+def clear_sweep_cache() -> None:
+    """Drop every cached sweep (releasing captured graphs, their memory
+    pools and static inputs) and zero :data:`CACHE_STATS`."""
+    _SWEEP_CACHE.clear()
+    CACHE_STATS.update(builds=0, hits=0, traces=0)
+
+
+def _count_trace() -> None:
+    CACHE_STATS["traces"] += 1
+
+
+def _eager_sweep(steps: tuple, cfg: "TuckerConfig", n: int
+                 ) -> Callable[[torch.Tensor], tuple]:
+    """The sweep of a fixed-rank schedule as ``x -> (core, factors)``: the
+    compute-dtype cast, then st-HOSVD, t-HOSVD or HOOI over ``steps``."""
+    cdtype = T.torch_dtype(cfg.compute_dtype) if cfg.compute_dtype else None
+
+    def sweep(x: torch.Tensor):
+        if cdtype is not None:
+            x = x.to(cdtype)
+        if cfg.variant == "sthosvd":
+            return sweep_sthosvd(x, steps, als_iters=cfg.als_iters)
+        if cfg.variant == "thosvd":
+            return sweep_thosvd(x, steps, als_iters=cfg.als_iters)
+        return sweep_hooi(x, steps, als_iters=cfg.als_iters, n_init=n)
+
+    return sweep
+
+
+class _Sweep:
+    """One cache entry: a plan's sweep, eager or captured
+    (:class:`~repro_torch.core.graphs.CapturedSweep`), over one tensor or
+    (``batched``) item by item over a leading axis — the hand kernels are
+    called through ctypes and do not vectorize.  Its first call is spanned
+    as ``compile`` (the reference's first, compiling run); an eager entry
+    counts that call as its trace, a captured one each graph it
+    captures."""
+
+    def __init__(self, p: "TuckerPlan", batched: bool, captured: bool):
+        run = _eager_sweep(p.schedule, p.config, len(p.shape))
+        self.graphs = G.CapturedSweep(run, device=p.device,
+                                      on_capture=_count_trace) \
+            if captured else None
+        self.run = self.graphs or run
+        self.batched = batched
+        self._first = True
+        self._attrs = dict(shape=list(p.shape), dtype=p.dtype,
+                           backend=p.backend, variant=p.config.variant,
+                           batched=batched, captured=captured)
+
+    def __call__(self, x: torch.Tensor):
+        if not self._first:
+            return self._call(x)
+        self._first = False
+        if self.graphs is None:
+            _count_trace()
+        with _obs.span("compile", includes_first_run=True, **self._attrs):
+            return self._call(x)
+
+    def _call(self, x: torch.Tensor):
+        if self.batched:
+            return [self.run(x[b]) for b in range(x.shape[0])]
+        return self.run(x)
+
+
+# ---------------------------------------------------------------------------
 # TuckerPlan
 # ---------------------------------------------------------------------------
 
@@ -397,6 +491,62 @@ class TuckerPlan:
             return self.peak_bytes
         return max(s.peak_bytes for s in self.schedule)
 
+    @property
+    def captures(self) -> bool:
+        """Whether :meth:`execute` runs this plan's sweep as captured CUDA
+        graphs: a fixed-rank plan on CUDA without ``memory_cap_bytes``.  A
+        capped plan runs eagerly, so that its cap holds step by step (the
+        graphs' private pool and static input would sit beside every step).
+        Decided from the plan alone, never from an error."""
+        return (self.device.type == "cuda" and not self.is_adaptive
+                and self.config.memory_cap_bytes is None)
+
+    @property
+    def graph_segments(self) -> int:
+        """CUDA graphs a captured sweep of this plan is cut into: one, plus
+        one after each call that synchronizes with the host (each EIG/RAND
+        step's ``eigh``, each SVD step's ``svd``;
+        :data:`repro_torch.core.graphs.HOST_OPS`)."""
+        return 1 + sum(G.HOST_OPS[s.method] for s in self.schedule)
+
+    def _cache_key(self, batched: bool, captured: bool) -> tuple:
+        # keyed on the RESOLVED per-step backend, not config.impl: two plans
+        # whose "auto" resolved identically share one sweep; a captured and
+        # an eager sweep of one schedule are distinct entries
+        return (self.shape, self.dtype,
+                tuple((s.mode, s.method, s.r_n, s.backend)
+                      for s in self.schedule),
+                self.config.variant, self.config.als_iters,
+                self.config.compute_dtype, batched, str(self.device),
+                captured)
+
+    def _sweep(self, batched: bool = False, eager: bool = False) -> _Sweep:
+        """The cached sweep (``eager=True`` forces the eager one)."""
+        captured = self.captures and not eager
+        key = self._cache_key(batched, captured)
+        fn = _SWEEP_CACHE.get(key)
+        if fn is None:
+            fn = _SWEEP_CACHE[key] = _Sweep(self, batched, captured)
+            CACHE_STATS["builds"] += 1
+            _obs.event("cache", status="miss", shape=list(self.shape),
+                       dtype=self.dtype, backend=self.backend,
+                       variant=self.config.variant, batched=batched,
+                       captured=captured)
+        else:
+            # hits are counted, not published (misses are the informative
+            # events), as in the reference
+            CACHE_STATS["hits"] += 1
+        return fn
+
+    def graph_stats(self) -> dict | None:
+        """The captured sweep's segments, host ops, pool bytes and static
+        input bytes (:meth:`~repro_torch.core.graphs.CapturedSweep.stats`),
+        or None when this plan's sweep is not captured or not built yet."""
+        fn = _SWEEP_CACHE.get(self._cache_key(False, True))
+        if fn is None or fn.graphs is None or fn.graphs.program is None:
+            return None
+        return fn.graphs.stats()
+
     # -- execution -----------------------------------------------------------
     def _place(self, x) -> torch.Tensor:
         x = _as_tensor(x)
@@ -413,26 +563,58 @@ class TuckerPlan:
         """Run the frozen schedule on ``x`` (a tensor or numpy array of the
         plan's shape and dtype, copied onto the plan's device if needed).
 
-        ``record=True`` runs the per-step runner that synchronizes the
-        device after every step, so each ``ModeTrace.seconds`` is real
-        wall-clock.  ``donate`` is accepted for the reference's signature
-        and ignored (the port never donates).  ``validate="finite"`` rejects
-        NaN/Inf inputs with :class:`~repro_torch.core.errors.InputError`
-        naming the offending mode and checks the outputs (raising
+        A fixed-rank plan runs its cached sweep (:meth:`_sweep`): on the
+        card, without ``memory_cap_bytes``, as CUDA graphs captured at the
+        first execute (:attr:`captures`), whose results come back as clones
+        of the graphs' output buffers.  ``record=True`` runs the per-step
+        runner that synchronizes the device after every step, so each
+        ``ModeTrace.seconds`` is real wall-clock (each step a ``solve``
+        span, fed to the drift monitor).  ``donate`` is accepted for the
+        reference's signature and ignored (the port never donates).
+        ``validate="finite"`` rejects NaN/Inf inputs with
+        :class:`~repro_torch.core.errors.InputError` naming the offending
+        mode and checks the outputs (raising
         :class:`~repro_torch.core.errors.NumericalError`, which the ladder
         then gets a chance to recover).
 
         A rank-adaptive plan runs its sketch pass and then the sketch's own
-        result or a fixed-rank refinement (:meth:`_execute_adaptive`).  A
-        fixed-rank plan runs under the fallback ladder
+        result or a fixed-rank refinement (:meth:`_execute_adaptive`), both
+        eagerly.  A fixed-rank plan runs under the fallback ladder
         (:func:`_run_with_fallback`): als→eig on a numerical breakdown, a
         replan under a tighter cap with ``mode_order="opt"`` on an
-        out-of-memory; each rung at most once, each hop counted
-        (:func:`fallback_hops`), and the classified error re-raised when no
-        rung is left.  A kernel that fails on the card raises: no rung
-        drops to ``matfree`` or the CPU.
+        out-of-memory; each rung at most once, each hop an obs ``fallback``
+        event and counted (:func:`fallback_hops`), and the classified error
+        re-raised when no rung is left.  A kernel or a capture that fails on
+        the card raises: no rung drops to ``matfree``, an eager sweep or the
+        CPU.
         """
         del donate
+        return self._traced_execute(x, record=record, validate=validate,
+                                    eager=False)
+
+    __call__ = execute
+
+    def _traced_execute(self, x, *, record: bool, validate: str | None,
+                        eager: bool) -> SthosvdResult:
+        if not _obs.enabled():
+            return self._execute(x, record=record, validate=validate,
+                                 eager=eager)
+        attrs = self.__dict__.get("_obs_attrs")
+        if attrs is None:
+            # static per-plan span attributes, built once: the properties
+            # walk the schedule and would otherwise run on every execute
+            attrs = self.__dict__["_obs_attrs"] = dict(
+                shape=list(self.shape), dtype=self.dtype,
+                backend=self.backend, variant=self.config.variant,
+                adaptive=self.is_adaptive, device=str(self.device),
+                predicted_s=self.total_predicted_s,
+                peak_bytes=self.peak_bytes)
+        with _obs.span("execute", record=record, **attrs):
+            return self._execute(x, record=record, validate=validate,
+                                 eager=eager)
+
+    def _execute(self, x, *, record: bool, validate: str | None,
+                 eager: bool) -> SthosvdResult:
         if validate not in (None, "none", "finite"):
             raise ValueError(
                 f"validate must be None, 'none' or 'finite', got {validate!r}")
@@ -453,7 +635,15 @@ class TuckerPlan:
                 raise
 
         def run(p: "TuckerPlan") -> SthosvdResult:
-            res = p._run(x, record)
+            if record:
+                res = p._run(x, True)
+            else:
+                _chaos.fire("sweep", backend=p.backend)
+                core, factors = p._sweep(eager=eager)(x)
+                if _chaos.active() and _chaos.poison("sweep_out",
+                                                     backend=p.backend):
+                    core = core * float("nan")
+                res = p._result(core, factors, [0.0] * len(p.schedule))
             if validate == "finite":
                 check_result_finite(res.tucker.core, res.tucker.factors,
                                     context=f"{p.config.variant} sweep")
@@ -461,33 +651,30 @@ class TuckerPlan:
 
         return _run_with_fallback(self, run)
 
-    def _run(self, x: torch.Tensor, record: bool) -> SthosvdResult:
-        cfg = self.config
-        if cfg.compute_dtype:
-            x = x.to(T.torch_dtype(cfg.compute_dtype))
-        steps = self.schedule
-        n = len(self.shape)
-        if record:
-            core, factors, seconds = self._run_recorded(x)
-        else:
-            if cfg.variant == "sthosvd":
-                core, factors = sweep_sthosvd(x, steps, als_iters=cfg.als_iters)
-            elif cfg.variant == "thosvd":
-                core, factors = sweep_thosvd(x, steps, als_iters=cfg.als_iters)
-            else:
-                core, factors = sweep_hooi(x, steps, als_iters=cfg.als_iters,
-                                           n_init=n)
-            seconds = [0.0] * len(steps)
+    def _result(self, core, factors, seconds) -> SthosvdResult:
         trace = [ModeTrace(s.mode, s.method, s.i_n, s.r_n, s.j_n, dt,
                            backend=s.backend, predicted_s=s.predicted_s)
-                 for s, dt in zip(steps, seconds)]
+                 for s, dt in zip(self.schedule, seconds)]
         return SthosvdResult(tucker=TuckerTensor(core=core,
                                                  factors=list(factors)),
                              trace=trace, select_overhead_s=0.0)
 
+    def _run(self, x: torch.Tensor, record: bool) -> SthosvdResult:
+        """The uncached runners on a placed ``x``: the per-step recorded
+        runner, or (``record=False``) the eager sweep — what a captured
+        sweep replays, and what an eager cache entry runs."""
+        if record:
+            cfg = self.config
+            if cfg.compute_dtype:
+                x = x.to(T.torch_dtype(cfg.compute_dtype))
+            core, factors, seconds = self._run_recorded(x)
+            return self._result(core, factors, seconds)
+        core, factors = _eager_sweep(self.schedule, self.config,
+                                     len(self.shape))(x)
+        return self._result(core, factors, [0.0] * len(self.schedule))
+
     def _run_recorded(self, x: torch.Tensor):
         """The per-step runner: every mode solve synchronized and timed."""
-        import time as _time
         cfg = self.config
         steps = self.schedule
         n = len(self.shape)
@@ -510,11 +697,13 @@ class TuckerPlan:
         seconds = list(seconds)
         for step in steps[n:]:
             y = project(x, factors, step.backend, skip=step.mode)
-            t0 = _time.perf_counter()
+            wall0, t0 = time.time(), time.perf_counter()
             res = solve_step(y, step, als_iters=cfg.als_iters)
             if res.u.device.type == "cuda":
                 torch.cuda.synchronize(res.u.device)
-            seconds.append(_time.perf_counter() - t0)
+            seconds.append(time.perf_counter() - t0)
+            observe_solve(step, seconds[-1], wall0, x.device.type,
+                          step.backend)
             factors[step.mode] = res.u
         return project(x, factors, steps[0].backend), factors, seconds
 
@@ -583,8 +772,10 @@ class TuckerPlan:
         seconds: list[float] = []
         js: list[int] = []
         missed: list[int] = []
+        platform = x.device.type
         for s in self.schedule:
-            t0 = time.perf_counter()
+            wall0, t0 = time.time(), time.perf_counter()
+            _chaos.fire("sketch", mode=s.mode)
             js.append(y.numel() // y.shape[s.mode])
             width_cap = min(s.i_n, s.rank_grid[-1] + cfg.oversample)
             width = min(width_cap, max(16, 2 * cfg.oversample,
@@ -627,7 +818,18 @@ class TuckerPlan:
             y = z.narrow(s.mode, 0, r).contiguous().to(wdtype)
             if y.device.type == "cuda":
                 torch.cuda.synchronize(y.device)
-            seconds.append(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            seconds.append(dt)
+            # retroactive span (no enter/exit to leak on solver errors):
+            # same shape a live span emits, parented under the execute span
+            _obs.event("span", t=wall0, name="sketch", dur_s=dt,
+                       mode=s.mode, solver="rand", backend=s.backend,
+                       platform=platform, i_n=s.i_n, rank=int(r),
+                       tail_err=tail / total, width=int(width), j_n=js[-1],
+                       predicted_s=s.predicted_s)
+            _drift.MONITOR.observe(platform=platform, backend=s.backend,
+                                   solver="rand", predicted_s=s.predicted_s,
+                                   actual_s=dt, source="execute")
         ranks = tuple(chosen[m] for m in range(len(self.shape)))
         return ranks, tails, factors, y, seconds, js, missed
 
@@ -644,7 +846,9 @@ class TuckerPlan:
         refined trace as ``tail_err``.  A sketch-only plan that missed a
         mode's budget at the cap width takes the rand→eig hop: it refines
         with exact eig solves at the chosen ranks instead of shipping the
-        under-converged sketch, and reports the measured (missed) bound."""
+        under-converged sketch, and reports the measured (missed) bound.
+        Both phases run eagerly: the ranks, and so the refinement's
+        schedule, are chosen per input."""
         cfg = self.config
         ranks, tails, factors, core, seconds, js, missed = \
             self._sketch_pass(x)
@@ -656,7 +860,7 @@ class TuckerPlan:
         if sketch_only and missed:
             hop_methods = "eig"
             sketch_only = False
-            _emit_hop("rand_to_eig", self.backend)
+            _emit_hop(self, "rand_to_eig", modes=[int(mm) for mm in missed])
         if not sketch_only:
             rcfg = replace(cfg, ranks=ranks, error_target=None,
                            rank_grid=None,
@@ -664,7 +868,8 @@ class TuckerPlan:
             if hop_methods is not None:
                 rcfg = replace(rcfg, methods=hop_methods)
             res = plan(self.shape, self.dtype, rcfg,
-                       device=self.device).execute(x, record=record)
+                       device=self.device)._traced_execute(
+                x, record=record, validate=None, eager=True)
             for t in res.trace:
                 t.tail_err = tails[t.mode]
             return SthosvdResult(
@@ -681,12 +886,73 @@ class TuckerPlan:
                                 factors=[factors[mm] for mm in range(n)]),
             trace=trace, select_overhead_s=0.0, error_bound=bound)
 
+    def execute_batch(self, xs, *,
+                      donate: bool | None = None) -> list[SthosvdResult]:
+        """Decompose a fleet of same-shaped tensors (leading batch axis);
+        returns one result per batch element.
+
+        The fleet runs item by item through one cached sweep (the hand
+        kernels are called through ctypes and do not vectorize), keyed
+        apart from :meth:`execute`'s as the reference keys its vmapped
+        program: on the card it is captured once and replayed per item.
+        Rank-adaptive plans run :meth:`execute` per item, since the policy
+        may choose different ranks per tensor.  ``donate`` is accepted for
+        the reference's signature and ignored."""
+        del donate
+        xs = _as_tensor(xs)
+        if tuple(xs.shape[1:]) != self.shape:
+            raise ValueError(f"plan is for batches of shape {self.shape}, "
+                             f"got {tuple(xs.shape)}")
+        if T.dtype_name(xs.dtype) != self.dtype:
+            raise ValueError(f"plan is for dtype {self.dtype}, got "
+                             f"{T.dtype_name(xs.dtype)}")
+        xs = xs.to(self.device).contiguous()
+        if self.is_adaptive:
+            return [self.execute(xs[b]) for b in range(xs.shape[0])]
+        return [self._result(core, factors, [0.0] * len(self.schedule))
+                for core, factors in self._sweep(batched=True)(xs)]
+
+    # -- derivation ----------------------------------------------------------
+    def for_shape(self, shape: Sequence[int], *,
+                  selector: Callable[..., str] | None = None,
+                  keep_methods: bool = False) -> "TuckerPlan":
+        """This plan's config/dtype re-planned at a different ``shape``, on
+        the same device — the plan-reuse hook for shape buckets.
+
+        By default the selector and mode order re-resolve against the new
+        per-mode problem sizes, so the derived plan is indistinguishable
+        from ``plan(shape, self.dtype, self.config)`` (same schedule, same
+        cached sweep).  ``keep_methods=True`` instead pins this plan's
+        resolved per-mode solvers and frozen sweep order onto the new
+        shape: zero selector calls, at the price of solver choices tuned
+        for this plan's shape, not the new one's."""
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != len(self.shape):
+            raise ValueError(
+                f"plan is for an order-{len(self.shape)} tensor; cannot "
+                f"derive an order-{len(shape)} plan (shape {shape})")
+        if shape == self.shape:
+            return self
+        cfg = self.config
+        if keep_methods:
+            order = tuple(s.mode for s in self.schedule[:len(self.shape)])
+            if self.is_adaptive:
+                # the policy IS the method; pin only the sweep order
+                # (config.methods stays the refinement solver choice)
+                cfg = replace(cfg, mode_order=order)
+            else:
+                cfg = replace(cfg, methods=self.methods, mode_order=order)
+        return plan(shape, self.dtype, cfg, selector=selector,
+                    device=self.device)
+
     # -- reporting -----------------------------------------------------------
     def describe(self) -> str:
         """Human-readable plan report (the reference's text): the frozen
         schedule in execution order with modeled cost and peak per step,
         the rank policy of an adaptive plan, plus the totals, donation
-        policy, and memory cap."""
+        policy, and memory cap.  A plan that :attr:`captures` also names
+        each step's CUDA graph segment (a step whose solver synchronizes
+        with the host spans two)."""
         cfg = self.config
         cap = cfg.memory_cap_bytes
         head = (f"error_target={cfg.error_target:g} (rank-adaptive)"
@@ -707,16 +973,28 @@ class TuckerPlan:
                 f"per mode  oversample={cfg.oversample}  "
                 f"power_iters={cfg.power_iters}  "
                 "(steps sized at grid caps; ranks resolve per input)")
+        if self.captures:
+            lines.append(
+                f"  cuda graphs: {self.graph_segments} segment(s); each "
+                "eigh/svd runs eagerly between two")
+        seg = 0
         for k, s in enumerate(self.schedule):
             pred = f"  pred={s.predicted_s * 1e3:.3f}ms" if s.predicted_s \
                 else ""
             pol = (f"  grid={s.rank_grid[0]}..{s.rank_grid[-1]}"
                    f"({len(s.rank_grid)})"
                    if s.rank_grid is not None else "")
+            graph = ""
+            if self.captures:
+                last = seg + G.HOST_OPS[s.method]
+                graph = (f"  graph={seg}" if last == seg
+                         else f"  graphs={seg}-{last}")
+                seg = last
             lines.append(
                 f"  step {k}: mode {s.mode} {s.method:>3s}  "
                 f"I={s.i_n} R={s.r_n} J={s.j_n}  "
-                f"flops={s.flops:.3g}  peak={s.peak_bytes:,}B{pol}{pred}")
+                f"flops={s.flops:.3g}  peak={s.peak_bytes:,}B{pol}{pred}"
+                f"{graph}")
         total_pred = self.total_predicted_s
         lines.append(
             f"  total: flops={self.total_flops:.3g}  "
@@ -883,7 +1161,27 @@ def plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
     with ``donate_input=False`` the plan must also fit with the held input
     beside every later step (:attr:`TuckerPlan.capped_peak_bytes`), as the
     reference's undonated plans must.
+
+    The call is spanned as ``plan`` on the obs bus.
     """
+    if not _obs.enabled():
+        return _plan(shape, dtype, config, selector=selector, device=device)
+    with _obs.span("plan", shape=[int(s) for s in shape],
+                   dtype=T.dtype_name(dtype), impl=config.impl,
+                   variant=config.variant,
+                   mode_order=str(config.mode_order),
+                   adaptive=config.error_target is not None) as sp:
+        p = _plan(shape, dtype, config, selector=selector, device=device)
+        sp.set(backend=p.backend, n_steps=len(p.schedule),
+               methods=list(p.methods), select_s=p.select_seconds,
+               predicted_s=p.total_predicted_s, peak_bytes=p.peak_bytes,
+               device=str(p.device))
+        return p
+
+
+def _plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
+          selector: Callable[..., str] | None = None,
+          device=None) -> TuckerPlan:
     shape = tuple(int(s) for s in shape)
     dtype = T.dtype_name(dtype)
     device = resolve_device(device)
@@ -932,24 +1230,40 @@ def plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
 # Execute-time fallback ladder
 # ---------------------------------------------------------------------------
 
-#: ladder hops taken in this process, by (hop, backend) — ``als_to_eig``,
-#: ``replan_cap`` and the adaptive ``rand_to_eig``.  It stands in for the
-#: reference's ``atucker_fallback_hops_total`` metric until the port's
-#: metrics registry lands.
-_HOPS: dict[tuple[str, str], int] = {}
+#: the metrics-registry counter of the ladder's hops, labeled by hop
+#: (``als_to_eig``, ``replan_cap``, the adaptive ``rand_to_eig``) and backend
+HOPS_METRIC = "atucker_fallback_hops_total"
+
+
+def _hop_counter() -> _metrics.Counter:
+    return _metrics.REGISTRY.counter(
+        HOPS_METRIC, "execute-time fallback ladder hops, by rung")
 
 
 def fallback_hops() -> dict[tuple[str, str], int]:
-    """A copy of the ladder's hop counts, keyed (hop, backend)."""
-    return dict(_HOPS)
+    """The ladder's hop counts in this process, keyed (hop, backend): a view
+    of the registry's ``atucker_fallback_hops_total`` counter."""
+    out = {}
+    for labels, v in _hop_counter().series().items():
+        d = dict(labels)
+        out[(d["hop"], d["backend"])] = int(v)
+    return out
 
 
 def reset_fallback_hops() -> None:
-    _HOPS.clear()
+    """Zero the registry's hop counter."""
+    _hop_counter().clear()
 
 
-def _emit_hop(name: str, backend: str) -> None:
-    _HOPS[(name, backend)] = _HOPS.get((name, backend), 0) + 1
+def _emit_hop(p: TuckerPlan, name: str, err: BaseException | None = None,
+              **fields) -> None:
+    """One ladder hop: an obs ``fallback`` event and a count in the
+    registry (``err`` names the failure that triggered it)."""
+    if err is not None:
+        fields["error"] = type(err).__name__
+    _obs.event("fallback", hop=name, **fields, shape=list(p.shape),
+               backend=p.backend)
+    _hop_counter().inc(hop=name, backend=p.backend)
 
 
 def _replan_safe(p: TuckerPlan, cfg: TuckerConfig) -> TuckerPlan | None:
@@ -1015,7 +1329,7 @@ def _run_with_fallback(p0: TuckerPlan,
                 raise
             name, p2 = hop
             applied.append(name)
-            _emit_hop(name, p.backend)
+            _emit_hop(p, name, terr if terr is not None else e)
             p = p2
 
 

@@ -9,9 +9,12 @@ single dispatch point for all three variants (st-HOSVD shrinks the tensor
 between steps, t-HOSVD solves every mode on the original tensor, HOOI
 refines from an st-HOSVD init).
 
-``run_schedule`` is the per-step runner with real wall-clock per step; the
-``sweep_*`` functions run the same schedules without timing.  PyTorch runs
-eagerly, so both are plain Python loops over the steps.
+``run_schedule`` is the per-step runner with real wall-clock per step (the
+recorded runner: each synchronized step is spanned as ``solve`` on the obs
+bus and fed to the drift monitor, with the ``solve``/``solve_out`` chaos
+seams); the ``sweep_*`` functions run the same schedules without timing,
+and are what a plan's cached sweep runs (captured into CUDA graphs on the
+card, :mod:`repro_torch.core.graphs`).
 
 This slice of the port covers single-device, sequential schedules, with
 the ``mode_order="opt"`` search and ``memory_cap_bytes`` of
@@ -28,6 +31,9 @@ from typing import Callable, Sequence
 
 import torch
 
+from .. import chaos as _chaos
+from ..obs import drift as _drift
+from ..obs import trace as _obs
 from .backend import backend_ops, get_backend
 from .cost_model import als_flops, eig_flops, rand_flops, svd_flops
 from .errors import NumericalError
@@ -551,6 +557,20 @@ def _sync(x: torch.Tensor) -> None:
         torch.cuda.synchronize(x.device)
 
 
+def observe_solve(step: ModeStep, dt: float, wall0: float, platform: str,
+                  backend: str) -> None:
+    """One timed mode solve: a retroactive ``solve`` span on the obs bus
+    (started at unix time ``wall0``, lasting ``dt`` seconds) and a
+    predicted-vs-actual pair for the drift monitor."""
+    _obs.event("span", t=wall0, name="solve", dur_s=dt, mode=step.mode,
+               solver=step.method, backend=backend, platform=platform,
+               rank=step.r_n, i_n=step.i_n, j_n=step.j_n,
+               predicted_s=step.predicted_s)
+    _drift.MONITOR.observe(platform=platform, backend=backend,
+                           solver=step.method, predicted_s=step.predicted_s,
+                           actual_s=dt, source="execute")
+
+
 def run_schedule(x: torch.Tensor, steps: Sequence[ModeStep], *,
                  sequential: bool, als_iters: int = DEFAULT_ALS_ITERS,
                  impl: str | None = None, block_until_ready: bool = False):
@@ -569,10 +589,15 @@ def run_schedule(x: torch.Tensor, steps: Sequence[ModeStep], *,
     y = x
     factors: dict[int, torch.Tensor] = {}
     seconds: list[float] = []
+    platform = x.device.type
     for step in steps:
+        wall0 = time.time()
         t0 = time.perf_counter()
+        _chaos.fire("solve", mode=step.mode, method=step.method)
         res = solve_step(y if sequential else x, step, als_iters=als_iters,
                          impl=impl)
+        if _chaos.active() and _chaos.poison("solve_out", mode=step.mode):
+            res = res._replace(u=res.u * float("nan"))
         if block_until_ready:
             _sync(res.y_new)
             dt = time.perf_counter() - t0
@@ -583,6 +608,10 @@ def run_schedule(x: torch.Tensor, steps: Sequence[ModeStep], *,
                 raise NumericalError(
                     f"{step.method} solve on mode {step.mode} produced a "
                     "non-finite factor (numerical breakdown)")
+            # the per-step path is the only place a mode solve has real
+            # wall-clock: span it retroactively (no enter/exit to leak on
+            # solver errors) and feed predicted-vs-actual drift
+            observe_solve(step, dt, wall0, platform, impl or step.backend)
         else:
             dt = time.perf_counter() - t0
         seconds.append(dt)

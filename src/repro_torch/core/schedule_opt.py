@@ -82,17 +82,20 @@ Entry points:
 
 Used by :func:`repro_torch.core.plan.resolve_schedule` when
 ``mode_order="opt"`` / ``memory_cap_bytes`` flow in from ``TuckerConfig``.
-Pure Python; the reference's ``plan.dp_search``/``plan.dp_grouping`` trace
-spans arrive with the port's observability slice.
+Pure Python.  Each search is spanned as ``plan.dp_search`` on the obs bus
+(:mod:`repro_torch.obs`), as in the reference; ``plan.dp_grouping`` comes
+with the mode-parallel groups of the sharded slice.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from itertools import combinations, product
 from typing import Sequence
 
+from ..obs import trace as _obs
 from .cost_model import DEFAULT_COST_MODEL, CostModel
 from .errors import ResourceError
 from .solvers import DEFAULT_ALS_ITERS
@@ -335,6 +338,7 @@ def optimize_schedule(
     message names the cheapest-memory step (or group) that still exceeds it
     at the deepest reachable state (the *binding* step).
     """
+    wall0, t0 = time.time(), time.perf_counter()
     shape = tuple(int(s) for s in shape)
     ranks = tuple(int(r) for r in ranks)
     n = len(shape)
@@ -421,6 +425,11 @@ def optimize_schedule(
         total_cost=best[full][0], calibrated=cm.calibrated,
         n_states=len(best), groups=tuple(groups),
         ranks=tuple(r for rks in rkss for r in rks))
+    _obs.event("span", t=wall0, name="plan.dp_search",
+               dur_s=time.perf_counter() - t0, shape=list(shape),
+               n_states=result.n_states, order=list(result.order),
+               methods=list(result.methods), max_group=max_group,
+               calibrated=result.calibrated, total_cost=result.total_cost)
     return result
 
 

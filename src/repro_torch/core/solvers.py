@@ -21,9 +21,11 @@ Everything but SVD is matricization-free (built on whichever registered
 :mod:`repro_torch.core.backend` supplies TTM/TTT/Gram); ``impl`` names an
 ops backend — ``matfree`` (torch contractions), ``explicit`` (unfold-based
 baseline for the Fig. 8 comparison), ``hopper`` (hand-written CUDA kernels),
-or any custom-registered name.  PyTorch runs eagerly: there is no jit, and
-randomness comes from an explicit ``torch.Generator`` on the tensor's
-device.
+or any custom-registered name.  Randomness comes from an explicit
+``torch.Generator`` on the tensor's device.  The dense factorizations that
+check their result on the host (``eigh``, ``svd``) and the seeded draws go
+through :mod:`repro_torch.core.graphs`, so that a sweep captured into CUDA
+graphs runs them between its graphs.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import graphs as G
 from . import tensor_ops as T
 from .backend import backend_ops, get_backend
 
@@ -55,7 +58,7 @@ def eig_solve(y: torch.Tensor, mode: int, rank: int, *,
               impl: str = "matfree") -> SolveResult:
     ttm, gram, _ = backend_ops(impl)
     s = gram(y, mode)                                   # (I_n, I_n), fp32+ accum
-    _, vecs = torch.linalg.eigh(s.to(_accum(s.dtype)))  # ascending, like jnp
+    _, vecs = G.eigh(s.to(_accum(s.dtype)))             # ascending, like jnp
     u = vecs[:, -rank:].flip(1).to(y.dtype)             # leading R_n eigvecs
     y_new = ttm(y, u.T, mode)                           # core update
     return SolveResult(u, y_new)
@@ -83,9 +86,8 @@ def als_solve(y: torch.Tensor, mode: int, rank: int, *,
     # plan.py assumes exactly this); fp32/fp64 keep their own precision
     cdtype = _accum(y.dtype)
     if l0 is None:
-        gen = torch.Generator(device=y.device).manual_seed(seed)
-        l0 = torch.randn((i_n, rank), generator=gen, device=y.device,
-                         dtype=cdtype)
+        l0 = G.seeded_randn((i_n, rank), seed=seed, dtype=cdtype,
+                            device=y.device)
     elif tuple(l0.shape) != (i_n, rank):
         raise ValueError(f"als_solve: l0 must be {(i_n, rank)}, got "
                          f"{tuple(l0.shape)}")
@@ -165,7 +167,7 @@ def svd_solve(y: torch.Tensor, mode: int, rank: int, *,
     """
     get_backend(impl)  # reject unknown backends; ops themselves unused
     y2 = T.unfold(y, mode)
-    u, s, vh = torch.linalg.svd(y2.to(_accum(y.dtype)), full_matrices=False)
+    u, s, vh = G.svd(y2.to(_accum(y.dtype)))
     u = u[:, :rank]
     core2 = s[:rank, None] * vh[:rank]                  # Σ V^T
     out_shape = tuple(y.shape[:mode]) + (rank,) + tuple(y.shape[mode + 1:])
@@ -258,9 +260,8 @@ def _sketch(yc: torch.Tensor, mode: int, width: int, power_iters: int,
     cdtype = yc.dtype
     w_shape = tuple(yc.shape[:mode]) + (width,) + tuple(yc.shape[mode + 1:])
     if omega is None:
-        gen = torch.Generator(device=yc.device).manual_seed(seed)
-        omega = torch.randn(w_shape, generator=gen, device=yc.device,
-                            dtype=cdtype)
+        omega = G.seeded_randn(w_shape, seed=seed, dtype=cdtype,
+                               device=yc.device)
     elif tuple(omega.shape) != w_shape:
         raise ValueError(f"rand_sketch: omega must be {w_shape}, got "
                          f"{tuple(omega.shape)}")
@@ -271,7 +272,7 @@ def _sketch(yc: torch.Tensor, mode: int, width: int, power_iters: int,
         q = _orthonormal(ttt(yc, b, mode), cdtype)       # expand: Y Yᵀ Q
     b = ttm(yc, q.T, mode)
     gb = gram(b, mode)                                   # (ℓ, ℓ) sketched Gram
-    evals, vecs = torch.linalg.eigh(gb.double())
+    evals, vecs = G.eigh(gb.double())
     return q, b, evals.to(cdtype), vecs.to(cdtype)
 
 

@@ -1,18 +1,29 @@
-"""Results of a Tucker decomposition: the tensor, per-mode trace, result.
+"""Mode-wise flexible st-HOSVD (a-Tucker Alg. 2): results and the legacy
+per-call entry points.
 
-The reference's legacy per-call entry points (``sthosvd`` & friends) are
-not ported: the port's front door is :mod:`repro_torch.core.api`
-(``plan`` → ``TuckerPlan.execute``), which returns these records.
+``sthosvd`` and the coarse-grained baselines ``sthosvd_eig`` /
+``sthosvd_als`` / ``sthosvd_svd`` are the reference's legacy entry points,
+kept as thin wrappers over the plan/execute front door
+(:mod:`repro_torch.core.api`): each call plans (selector time reported as
+``select_overhead_s``) and executes.  For repeated or batched execution use
+``plan`` once and ``TuckerPlan.execute`` / ``execute_batch``.
+
+``methods`` accepts:
+  - "auto"              → adaptive selector (decision tree, cost-model fallback)
+  - "eig"/"als"/"svd"   → coarse-grained single solver (paper baselines)
+  - sequence per mode   → explicit mode-wise schedule, e.g. ("eig","als","als")
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from typing import Callable, Sequence
 
 import torch
 
 from . import tensor_ops as T
+from .solvers import ALS, DEFAULT_ALS_ITERS, EIG, SVD
 
 
 @dataclass
@@ -112,3 +123,73 @@ class SthosvdResult:
             total += f" {total_p:>10.4f} {total_s - total_p:>+8.4f}"
         lines.append(total)
         return "\n".join(lines)
+
+
+def legacy_plan(x, ranks, *, device=None, **cfg):
+    """``(plan, x)`` of a legacy call: ``x`` as a tensor, planned for its
+    shape and dtype on ``device`` — None means the device of a CUDA ``x``,
+    else ``cuda:0`` (raising without CUDA), as in
+    :func:`repro_torch.core.api.decompose`.  ``selector`` rides in ``cfg``
+    to :func:`~repro_torch.core.api.plan`, the rest builds the config.
+    With ``methods="auto"`` and no selector, the legacy calls select with
+    the platform's pooled model, as the reference's do (``plan`` prefers a
+    model trained for the resolved backend)."""
+    from .api import TuckerConfig, _as_tensor, plan, resolve_device
+    x = _as_tensor(x)
+    if device is None and x.device.type == "cuda":
+        device = x.device
+    device = resolve_device(device)
+    selector = cfg.pop("selector", None)
+    if selector is None and cfg.get("methods", "auto") == "auto":
+        from .selector import default_selector
+        selector = default_selector(device.type)
+    p = plan(x.shape, x.dtype, TuckerConfig(ranks=tuple(ranks), **cfg),
+             selector=selector, device=device)
+    return p, x
+
+
+def sthosvd(
+    x,
+    ranks: Sequence[int],
+    methods: str | Sequence[str] = "auto",
+    *,
+    selector: Callable[..., str] | None = None,
+    mode_order: Sequence[int] | str | None = None,
+    als_iters: int = DEFAULT_ALS_ITERS,
+    impl: str = "matfree",
+    memory_cap_bytes: int | None = None,
+    block_until_ready: bool = False,
+    device=None,
+) -> SthosvdResult:
+    """Flexible st-HOSVD (Alg. 2).  Returns factors, core, per-mode trace.
+
+    ``mode_order`` defaults to the paper's 1..N sweep; ``"shrink"`` orders
+    by compression ratio and ``"opt"`` runs the exact schedule search
+    (order AND per-step solver, under ``memory_cap_bytes`` when set).
+    ``memory_cap_bytes`` is the hard plan-time ceiling on each step's
+    modeled peak working set.  ``impl`` names an ops backend (``matfree`` |
+    ``explicit`` | ``hopper`` | custom) or ``"auto"``.
+    ``block_until_ready=True`` runs the recorded per-step runner, so the
+    trace's seconds are real; otherwise the plan's cached sweep runs.
+    ``device`` as in :func:`legacy_plan`."""
+    p, x = legacy_plan(x, ranks, device=device, methods=methods,
+                       selector=selector, mode_order=mode_order,
+                       als_iters=als_iters, impl=impl,
+                       memory_cap_bytes=memory_cap_bytes)
+    res = p.execute(x, record=block_until_ready)
+    res.select_overhead_s = p.select_seconds
+    return res
+
+
+# Coarse-grained baselines (paper Sec. VI) -----------------------------------
+
+def sthosvd_eig(x, ranks, **kw) -> SthosvdResult:
+    return sthosvd(x, ranks, methods=EIG, **kw)
+
+
+def sthosvd_als(x, ranks, **kw) -> SthosvdResult:
+    return sthosvd(x, ranks, methods=ALS, **kw)
+
+
+def sthosvd_svd(x, ranks, **kw) -> SthosvdResult:
+    return sthosvd(x, ranks, methods=SVD, **kw)

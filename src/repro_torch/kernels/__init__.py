@@ -58,7 +58,41 @@ def reset_launch_counts() -> None:
         _module(k).ROUTE_LAUNCHES.clear()
 
 
-__all__ = ["KERNEL_MODULES", "launch_counts", "matmul", "matmul_route_counts",
-           "ops", "ref",
-           "reset_launch_counts", "s6_scan", "ttm_interior", "ttt3",
-           "ttt_route_counts"]
+def launch_snapshot() -> dict:
+    """Every launch counter at this moment, keyed (kernel, None) for the
+    kernels' counts and (kernel, route) for the routes'."""
+    out = {(k, None): _module(k).LAUNCHES for k in KERNEL_MODULES}
+    for k in ("ttt", "matmul"):
+        out.update(((k, rt), v) for rt, v in _module(k).ROUTE_LAUNCHES.items())
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    """The launches counted since ``before`` (a :func:`launch_snapshot`),
+    the counters that did not move left out."""
+    now = launch_snapshot()
+    return {key: v - before.get(key, 0) for key, v in now.items()
+            if v != before.get(key, 0)}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``times`` × ``delta`` (as :func:`launches_since` gives it) to the
+    counters: a CUDA graph's replay adds the launches it recorded, and the
+    ticks a wrapper made while being recorded are taken back (``times`` =
+    -1), since a capture launches nothing."""
+    for (k, rt), v in delta.items():
+        m = _module(k)
+        if rt is None:
+            m.LAUNCHES += v * times
+            continue
+        n = m.ROUTE_LAUNCHES.get(rt, 0) + v * times
+        if n:
+            m.ROUTE_LAUNCHES[rt] = n
+        else:
+            m.ROUTE_LAUNCHES.pop(rt, None)
+
+
+__all__ = ["KERNEL_MODULES", "add_launches", "launch_counts",
+           "launch_snapshot", "launches_since", "matmul",
+           "matmul_route_counts", "ops", "ref", "reset_launch_counts",
+           "s6_scan", "ttm_interior", "ttt3", "ttt_route_counts"]

@@ -4,9 +4,13 @@ The port of ``repro/serve/engine.py``'s ``ServeEngine``.  Requests are
 admitted into fixed batch slots; each slot tracks its own position;
 finished slots (EOS, max_new_tokens or max_len) are refilled from the queue
 without stopping the batch.  The decode step always runs every slot
-(inactive slots decode a dummy token whose result is dropped).  Prefill
-runs per request, on the slot's stripe of the batched cache, and the
-stripe is copied back.
+(inactive slots decode a dummy token whose result is dropped), at one
+fixed ``(batch_slots, 1)`` shape: on the card it is captured once into a
+CUDA graph (the reference jits it) that reads static token and position
+buffers and writes the new conv/SSM state back into the engine's cache
+tensors, so one replay is one whole step.  Prefill runs eagerly per
+request (its length varies), on the slot's stripe of the batched cache,
+and the stripe is copied back; sampling stays outside the graph.
 
 One deliberate difference: an admitted request's prefill starts from a
 zeroed stripe.  The reference prefills from whatever the slot's previous
@@ -14,8 +18,8 @@ occupant (and the dummy decodes since) left there, so for a state-space
 model a refilled slot continues the old request's state; see
 ``ROADMAP.md`` Queue 3.
 
-``TuckerBatchEngine`` waits for the serve slice (``ROADMAP.md`` Queue 1
-item 9).
+``TuckerBatchEngine``, the Tucker serving counterpart, comes with the
+Tucker serve service (``ROADMAP.md`` Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import kernels
 from ..models.registry import ModelBundle
 
 
@@ -42,7 +47,13 @@ class ServeEngine:
     """Serves ``requests`` on ``batch_slots`` slots with ``params`` (an
     ``LM`` built by ``bundle``), on the device the parameters live on.
     Sampling above temperature 0 draws from a ``torch.Generator`` on that
-    device seeded with ``seed``."""
+    device seeded with ``seed``.
+
+    On CUDA the decode step is captured when the engine is made (one
+    warm-up decode that leaves the cache as it is, then the capture); on
+    the CPU it runs eagerly.  ``_decode(tok, cache, pos) -> (logits,
+    cache)`` is the step ``run`` calls either way; ``_eager_decode`` is the
+    uncaptured step."""
 
     def __init__(self, bundle: ModelBundle, params, *, batch_slots: int = 4,
                  max_len: int = 256, eos_id: int | None = None, seed: int = 0):
@@ -54,10 +65,57 @@ class ServeEngine:
         self.cache = bundle.init_cache(batch_slots, max_len, device=self.device)
         self.pos = np.zeros(batch_slots, np.int64)
         self.slot_req: list[Request | None] = [None] * batch_slots
-        self._decode = lambda tok, cache, pos: bundle.decode(params, tok,
-                                                             cache, pos)
+        self._eager_decode = lambda tok, cache, pos: bundle.decode(
+            params, tok, cache, pos)
         self._prefill = lambda tokens, cache: bundle.prefill(
             params, {"tokens": tokens}, cache)
+        self.captured = self.device.type == "cuda"
+        self._decode = self._capture_decode() if self.captured \
+            else self._eager_decode
+
+    @torch.no_grad()
+    def _capture_decode(self):
+        """The decode step captured into a CUDA graph at ``(batch_slots,
+        1)``: it reads static token and position buffers and the cache
+        tensors, and writes the new state back into the cache tensors with
+        ``copy_``.  Returns the replaying ``_decode``: it fills the static
+        buffers from its arguments (outside the graph), replays, and
+        returns the static logits (valid until the next replay) and the
+        cache.  The S6 wrapper's ticks during capture are taken back and
+        each replay adds them, so the launch counts stay true."""
+        dev, cache = self.device, self.cache
+        tok = torch.zeros((self.b, 1), dtype=torch.long, device=dev)
+        pos = torch.zeros(self.b, dtype=torch.long, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            self._eager_decode(tok, cache, pos)   # warm-up; state untouched
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.launch_snapshot()
+        with torch.cuda.device(dev), torch.cuda.graph(graph):
+            logits, new = self._eager_decode(tok, cache, pos)
+            for k, v in cache.items():
+                v.copy_(new[k])
+        launches = kernels.launches_since(before)
+        kernels.add_launches(launches, -1)     # the capture launched nothing
+        del new
+
+        def replay(tok_in, cache_in, pos_in):
+            # no reference to self: an engine in a reference cycle would
+            # be freed by the cyclic collector, which may run during a
+            # later capture and so invalidate it
+            if cache_in is not cache:
+                raise ValueError("the captured decode step reads and writes "
+                                 "the engine's own cache")
+            tok.copy_(tok_in)
+            pos.copy_(pos_in)
+            graph.replay()
+            kernels.add_launches(launches)
+            return logits, cache
+
+        self._graph, self._graph_launches = graph, launches
+        return replay
 
     # -- slot management -----------------------------------------------------
     def _admit(self, req: Request, slot: int):

@@ -316,7 +316,9 @@ class TestDevicesAndErrors:
 
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys; import repro_torch, repro_torch.core, "
-            "repro_torch.kernels; "
+            "repro_torch.kernels, repro_torch.obs, repro_torch.obs.__main__, "
+            "repro_torch.chaos, repro_torch.core.variants, "
+            "repro_torch.core.graphs, repro_torch.serve; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
