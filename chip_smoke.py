@@ -7,7 +7,8 @@ It drives the port's paths -- fixed-rank Tucker ``plan -> execute``, the
 adaptive Tucker path (error targets, the fallback ladder's rand->eig hop,
 the schedule search under a memory cap) and serving falcon-mamba-7b --
 through four hand-written Hopper kernels: TTT/Gram, boundary GEMM,
-interior TTM and the Mamba-1 selective scan (S6).
+interior TTM and the Mamba-1 selective scan (S6); then the tune flywheel
+that trains the solver selector ``methods="auto"`` loads on the card.
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
@@ -53,7 +54,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
             the device's busy time, idle share, top kernels and the
             tensor-core Gram's device time (hsi_eig must run it) and the
             first-mode GEMM's by route.  These executes replay the plans'
-            captured sweeps (the first one captures them).
+            captured sweeps (the first one captures them).  Each case also
+            prints every mode's solver as the shipped cuda model picks it
+            and as the textbook cost model picks it; where they differ,
+            both plans' executes are timed in turns (3 warm runs each) and
+            the textbook plan's rel_error is held to 0.02 too.
 4b. graphs the cached sweep captured into CUDA graphs on main's inputs
             (hsi's, and boats' made again from the same seed): boats, hsi
             and hsi_eig on hopper and boats on matfree, each from a clear
@@ -129,15 +134,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
             engine is made; the same 6 requests then run on an engine whose
             decode step runs eagerly: every token identical, 64 S6 launches
             a step there too, decode ms and decode tokens/s of both.
-7. kernels  one JSON line listing every kernel with its numbers (the TTT
+7. tune     the tune flywheel (``repro_torch.tune``): a training set
+            (seed 0) and a test set (seed 1) of tensors of order 3 and 4,
+            dims log-uniform in [8, 8192], at most 2**29 elements, ranks
+            up to min(64, I_n/2), each mode solved by EIG and ALS on
+            ``hopper`` and ``matfree``, each solve captured into CUDA graphs
+            and replayed (the test set also eagerly); the test set also
+            holds every step of boats' and hsi's plans.  Trees and
+            calibrated cost models are trained into
+            ``chiprun_out/tune/models`` (their meta names the card and its
+            power limit).  Prints per backend the test accuracy and the
+            picked solvers' time over the oracle's for the phase's tree, the
+            shipped tree, the textbook and calibrated cost models,
+            always-EIG and always-ALS; each main step's times and picks;
+            eager/replayed ratios.  Checks: every record finite and > 0;
+            ``recording()`` around one execute of boats and of hsi yields one
+            record a step with the plan's (I_n, R_n, J_n, method, backend);
+            ``default_selector("cuda", "hopper")`` resolves to the shipped
+            ``src/repro_torch/core/models/selector_cuda_hopper.json``.
+8. kernels  one JSON line listing every kernel with its numbers (the TTT
             row carries the Gram's under "gram" and the range sample's under
             "sketch", the GEMM row its wide route's under "wide";
-            ``launches_adaptive`` counts the adaptive phase); then the
+            ``launches_adaptive`` counts the adaptive phase), after a
+            ``run`` line with the whole run's seconds; then the
             ``nvidia-smi`` name/power-limit line; then the final
             ``{"ok": true, "device": ...}`` line.
 
 ``python3 chip_smoke.py --only kernels`` runs phases 1-3 only (the quick
-check after a kernel edit) and prints no kernels line.
+check after a kernel edit) and ``--only tune`` phases 1, 2 and 7 (the
+command that trains the shipped cuda models); neither prints the kernels
+line.
 
 Imports nothing of JAX nor of the JAX package ``repro``.
 """
@@ -1138,10 +1164,42 @@ def phase_main(torch):
         emit("main", **row)
         results.append(row)
         del res, ref_res
+        picks_vs_textbook(torch, name, p, x)
     for k in ("ttt", "matmul", "ttm_interior"):
         require(launched[k] > 0, f"kernel {k} never launched on the main path")
     # the graphs phase reuses the last input (hsi) and the rows' peaks
     return launched, data, {r["case"]: r for r in results}
+
+
+def picks_vs_textbook(torch, name, p, x) -> dict:
+    """Each mode's solver as the shipped model picks it (plan ``p``) and as
+    the textbook cost model picks it (the fallback without a trained
+    model); where they differ, both plans' captured executes timed in turns
+    on ``x`` (shipped, textbook, textbook, shipped: 3 warm runs each) and
+    the textbook plan's rel_error held to 0.02 too."""
+    from repro_torch.core import Selector, default_selector, plan
+    pt = plan(p.shape, p.dtype, p.config,
+              selector=Selector(platform="cuda", backend=p.backend))
+    sel = default_selector("cuda", p.backend)
+    row = dict(case=name, shipped=list(p.methods), textbook=list(pt.methods),
+               selector=dict(tree=sel.tree is not None, backend=sel.backend,
+                             cost_model=sel.cost_model.source,
+                             store_digest=sel.meta.get("store_digest")))
+    if pt.methods != p.methods:
+        ms, mt = [], []
+        for q, out in ((p, ms), (pt, mt), (pt, mt), (p, ms)):
+            q.execute(x)
+            out.extend(synced_ms(torch, lambda: q.execute(x),
+                                 1 if out else 2))
+        rel_t = float(pt.execute(x).tucker.rel_error(x))
+        row.update(execute_ms_shipped=statistics.median(ms),
+                   execute_ms_shipped_all=ms,
+                   execute_ms_textbook=statistics.median(mt),
+                   execute_ms_textbook_all=mt, rel_error_textbook=rel_t)
+        require(math.isfinite(rel_t) and rel_t <= 0.02,
+                f"{name}: the textbook plan's rel_error {rel_t} > 0.02")
+    emit("main_picks", **row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1346,9 +1404,10 @@ def graphs_obs_check(torch, x, eager_peak: int, main_peak: int) -> dict:
 
 
 def graphs_chaos_check(torch, x) -> dict:
-    """A sweep_out poison on boats (an all-ALS plan): validate="finite"
-    turns it into a NumericalError, the ladder takes the als_to_eig hop on
-    hopper, and the registry counts it."""
+    """A sweep_out poison on boats (its auto plan, or the all-ALS plan when
+    that has no ALS step): validate="finite" turns it into a NumericalError,
+    the ladder takes the als_to_eig hop on hopper (every ALS step becomes
+    EIG), and the registry counts it."""
     from repro_torch import chaos
     from repro_torch.core import (TuckerConfig, fallback_hops, plan,
                                   reset_fallback_hops)
@@ -1357,6 +1416,10 @@ def graphs_chaos_check(torch, x) -> dict:
     shape, ranks = BOATS
     p = plan(shape, "float32", TuckerConfig(ranks=ranks, mode_order="shrink",
                                             impl="auto"))
+    if "als" not in p.methods:   # the rung needs an ALS step to replace
+        p = plan(shape, "float32", TuckerConfig(
+            ranks=ranks, methods="als", mode_order="shrink", impl="auto"))
+    want = tuple("eig" if m == "als" else m for m in p.methods)
     reset_fallback_hops()
     chaos.install([chaos.Rule(seam="sweep_out", action="nan", at=0,
                               times=1)])
@@ -1375,11 +1438,11 @@ def graphs_chaos_check(torch, x) -> dict:
                hops={f"{h}/{b}": n for (h, b), n in hops.items()},
                registry_count=counted, rel_error=rel)
     emit("graphs", **row)
-    require(set(p.methods) == {"als"}, f"chaos: boats plans {p.methods}")
     require(hops == {("als_to_eig", "hopper"): 1} and counted == 1,
             f"chaos: hops {hops}, registry {counted}")
-    require(res.methods == ("eig",) * 3 and math.isfinite(rel)
-            and rel <= 0.02, f"chaos: methods {res.methods}, rel {rel}")
+    require(res.methods == want and math.isfinite(rel)
+            and rel <= 0.02, f"chaos: methods {res.methods} (want {want}), "
+            f"rel {rel}")
     reset_fallback_hops()
     return row
 
@@ -1532,7 +1595,6 @@ def adaptive_case(torch, name, x, cfg_kw, want_ranks, launched,
     from repro_torch.core import (TuckerConfig, fallback_hops, plan,
                                   reset_fallback_hops)
     p = plan(x.shape, "float32", TuckerConfig(impl="auto", **cfg_kw))
-    pm = plan(x.shape, "float32", TuckerConfig(impl="matfree", **cfg_kw))
     require(p.backend == "hopper",
             f"{name}: impl='auto' resolved to {p.backend!r}, not 'hopper'")
     torch.cuda.synchronize()
@@ -1547,6 +1609,12 @@ def adaptive_case(torch, name, x, cfg_kw, want_ranks, launched,
     peak = torch.cuda.max_memory_allocated()
     for k, v in counts.items():
         launched[k] += v
+    # matfree refines with the solvers hopper's refinement picked (each
+    # backend's model picks for itself)
+    kw_m = dict(cfg_kw)
+    if cfg_kw.get("methods") != "rand":
+        kw_m["methods"] = res.methods
+    pm = plan(x.shape, "float32", TuckerConfig(impl="matfree", **kw_m))
     res_m = pm.execute(x)
     gaps = [projector_gap(torch, a, b) for a, b in
             zip(res.tucker.factors, res_m.tucker.factors)]
@@ -1739,7 +1807,12 @@ def opt_cap_case(torch, gen, launched):
         p, cap_rule = capped(cap), "the least cap the search admits"
     else:
         infeasible = None
-    pm = capped(cap, "matfree")
+    # matfree runs the order and solvers hopper's search chose (each
+    # backend's cost model searches for itself)
+    pm = plan(shape, "float32", TuckerConfig(
+        ranks=ranks, methods=p.methods,
+        mode_order=tuple(s.mode for s in p.schedule),
+        memory_cap_bytes=cap, impl="matfree"))
     require(p.backend == "hopper",
             f"opt_cap: impl='auto' resolved to {p.backend!r}, not 'hopper'")
     require(all(s.peak_bytes <= cap for s in p.schedule),
@@ -2093,14 +2166,258 @@ def carry_stats(torch, bundle, params, req, dec) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the tune flywheel -- collect, train and calibrate on the card
+# ---------------------------------------------------------------------------
+
+#: the sampling grid of the shipped cuda models: tensors of order 3 and 4,
+#: dims log-uniform in [8, 8192], at most 2**29 elements (Boats' 537.6 M),
+#: ranks log-uniform up to min(64, I_n/2), both backends, best of 2
+TUNE_GRID = dict(dim_range=(8, 8192), orders=(3, 4), max_elements=1 << 29,
+                 max_rank=64, backends=("hopper", "matfree"), reps=2)
+#: (seed, tensors) of the training set and of the test set (which also
+#: holds the main path's steps)
+TUNE_TRAIN = (0, 128)
+TUNE_TEST = (1, 40)
+TUNE_OUT = ROOT / "chiprun_out" / "tune"
+SHIPPED_MODELS = SRC / "repro_torch" / "core" / "models"
+CUDA_MODEL_FILES = {"selector_cuda.json", "selector_cuda_hopper.json",
+                    "selector_cuda_matfree.json", "cost_cuda_hopper.json",
+                    "cost_cuda_matfree.json"}
+
+
+def main_steps():
+    """(case, step, the shape of the tensor the step solves) of boats' and
+    hsi's plans as the main phase makes them (``mode_order="shrink"``)."""
+    from repro_torch.core import TuckerConfig, plan
+    out = []
+    for name, (shape, ranks) in (("boats", BOATS), ("hsi", HSI)):
+        p = plan(shape, "float32", TuckerConfig(
+            ranks=ranks, mode_order="shrink", impl="auto"))
+        cur = list(shape)
+        for s in p.schedule:
+            out.append((name, s, tuple(cur), ranks))
+            cur[s.mode] = s.r_n
+    return out
+
+
+def tune_pickers(backend: str, trained: Path) -> dict:
+    """The solver pickers the tune phase scores: the phase's trained tree,
+    the shipped tree, the textbook and the calibrated cost models, and the
+    two constant picks; each ``(i, r, j) -> "eig" | "als"`` (None when its
+    file is missing)."""
+    from repro_torch.core import DEFAULT_COST_MODEL, CostModel, Selector
+
+    def tree(d: Path):
+        for stem in (f"selector_cuda_{backend}", "selector_cuda"):
+            if (d / f"{stem}.json").exists():
+                sel = Selector.load(d / f"{stem}.json")
+                return lambda i, r, j: sel(i_n=i, r_n=r, j_n=j)
+        return None
+
+    cost = trained / f"cost_cuda_{backend}.json"
+    cal = CostModel.from_dict(json.loads(cost.read_text())) \
+        if cost.exists() else None
+    return {"trained_tree": tree(trained),
+            "shipped_tree": tree(SHIPPED_MODELS),
+            "textbook": lambda i, r, j: DEFAULT_COST_MODEL.predicted_best(
+                i, r, j),
+            "calibrated": None if cal is None else
+            (lambda i, r, j: cal.predicted_best(i, r, j)),
+            "always_eig": lambda i, r, j: "eig",
+            "always_als": lambda i, r, j: "als"}
+
+
+def tune_scores(pickers: dict, recs) -> dict:
+    """Each picker on the labeled examples of ``recs``: its accuracy and
+    the sum of the times of the solvers it picks over the oracle's (the
+    faster of the two at every point)."""
+    import numpy as np
+    from repro_torch.tune import labeled_examples
+    feats, labels, times = labeled_examples(recs)
+    oracle = float(times.min(1).sum())
+    out = dict(examples=int(len(labels)), als_share=float(labels.mean()),
+               oracle_s=oracle)
+    for name, pick in pickers.items():
+        if pick is None:
+            out[name] = None
+            continue
+        k = np.array([0 if pick(int(i), int(r), int(j)) == "eig" else 1
+                      for i, r, j in feats[:, :3]])
+        out[name] = dict(
+            accuracy=float((k == labels).mean()),
+            time_over_oracle=float(times[np.arange(len(k)), k].sum())
+            / oracle)
+    return out
+
+
+def phase_tune(torch, smi: str) -> dict:
+    """The tune flywheel on the card: a training set (seed 0) and a test
+    set (seed 1, plus every step of boats' and hsi's plans with both
+    solvers) collected at TUNE_GRID on ``hopper`` and ``matfree``, each
+    solve captured into CUDA graphs and replayed (the test set also times
+    it eagerly); then the stratified trees and calibrated cost models are
+    trained into chiprun_out/tune/models.  Prints, per backend, the test
+    accuracy and the time over the oracle of the trained tree, the shipped
+    tree, the textbook and calibrated cost models, always-EIG and
+    always-ALS; each main step's times and picks; eager/replayed ratios.
+    Checks: every record finite and > 0; ``recording()`` around one
+    execute of boats and of hsi yields one record a step with the plan's
+    (I_n, R_n, J_n, method, backend); ``default_selector("cuda",
+    "hopper")`` resolves to the shipped file."""
+    import gc
+    import shutil
+
+    from repro_torch.core import TuckerConfig, plan
+    from repro_torch.core.selector import (clear_selector_cache,
+                                           default_selector)
+    from repro_torch.tune import (RecordStore, calibrate_store, recording,
+                                  train_stratified)
+    from repro_torch.tune.collect import collect, measure
+    from repro_torch.tune.records import device_fingerprint
+    t_phase = time.perf_counter()
+    # every captured solve runs gc.collect() before its capture
+    # (core/graphs.py): freeze what the earlier phases left alive, so that
+    # those collections scan only the phase's own objects
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_collect_s = time.perf_counter() - t0
+    gc.freeze()
+    frozen = gc.get_freeze_count()
+    shutil.rmtree(TUNE_OUT, ignore_errors=True)
+    models = TUNE_OUT / "models"
+    train, test = (RecordStore(TUNE_OUT / f"{s}.jsonl")
+                   for s in ("train", "test"))
+    t0 = time.perf_counter()
+    train.append(collect(TUNE_TRAIN[1], seed=TUNE_TRAIN[0], device="cuda",
+                         **TUNE_GRID))
+    collect_train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eager: dict = {}
+    test.append(collect(TUNE_TEST[1], seed=TUNE_TEST[0], device="cuda",
+                        eager=eager, **TUNE_GRID))
+    gen = torch.Generator(device="cuda").manual_seed(TUNE_TEST[0])
+    steps = []
+    for name, s, shp, ranks in main_steps():
+        y = torch.randn(shp, generator=gen, device="cuda")
+        ms = measure(y, ranks, modes=(s.mode,),
+                     backends=TUNE_GRID["backends"], reps=TUNE_GRID["reps"],
+                     eager=eager)
+        del y
+        test.append(ms)
+        steps.append((name, s, ms))
+    torch.cuda.empty_cache()
+    collect_test_s = time.perf_counter() - t0
+    recs = train.load() + test.load()
+    bad = [m.to_dict() for m in recs
+           if not (math.isfinite(m.seconds) and m.seconds > 0)]
+    require(not bad, f"tune: {len(bad)} records not finite and > 0: "
+            f"{bad[:3]}")
+    meta = dict(card=smi, sampling=dict(
+        TUNE_GRID, seed=TUNE_TRAIN[0], n_tensors=TUNE_TRAIN[1],
+        timing="each solve captured into CUDA graphs (cut at eigh) and "
+               "replayed, synchronized, best of reps"))
+    t0 = time.perf_counter()
+    written = train_stratified(train, platform="cuda", model_dir=models,
+                               meta=meta)
+    written.update(calibrate_store(train, platform="cuda", model_dir=models,
+                                   meta=meta))
+    train_s = time.perf_counter() - t0
+    # training cached its trees in-process: resolve the shipped files again
+    clear_selector_cache()
+    require({Path(p).name for p in written} == CUDA_MODEL_FILES,
+            f"tune: wrote {sorted(Path(p).name for p in written)}")
+    emit("tune", step="collect", train_records=len(train),
+         test_records=len(test), train_tensors=TUNE_TRAIN[1],
+         test_tensors=TUNE_TEST[1], grid=TUNE_GRID,
+         collect_train_s=collect_train_s, collect_test_s=collect_test_s,
+         train_s=train_s, store_digest=train.digest(), gc_frozen=frozen,
+         gc_collect_s_before_freeze=gc_collect_s,
+         trees={Path(p).name: {k: info.get(k) for k in (
+             "n_examples", "cv_accuracy", "test_accuracy", "max_depth",
+             "label_balance_als")} for p, info in written.items()
+             if Path(p).name.startswith("selector")})
+    scores = {}
+    for b in TUNE_GRID["backends"]:
+        picks = tune_pickers(b, models)
+        scores[b] = tune_scores(picks, test.filter(backend=b))
+        emit("tune", step="scores", backend=b, **scores[b])
+        for name, s, ms in steps:
+            e, a = (m for m in ms if m.backend == b)
+            emit("tune", step="main_step", backend=b, case=name,
+                 mode=s.mode, i_n=s.i_n, r_n=s.r_n, j_n=s.j_n,
+                 eig_ms=e.seconds * 1e3, als_ms=a.seconds * 1e3,
+                 eig_eager_ms=eager[e.key()] * 1e3,
+                 als_eager_ms=eager[a.key()] * 1e3,
+                 oracle="eig" if e.seconds <= a.seconds else "als",
+                 **{k: (None if f is None else f(s.i_n, s.r_n, s.j_n))
+                    for k, f in picks.items() if not k.startswith("always")})
+    # eager/replayed of the same solve at a few points of the test set
+    pts = sorted((m for m in test if m.source == "collect"),
+                 key=lambda m: m.seconds)
+    emit("tune", step="eager_over_replayed", points=[
+        dict(backend=m.backend, method=m.method, i_n=m.i_n, r_n=m.r_n,
+             j_n=m.j_n, replayed_ms=m.seconds * 1e3,
+             eager_ms=eager[m.key()] * 1e3,
+             ratio=eager[m.key()] / m.seconds)
+        for m in pts[::max(1, len(pts) // 10)]])
+    # the recording hook on the main path's plans
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, (shape, ranks) in (("boats", BOATS), ("hsi", HSI)):
+        x = lowrank(torch, shape, ranks, gen)
+        p = plan(shape, "float32", TuckerConfig(
+            ranks=ranks, mode_order="shrink", impl="auto"))
+        with recording() as sink:
+            res = p.execute(x)
+        got = [(m.i_n, m.r_n, m.j_n, m.method, m.backend)
+               for m in sink.measurements]
+        want = [(s.i_n, s.r_n, s.j_n, s.method, s.backend)
+                for s in p.schedule]
+        emit("tune", step="record", case=name, records=[
+            dict(i_n=m.i_n, r_n=m.r_n, j_n=m.j_n, method=m.method,
+                 backend=m.backend, seconds=m.seconds,
+                 predicted_s=m.predicted_s, device=m.device)
+            for m in sink.measurements],
+            rel_error=float(res.tucker.rel_error(x)))
+        require(got == want, f"tune: recording() gave {got}, the plan "
+                f"{want}")
+        require(all(m.platform == "cuda" and math.isfinite(m.seconds)
+                    and m.seconds > 0 for m in sink.measurements),
+                f"tune: {name}'s records are not finite cuda timings")
+        del x, res
+        torch.cuda.empty_cache()
+    clear_selector_cache()
+    sel = default_selector("cuda", "hopper")
+    shipped = SHIPPED_MODELS / "selector_cuda_hopper.json"
+    fp = device_fingerprint("cuda")
+    emit("tune", step="resolve", file=str(shipped.relative_to(ROOT)),
+         exists=shipped.exists(), tree=sel.tree is not None,
+         backend=sel.backend, card=sel.meta.get("card"),
+         store_digest=sel.meta.get("store_digest"),
+         devices=sel.meta.get("devices"), fingerprint=fp,
+         fingerprint_matches=fp in sel.meta.get("devices", ()),
+         cost_model=sel.cost_model.source,
+         phase_s=time.perf_counter() - t_phase)
+    gc.unfreeze()
+    require(shipped.exists() and sel.tree is not None
+            and sel.backend == "hopper"
+            and sel.meta.get("store_digest")
+            == json.loads(shipped.read_text())["meta"]["store_digest"],
+            "tune: default_selector('cuda', 'hopper') did not resolve to "
+            f"{shipped.relative_to(ROOT)}")
+    return scores
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels",),
-                    help="run env, build and the kernel phases (small and "
-                         "full-size shapes) only: no large operands, main "
-                         "path or serve run, and no kernels line")
+    ap.add_argument("--only", choices=("kernels", "tune"),
+                    help="kernels: run env, build and the kernel phases "
+                         "(small and full-size shapes) only: no large "
+                         "operands, main path or serve run; tune: env, "
+                         "build and the tune phase only; neither prints the "
+                         "kernels line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -2112,9 +2429,15 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 3
+    t_run = time.perf_counter()
     try:
         smi, peaks = phase_env(torch)
         phase_build()
+        if args.only == "tune":
+            phase_tune(torch, smi)
+            emit("run", seconds=time.perf_counter() - t_run)
+            print(smi, flush=True)
+            return 0
         phase_kernel_shapes(torch)
         if args.only == "kernels":
             phase_kernels_full(torch, peaks)
@@ -2127,9 +2450,11 @@ def main(argv=None) -> int:
         del data
         adaptive = phase_adaptive(torch)
         launched["s6_scan"] = phase_serve(torch)
+        phase_tune(torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    emit("run", seconds=time.perf_counter() - t_run)
     rows = []
     for name, meta in KERNELS.items():
         # the ttt kernel carries both the TTT and the Gram; its row gives the

@@ -15,7 +15,9 @@ variant, als_iters, compute_dtype, batched, device, captured)``
 plan without ``memory_cap_bytes`` runs its sweep as CUDA graphs captured at
 its first execute (:mod:`repro_torch.core.graphs`), the counterpart of the
 reference's jitted sweep; capped plans (whose cap holds step by step),
-rank-adaptive plans and ``record=True`` run eagerly.  Plans are
+rank-adaptive plans, ``record=True`` and every execute inside an active
+:func:`repro_torch.tune.recording` context (which harvests the timed
+steps) run eagerly.  Plans are
 JSON-serializable (``save``/``load``) in the reference's schema, so a
 schedule planned by the JAX package runs here unchanged.
 
@@ -59,6 +61,7 @@ from __future__ import annotations
 
 import json
 import math
+import sys
 import time
 from dataclasses import dataclass, field, replace
 from pathlib import Path
@@ -83,6 +86,14 @@ from .solvers import DEFAULT_ALS_ITERS, DEFAULT_OVERSAMPLE, DEFAULT_POWER_ITERS
 from .sthosvd import ModeTrace, SthosvdResult, TuckerTensor
 
 PLAN_FORMAT_VERSION = 1
+
+
+def _active_sink():
+    """The active :func:`repro_torch.tune.recording` sink, or None.  Probed
+    through ``sys.modules``: plans that never import the tune subsystem pay
+    nothing."""
+    tune = sys.modules.get("repro_torch.tune")
+    return tune.active_sink() if tune is not None else None
 
 
 def _later(feature: str, slice_name: str) -> NotImplementedError:
@@ -566,10 +577,12 @@ class TuckerPlan:
         A fixed-rank plan runs its cached sweep (:meth:`_sweep`): on the
         card, without ``memory_cap_bytes``, as CUDA graphs captured at the
         first execute (:attr:`captures`), whose results come back as clones
-        of the graphs' output buffers.  ``record=True`` runs the per-step
+        of the graphs' output buffers.  ``record=True`` (or an active
+        :func:`repro_torch.tune.recording` context) runs the per-step
         runner that synchronizes the device after every step, so each
         ``ModeTrace.seconds`` is real wall-clock (each step a ``solve``
-        span, fed to the drift monitor).  ``donate`` is accepted for the
+        span, fed to the drift monitor); the recording context's sink also
+        receives the timed trace.  ``donate`` is accepted for the
         reference's signature and ignored (the port never donates).
         ``validate="finite"`` rejects NaN/Inf inputs with
         :class:`~repro_torch.core.errors.InputError` naming the offending
@@ -635,8 +648,14 @@ class TuckerPlan:
                 raise
 
         def run(p: "TuckerPlan") -> SthosvdResult:
-            if record:
+            sink = _active_sink()
+            if record or sink is not None:
+                # the recorded runner, never the captured sweep: its steps
+                # are what the sink learns from (a fallback hop's degraded
+                # plan records the same way)
                 res = p._run(x, True)
+                if sink is not None:
+                    p._feed(sink, res.trace)
             else:
                 _chaos.fire("sweep", backend=p.backend)
                 core, factors = p._sweep(eager=eager)(x)
@@ -650,6 +669,12 @@ class TuckerPlan:
             return res
 
         return _run_with_fallback(self, run)
+
+    def _feed(self, sink, trace) -> None:
+        """Hand a timed trace of this plan to a tune sink."""
+        sink.add_traces(trace, platform=self.device.type,
+                        dtype=self.config.compute_dtype or self.dtype,
+                        order=len(self.shape), als_iters=self.config.als_iters)
 
     def _result(self, core, factors, seconds) -> SthosvdResult:
         trace = [ModeTrace(s.mode, s.method, s.i_n, s.r_n, s.j_n, dt,
@@ -881,6 +906,9 @@ class TuckerPlan:
                            backend=s.backend, predicted_s=s.predicted_s,
                            tail_err=tails[s.mode])
                  for s, j, dt in zip(self.schedule, js, seconds)]
+        sink = _active_sink()
+        if sink is not None:
+            self._feed(sink, trace)
         return SthosvdResult(
             tucker=TuckerTensor(core=core,
                                 factors=[factors[mm] for mm in range(n)]),

@@ -11,11 +11,17 @@ calibration file exists, textbook constants otherwise), so the flexible
 algorithm never blocks on training data.
 
 Platforms are the ``torch.device`` types, ``"cpu"`` and ``"cuda"``, passed
-in by the planner.  The shipped models (``models/*.json``) are copies of the
-reference's CPU models, so ``methods="auto"`` on the CPU picks what the
-reference picks; there is no trained model for ``cuda`` yet, so CUDA plans
-fall back to the textbook cost model.  Training (the tune flywheel) ports
-with its own slice.
+in by the planner.  The shipped CPU models (``models/selector_cpu*.json``,
+``cost_cpu_*.json``) are copies of the reference's, so ``methods="auto"``
+on the CPU picks what the reference picks.  The shipped CUDA models
+(``selector_cuda.json``, ``selector_cuda_{hopper,matfree}.json``,
+``cost_cuda_{hopper,matfree}.json``) were trained on an H100 by the tune
+flywheel (:mod:`repro_torch.tune`, run by ``chip_smoke.py``'s ``tune``
+phase) from solves timed the way a plan runs them on the card, captured
+into CUDA graphs and replayed; their ``meta`` names the card, its power
+limit and the measurement store's digest.  Training and calibration live
+in :mod:`repro_torch.tune`; the shims at the bottom keep the legacy
+entry points.
 """
 
 from __future__ import annotations
@@ -143,7 +149,7 @@ class Selector:
 def model_dir() -> Path:
     """The selector/calibration model directory (``ATUCKER_MODEL_DIR`` env
     override, default ``repro_torch/core/models`` — where the shipped CPU
-    models live)."""
+    and CUDA models live)."""
     return _DEFAULT_MODEL_DIR
 
 
@@ -198,3 +204,29 @@ def default_selector(platform: str, backend: str | None = None) -> Selector:
 def clear_selector_cache() -> None:
     """Drop cached default selectors (tests / after retraining in-process)."""
     _DEFAULT_BY_PLATFORM.clear()
+
+
+# ---------------------------------------------------------------------------
+# Training pipeline — thin wrappers over repro_torch.tune
+# ---------------------------------------------------------------------------
+
+def collect_samples(*args, **kw):
+    """Legacy shim → :func:`repro_torch.tune.collect.collect_samples` (same
+    return: ``(features, labels, times)`` arrays)."""
+    from ..tune.collect import collect_samples as _collect
+    return _collect(*args, **kw)
+
+
+def train_selector(*args, **kw):
+    """Legacy shim → :func:`repro_torch.tune.train.train_selector`."""
+    from ..tune.train import train_selector as _train
+    return _train(*args, **kw)
+
+
+def train_and_save(platform: str | None = None, **collect_kw) -> dict:
+    """Legacy shim → :func:`repro_torch.tune.train.train_and_save`.  The
+    trained selector is labeled with, saved under, and cached for ONE
+    platform string: ``platform`` if given, else the type of the device
+    ``collect_kw`` names (``cuda:0`` by default)."""
+    from ..tune.train import train_and_save as _tas
+    return _tas(platform=platform, **collect_kw)

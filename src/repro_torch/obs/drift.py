@@ -194,6 +194,8 @@ class DriftMonitor:
             if not c["stale"]:
                 continue
             direction = "slower" if c["ratio"] > 1.0 else "faster"
+            # the CLI runs on cuda:0 unless told otherwise
+            dev = " --device cpu" if c["platform"] == "cpu" else ""
             recs.append({
                 "cell": (c["platform"], c["backend"], c["solver"]),
                 "why": (f"{c['solver']} on ({c['platform']}, "
@@ -201,7 +203,8 @@ class DriftMonitor:
                         f"{direction} than predicted "
                         f"(n={c['n']}, z={c['z']:.1f})"),
                 "command": (f"{TUNE_CLI} calibrate --platform "
-                            f"{c['platform']} --backend {c['backend']}"),
+                            f"{c['platform']} --backend {c['backend']}"
+                            f"{dev}"),
             })
             if c["solver"] in ("eig", "svd", "als", "rand"):
                 recs.append({
@@ -210,7 +213,7 @@ class DriftMonitor:
                             "predictions drifted"),
                     "command": (f"{TUNE_CLI} train --platform "
                                 f"{c['platform']} --backend "
-                                f"{c['backend']}"),
+                                f"{c['backend']}{dev}"),
                 })
         with self._lock:
             mem = {k: dict(v) for k, v in self._mem.items()}

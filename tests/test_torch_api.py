@@ -76,8 +76,14 @@ class TestSchedules:
             assert [_step_key(s) for s in got.schedule] == \
                 [_step_key(s) for s in want.schedule]
 
-    def test_cuda_platform_without_a_model_uses_textbook_costs(self):
+    def test_cuda_platform_without_a_model_uses_textbook_costs(
+            self, tmp_path, monkeypatch):
+        # a model dir holding no cuda model (the shipped dir has trained
+        # ones: tests/test_torch_tune.py holds them)
         from repro_torch.core import default_selector
+        from repro_torch.core import selector as sel_mod
+        monkeypatch.setattr(sel_mod, "_DEFAULT_MODEL_DIR", tmp_path)
+        monkeypatch.setattr(sel_mod, "_DEFAULT_BY_PLATFORM", {})
         sel = default_selector("cuda", backend="hopper")
         assert sel.tree is None and sel.cost_model.source == "textbook"
 
