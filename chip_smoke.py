@@ -7,8 +7,10 @@ It drives the port's paths -- fixed-rank Tucker ``plan -> execute``, the
 adaptive Tucker path (error targets, the fallback ladder's rand->eig hop,
 the schedule search under a memory cap) and serving falcon-mamba-7b --
 through four hand-written Hopper kernels: TTT/Gram, boundary GEMM,
-interior TTM and the Mamba-1 selective scan (S6); then the tune flywheel
-that trains the solver selector ``methods="auto"`` loads on the card.
+interior TTM and the Mamba-1 selective scan (S6); then the streaming
+Tucker service (``repro_torch.serve.TuckerService``) over those kernels,
+and the tune flywheel that trains the solver selector ``methods="auto"``
+loads on the card.
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
@@ -134,6 +136,45 @@ Phases, each printing one JSON line (any failure exits non-zero):
             engine is made; the same 6 requests then run on an engine whose
             decode step runs eagerly: every token identical, 64 S6 launches
             a step there too, decode ms and decode tokens/s of both.
+6b. tucker_serve the streaming Tucker service with ``impl="auto"`` (every
+            plan must resolve to ``hopper``; gc frozen for the phase), in
+            three parts.  stream_ref: the reference's serve bench stream
+            (``benchmarks/serve_bench.py --full``) rebuilt from its numpy
+            draws (seed 0): 200 requests of shapes jittered (0-5 below)
+            about (48, 40, 32), (64, 48, 32), (40, 40, 40), ranks (4, 4, 4),
+            ``methods="eig"``, Poisson arrivals at 3x the rate of a warm
+            singleton execute on the first anchor (median of 5, measured
+            here); one-shot arm ``TuckerBatchEngine().run([req])`` per
+            arrival, then (from a clear sweep cache) the service arm: mask
+            buckets of grid 8, max_pad_ratio 8, 8 wave slots, 3 waves in
+            flight, queue 800, "block", a worker.  Prints per arm requests/s,
+            p50/p95/p99 ms, plans built, the captured sweeps' first-call
+            seconds and bytes held (static inputs + pools), per-bucket rows.
+            hsi_tiles: 64 tiles of HSI's tensor (ranks (10, 10, 10, 5) + 1%
+            noise, seed 11) cut at random offsets, modes 0 and 1 from [505,
+            512], ranks (10, 10, 10, 5), ``methods="auto"``, through a mask
+            service (grid (8, 8, 1, 1), max_pad_ratio 2, 4 wave slots, 2
+            waves in flight, queue 16, "block", a worker) closed loop:
+            all 64 complete, TTT, GEMM and interior TTM launch, each
+            rel_error <= 0.02, 8 sampled tiles against a direct plan
+            (projector gap <= 1e-3, |d rel_error| <= 1e-4), peak memory <=
+            50% of the card; prints the slack rows of one padded lane run
+            through the bucket plan untrimmed (max per mode; exactly zero
+            or not), requests/s, p50/p95/p99, per-bucket occupancy and
+            pipeline occupancy, one profiled wave's idle share; then 8
+            tiles (2 at (512, 512, 33, 8), 6 padded of distinct shapes)
+            through an exact-mode service, each bitwise equal to a direct
+            ``decompose``.  resilience, on a (16, 16, 16) mask bucket at
+            ranks (3, 3, 3): a ``wave_job`` raise on one rid of a wave of 4
+            fails it classified, the other 3 bitwise a clean wave's,
+            bisections >= 1; a ``wave_job_data`` NaN lane is quarantined
+            and recovered (bitwise the clean lane); 2 failed waves open a
+            breaker at threshold 2, isolated waves run, a probe after the
+            cooldown closes it; a request past its deadline fails with
+            DeadlineError; the capture race: the worker is held inside its
+            first capture of a new bucket while this thread admits 32 CUDA
+            inputs with ``validate="finite"``; nothing fails and every
+            result is bitwise a serial run's.
 7. tune     the tune flywheel (``repro_torch.tune``): a training set
             (seed 0) and a test set (seed 1) of tensors of order 3 and 4,
             dims log-uniform in [8, 8192], at most 2**29 elements, ranks
@@ -155,15 +196,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
 8. kernels  one JSON line listing every kernel with its numbers (the TTT
             row carries the Gram's under "gram" and the range sample's under
             "sketch", the GEMM row its wide route's under "wide";
-            ``launches_adaptive`` counts the adaptive phase), after a
+            ``launches_adaptive`` counts the adaptive phase and
+            ``launches_tucker_serve`` the streams of tucker_serve), after a
             ``run`` line with the whole run's seconds; then the
             ``nvidia-smi`` name/power-limit line; then the final
             ``{"ok": true, "device": ...}`` line.
 
 ``python3 chip_smoke.py --only kernels`` runs phases 1-3 only (the quick
-check after a kernel edit) and ``--only tune`` phases 1, 2 and 7 (the
-command that trains the shipped cuda models); neither prints the kernels
-line.
+check after a kernel edit), ``--only tune`` phases 1, 2 and 7 (the
+command that trains the shipped cuda models) and ``--only tucker_serve``
+phases 1, 2 and 6b; none prints the kernels line.
 
 Imports nothing of JAX nor of the JAX package ``repro``.
 """
@@ -2166,6 +2208,584 @@ def carry_stats(torch, bundle, params, req, dec) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the streaming Tucker service on the card
+# ---------------------------------------------------------------------------
+
+#: stream_ref: the reference's serve bench stream (benchmarks/serve_bench.py
+#: --full): shapes hug three anchors, each dim drawn from [anchor - 5,
+#: anchor], Poisson arrivals at 3x the rate of a warm singleton execute
+SERVE_ANCHORS = ((48, 40, 32), (64, 48, 32), (40, 40, 40))
+SERVE_RANKS, SERVE_JITTER, SERVE_N, SERVE_RATE = (4, 4, 4), 6, 200, 3.0
+#: hsi_tiles: 64 tiles of the HSI tensor, modes 0 and 1 drawn from [505,
+#: 512], modes 2 and 3 whole
+TILES_N, TILE_LO, TILE_HI, TILES_SAMPLED = 64, 505, 512, 8
+#: resilience: one (16, 16, 16) mask bucket at ranks (3, 3, 3)
+RES_SHAPES = ((16, 16, 16), (15, 16, 16), (16, 14, 16), (16, 16, 13))
+RES_RANKS = (3, 3, 3)
+#: the capture race: a new bucket's first wave against 32 admissions
+RACE_BUCKET, RACE_N, RACE_WAIT_S = (24, 24, 24), 32, 60.0
+
+
+def sweep_cache_held() -> dict:
+    """What the process-wide sweep cache holds: captured sweeps, their
+    static inputs' and private pools' bytes, and the seconds their first
+    calls took (warm-up, capture, first replay)."""
+    from repro_torch.core import api
+    held = [fn.graphs.stats() for fn in api._SWEEP_CACHE.values()
+            if fn.graphs is not None and fn.graphs.program is not None]
+    return dict(entries=len(api._SWEEP_CACHE), captured=len(held),
+                input_bytes=sum(s["input_bytes"] for s in held),
+                pool_bytes=sum(s["pool_bytes"] for s in held),
+                bytes_held=sum(s["input_bytes"] + s["pool_bytes"]
+                               for s in held),
+                capture_s=sum(s["build_s"] for s in held))
+
+
+def require_hopper(plans, where: str) -> None:
+    bad = sorted({p.backend for p in plans} - {"hopper"})
+    require(not bad, f"{where}: impl='auto' resolved to {bad}, not 'hopper'")
+
+
+def serve_row(stats: dict, n: int, total_s: float) -> dict:
+    lat = stats["latency"]
+    return dict(n=n, requests=stats["requests"], failed=stats["failed"],
+                requests_per_s=n / total_s, total_s=total_s,
+                p50_ms=lat["p50_ms"], p95_ms=lat["p95_ms"],
+                p99_ms=lat["p99_ms"], plans_built=stats["plans_built"],
+                batches=stats["batches"])
+
+
+def bucket_rows(stats: dict) -> dict:
+    return {label: {k: b[k] for k in ("completed", "waves", "padded",
+                                      "pad_waste", "occupancy",
+                                      "pipeline_occupancy", "avg_inflight")}
+            | {"p95_ms": b["latency"]["p95_ms"]}
+            for label, b in stats["buckets"].items()}
+
+
+def serve_stream_ref(torch) -> dict:
+    """The reference's --full stream, rebuilt: the same numpy draws (seed
+    0) for the calibration tensor, arrivals, shapes and data; the arrival
+    rate 3x a warm singleton execute on the first anchor, measured here;
+    then the one-shot arm (``TuckerBatchEngine().run([req])`` per arrival)
+    and the service arm (mask buckets of grid 8, a worker, up to 3 waves
+    in flight), each from a clear sweep cache."""
+    import numpy as np
+
+    from repro_torch.core import TuckerConfig, clear_sweep_cache, plan
+    from repro_torch.serve import (BucketPolicy, TuckerBatchEngine,
+                                   TuckerRequest, TuckerService)
+    from repro_torch.serve.metrics import LatencyWindow
+    rng = np.random.default_rng(0)
+    cfg = TuckerConfig(ranks=SERVE_RANKS, methods="eig", impl="auto")
+    anchor = SERVE_ANCHORS[0]
+    x0 = torch.from_numpy(rng.standard_normal(anchor).astype(np.float32)
+                          ).cuda()
+    p0 = plan(anchor, "float32", cfg)
+    require_hopper([p0], "stream_ref")
+    p0.execute(x0)
+    single = synced_ms(torch, lambda: p0.execute(x0), 5)
+    t_single = statistics.median(single) / 1e3
+    rate = SERVE_RATE / t_single
+    stream, t = [], 0.0
+    for _ in range(SERVE_N):
+        t += float(rng.exponential(1.0 / rate))
+        base = SERVE_ANCHORS[int(rng.integers(len(SERVE_ANCHORS)))]
+        dims = tuple(max(int(b - rng.integers(0, SERVE_JITTER)), r + 1)
+                     for b, r in zip(base, SERVE_RANKS))
+        stream.append((t, rng.standard_normal(dims).astype(np.float32)))
+    stream = [(a, torch.from_numpy(x).cuda()) for a, x in stream]
+    torch.cuda.synchronize()
+
+    def replay(submit):
+        t0 = time.perf_counter()
+        for arrival, x in stream:
+            lag = arrival - (time.perf_counter() - t0)
+            if lag > 0:
+                time.sleep(lag)
+            submit(arrival, x, t0)
+        return t0
+
+    out = dict(arrival_rps=rate, single_ms=single,
+               distinct_shapes=len({tuple(x.shape) for _, x in stream}))
+    clear_sweep_cache()
+    eng = TuckerBatchEngine()
+    lat = LatencyWindow()
+
+    def oneshot(arrival, x, t0):
+        eng.run([TuckerRequest(x=x, config=cfg)])
+        lat.add(time.perf_counter() - t0 - arrival)
+
+    t0 = replay(oneshot)
+    total = time.perf_counter() - t0
+    st = eng.stats
+    require(st["requests"] == SERVE_N and st["failed"] == 0,
+            f"stream_ref oneshot: {st['requests']} of {SERVE_N} completed")
+    require_hopper(eng._plans.values(), "stream_ref oneshot")
+    one = serve_row(st, SERVE_N, total) | lat.snapshot_ms() | \
+        {"sweep_cache": sweep_cache_held()}
+    del eng
+
+    def service_arm(validate: str) -> dict:
+        clear_sweep_cache()
+        svc = TuckerService(
+            policy=BucketPolicy(grid=8, max_pad_ratio=8.0, pad_mode="mask",
+                                wave_slots=8),
+            max_queue=4 * SERVE_N, backpressure="block",
+            max_inflight_waves=3)
+        svc.start()
+        tickets, submit_ms = [], []
+
+        def admit(arrival, x, t0):
+            ts = time.perf_counter()
+            tickets.append(svc.submit(x, cfg, validate=validate))
+            submit_ms.append((time.perf_counter() - ts) * 1e3)
+
+        t0 = replay(admit)
+        replay_s = time.perf_counter() - t0
+        results = [svc.wait(tk, timeout=600) for tk in tickets]
+        total = time.perf_counter() - t0
+        st = svc.stats()
+        svc.stop()
+        where = f"stream_ref service (validate={validate!r})"
+        require(st["requests"] == SERVE_N and st["failed"] == 0,
+                f"{where}: {st['requests']} of {SERVE_N} completed")
+        require_hopper(svc._plans.values(), where)
+        bad = [i for i, ((_, x), r) in enumerate(zip(stream, results))
+               if r.tucker.core.shape != SERVE_RANKS
+               or [u.shape[0] for u in r.tucker.factors] != list(x.shape)
+               or not bool(torch.isfinite(r.tucker.core).all())]
+        require(not bad, f"{where}: malformed results {bad[:5]}")
+        row = serve_row(st, SERVE_N, total) | {
+            "pad_waste": st["pad_waste"], "buckets": bucket_rows(st),
+            "sweep_cache": sweep_cache_held(),
+            "replay_s": replay_s, "arrival_span_s": stream[-1][0],
+            "submit_ms": {"p50": statistics.median(submit_ms),
+                          "max": max(submit_ms), "sum": sum(submit_ms)}}
+        if validate == "finite":
+            # one warm wave of 8 lanes of the first request's bucket, run
+            # inline (the worker stopped): ms a lane against the singleton
+            first = svc._policy.bucket_shape(stream[0][1].shape)
+            lanes = [x for _, x in stream
+                     if svc._policy.bucket_shape(x.shape) == first][:8]
+
+            def one_wave():
+                for x in lanes:
+                    svc.submit(x, cfg)
+                svc.drain()
+
+            wall = statistics.median(synced_ms(torch, one_wave, 3))
+            row["wave_profile"] = dict(
+                lanes=len(lanes), wall_ms=wall, ms_per_lane=wall / len(lanes),
+                **profile_call(torch, one_wave, wall))
+        return row
+
+    srv = service_arm("finite")
+    out.update(oneshot=one, service=srv,
+               service_over_oneshot=srv["requests_per_s"]
+               / one["requests_per_s"],
+               service_validate_none=service_arm("none"))
+    return out
+
+
+def hsi_tiles(torch, launched: dict) -> dict:
+    """64 tiles of the HSI tensor (ranks (10, 10, 10, 5) + 1% noise, made on
+    the card from seed 11) through a mask-mode service, closed loop; checks
+    and prints as the phase's docstring says.  Then 8 tiles through a fresh
+    exact-mode service, each result bitwise equal to a direct
+    ``decompose`` of its tile."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import TuckerConfig, decompose, plan
+    from repro_torch.serve import BucketPolicy, TuckerService, pad_block
+    shape, ranks = HSI
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    base = lowrank(torch, shape, ranks, gen)
+    rng = np.random.default_rng(11)
+
+    def cut(d0, d1):
+        o0 = int(rng.integers(0, shape[0] - d0 + 1))
+        o1 = int(rng.integers(0, shape[1] - d1 + 1))
+        return base[o0:o0 + d0, o1:o1 + d1]
+
+    tiles = [cut(int(rng.integers(TILE_LO, TILE_HI + 1)),
+                 int(rng.integers(TILE_LO, TILE_HI + 1)))
+             for _ in range(TILES_N)]
+    cfg = TuckerConfig(ranks=ranks, methods="auto", impl="auto")
+    policy = BucketPolicy(grid=(8, 8, 1, 1), max_pad_ratio=2.0,
+                          pad_mode="mask", wave_slots=4)
+    svc = TuckerService(policy=policy, max_inflight_waves=2, max_queue=16,
+                        backpressure="block")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    svc.start()
+    t0 = time.perf_counter()
+    tickets = [svc.submit(x, cfg) for x in tiles]
+    results = [svc.wait(tk, timeout=600) for tk in tickets]
+    total = time.perf_counter() - t0
+    st = svc.stats()
+    svc.stop()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernels.launch_counts()
+    for k in ("ttt", "matmul", "ttm_interior"):
+        launched[k] += counts[k]
+        require(counts[k] > 0, f"hsi_tiles: kernel {k} never launched")
+    require(st["requests"] == TILES_N and st["failed"] == 0,
+            f"hsi_tiles: {st['requests']} completed, {st['failed']} failed")
+    require_hopper(svc._plans.values(), "hsi_tiles")
+    rels = [float(r.tucker.rel_error(x)) for x, r in zip(tiles, results)]
+    require(all(math.isfinite(e) and e <= 0.02 for e in rels),
+            f"hsi_tiles: rel_error up to {max(rels)} > 0.02")
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    require(peak <= 0.5 * total_mem,
+            f"hsi_tiles: peak memory {peak} > 50% of {total_mem}")
+    sweep_mask = sweep_cache_held()
+
+    # mask mode against unpadded execution, on 8 sampled tiles
+    picks = [int(i) for i in rng.choice(TILES_N, TILES_SAMPLED,
+                                        replace=False)]
+    direct = []
+    for i in picks:
+        p = plan(tuple(tiles[i].shape), "float32", cfg)
+        require_hopper([p], "hsi_tiles direct")
+        ref = p.execute(tiles[i])
+        gap = max(projector_gap(torch, a, b) for a, b in
+                  zip(results[i].tucker.factors, ref.tucker.factors))
+        d_rel = abs(rels[i] - float(ref.tucker.rel_error(tiles[i])))
+        direct.append(dict(tile=i, shape=list(tiles[i].shape),
+                           methods=list(p.methods), projector_gap=gap,
+                           d_rel_error=d_rel))
+        require(gap <= 1e-3 and d_rel <= 1e-4,
+                f"hsi_tiles: tile {i} against direct decompose: projector "
+                f"gap {gap}, |d rel_error| {d_rel}")
+
+    # slack rows of one padded lane, run through the bucket plan untrimmed
+    bucket = policy.bucket_shape(tiles[0].shape)
+    lane = next(i for i, x in enumerate(tiles) if tuple(x.shape) != bucket)
+    bp = svc.plan_for(bucket, "float32", cfg)
+    raw = bp.execute(pad_block(tiles[lane], bucket))
+    slack = [float(u[s:].abs().max()) if u.shape[0] > s else 0.0
+             for u, s in zip(raw.tucker.factors, tiles[lane].shape)]
+    slack_row = dict(tile=lane, shape=list(tiles[lane].shape),
+                     bucket=list(bucket), methods=list(bp.methods),
+                     slack_max_by_mode=slack,
+                     exactly_zero=all(v == 0.0 for v in slack))
+
+    # the idle share of one profiled wave (4 tiles, on the warm bucket)
+    def one_wave():
+        ts = [svc.submit(x, cfg) for x in tiles[:4]]
+        svc.drain()
+        return ts
+
+    wall = statistics.median(synced_ms(torch, one_wave, 3))
+    prof = profile_call(torch, one_wave, wall)
+
+    # exact mode: 2 whole-bucket tiles and 6 padded of distinct shapes
+    sizes = [(TILE_HI, TILE_HI)] * 2
+    while len(sizes) < 8:
+        d = (int(rng.integers(TILE_LO, TILE_HI)),
+             int(rng.integers(TILE_LO, TILE_HI)))
+        if d not in sizes:
+            sizes.append(d)
+    ex_tiles = [cut(*d) for d in sizes]
+    ex = TuckerService(policy=BucketPolicy(grid=(8, 8, 1, 1),
+                                           max_pad_ratio=2.0, wave_slots=8),
+                       max_queue=16)
+    ex_tickets = [ex.submit(x, cfg) for x in ex_tiles]
+    ex.drain()
+    ex_bitwise = []
+    for x, tk in zip(ex_tiles, ex_tickets):
+        got, want = ex.poll(tk).tucker, decompose(x, cfg).tucker
+        ex_bitwise.append(same_tucker(torch, got, want))
+    require(all(ex_bitwise), f"hsi_tiles exact mode: lanes not bitwise "
+            f"equal to direct decompose: {ex_bitwise}")
+    require_hopper(ex._plans.values(), "hsi_tiles exact")
+    ex_st = ex.stats()
+    out = dict(serve_row(st, TILES_N, total), launches=counts,
+               peak_bytes=peak, peak_share=peak / total_mem,
+               rel_error_max=max(rels), buckets=bucket_rows(st),
+               solvers=st["solvers"], direct=direct, slack=slack_row,
+               wave_profile=dict(wall_ms=wall, **prof),
+               sweep_cache_mask=sweep_mask,
+               exact=dict(shapes=[list(x.shape) for x in ex_tiles],
+                          bitwise=ex_bitwise,
+                          plans_built=ex_st["plans_built"],
+                          batches=ex_st["batches"],
+                          sweep_cache=sweep_cache_held()))
+    del base, tiles, ex_tiles, results
+    return out
+
+
+def resilience_checks(torch) -> dict:
+    """Bisection, the NaN-lane quarantine, the breaker, a deadline and the
+    capture race, all on the card."""
+    import numpy as np
+
+    from repro_torch import chaos
+    from repro_torch.core import (DeadlineError, TuckerConfig, TuckerError,
+                                  clear_sweep_cache)
+    from repro_torch.serve import BucketPolicy, TuckerService
+    cfg = TuckerConfig(ranks=RES_RANKS, impl="auto")
+    policy = BucketPolicy(grid=8, pad_mode="mask", wave_slots=8)
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+          for s in RES_SHAPES]
+
+    def run(svc, inputs, **kw):
+        ts = [svc.submit(x, cfg, rid=i, **kw) for i, x in enumerate(inputs)]
+        svc.drain()
+        out = []
+        for t in ts:
+            try:
+                out.append(svc.poll(t))
+            except Exception as e:  # noqa: BLE001 - checked below
+                out.append(e)
+        return out
+
+    def mask_service(**kw):
+        return TuckerService(policy=policy, max_queue=64, **kw)
+
+    out = {}
+    chaos.reset()
+    clean_svc = mask_service()
+    clean = run(clean_svc, xs)
+    require(all(not isinstance(r, Exception) for r in clean),
+            "resilience: the clean wave failed")
+    require_hopper(clean_svc._plans.values(), "resilience")
+    try:
+        chaos.install([chaos.Rule(seam="wave_job", action="raise",
+                                  times=None, match={"rid": 2},
+                                  message="synthetic poisoned request")])
+        svc = mask_service()
+        got = run(svc, xs)
+        chaos.reset()
+        res = svc.stats()["resilience"]
+        ok = [i for i in (0, 1, 3) if not isinstance(got[i], Exception)
+              and same_tucker(torch, got[i].tucker, clean[i].tucker)]
+        require(isinstance(got[2], TuckerError) and ok == [0, 1, 3]
+                and res["bisections"] >= 1,
+                f"resilience bisection: rid 2 -> {type(got[2]).__name__}, "
+                f"bitwise clean lanes {ok}, bisections {res['bisections']}")
+        out["bisection"] = dict(error=type(got[2]).__name__,
+                                bitwise_clean=ok,
+                                bisections=res["bisections"])
+
+        chaos.install([chaos.Rule(seam="wave_job_data", action="nan",
+                                  times=1, match={"rid": 1})])
+        svc = mask_service()
+        got = run(svc, xs)
+        chaos.reset()
+        res = svc.stats()["resilience"]
+        same = [not isinstance(r, Exception)
+                and same_tucker(torch, r.tucker, c.tucker)
+                for r, c in zip(got, clean)]
+        require(all(same) and res["quarantined"] >= 1
+                and res["recovered"] >= 1,
+                f"resilience quarantine: bitwise {same}, {res}")
+        out["quarantine"] = dict(quarantined=res["quarantined"],
+                                 recovered=res["recovered"], bitwise=same)
+
+        chaos.install([chaos.Rule(seam="wave", action="raise", times=None)])
+        svc = mask_service(breaker_threshold=2, breaker_cooldown_s=0.2)
+        for _ in range(3):
+            got = run(svc, xs[:2])
+            require(all(not isinstance(r, Exception) for r in got),
+                    "resilience breaker: a request failed while open")
+        res = svc.stats()["resilience"]
+        degraded = svc.health()["status"]
+        require(res["breaker_trips"] == 1 and res["isolated_waves"] >= 1
+                and degraded == "degraded",
+                f"resilience breaker: {res}, health {degraded}")
+        chaos.reset()
+        time.sleep(0.25)
+        got = run(svc, xs[:2])
+        res2 = svc.stats()["resilience"]
+        healed = svc.health()["status"]
+        require(all(not isinstance(r, Exception) for r in got)
+                and res2["probe_waves"] >= 1 and res2["breakers_open"] == 0
+                and healed == "ok",
+                f"resilience breaker probe: {res2}, health {healed}")
+        out["breaker"] = dict(trips=res["breaker_trips"],
+                              isolated_waves=res["isolated_waves"],
+                              probe_waves=res2["probe_waves"],
+                              health=[degraded, healed])
+    finally:
+        chaos.reset()
+
+    svc = mask_service()
+    t = svc.submit(xs[1], cfg, deadline_s=0.001)
+    time.sleep(0.01)
+    svc.drain()
+    try:
+        svc.poll(t)
+        expired = None
+    except DeadlineError as e:
+        expired = type(e).__name__
+    require(expired == "DeadlineError"
+            and svc.stats()["resilience"]["deadline_expired"] == 1,
+            f"resilience deadline: {expired}")
+    out["deadline"] = expired
+
+    row, got, race = capture_race(torch)
+    failed = [i for i, r in enumerate(got) if isinstance(r, Exception)]
+    require(row["opened"], "capture race: the worker never began a capture")
+    require(not failed and not row["submit_errors"],
+            f"capture race: requests {failed[:5]} failed: "
+            f"{[repr(got[i])[:200] for i in failed[:2]]}; "
+            f"{row['submit_errors']} admission errors, the first "
+            f"{row['first_submit_error']}")
+    clear_sweep_cache()
+    serial = run(TuckerService(policy=policy, max_queue=2 * RACE_N), race)
+    same = [not isinstance(s, Exception)
+            and same_tucker(torch, g.tucker, s.tucker)
+            for g, s in zip(got, serial)]
+    require(all(same), f"capture race: results not bitwise a serial run: "
+            f"{same}")
+    require(row["admitted_during_capture"] == RACE_N,
+            f"capture race: only {row['admitted_during_capture']} of "
+            f"{RACE_N} admissions ran while the capture was open")
+    out["capture_race"] = dict(row, bitwise_serial=all(same),
+                               control_global=race_control())
+    return out
+
+
+def capture_race(torch) -> tuple[dict, list, list]:
+    """Hold the service's worker inside its first capture of a new bucket
+    (the first segment's ``capture_begin`` has run) while this thread
+    admits RACE_N CUDA inputs with ``validate="finite"`` (each a device
+    synchronization); then release it.  Returns the row, each request's
+    result or error, and the inputs.  Raises nothing itself."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import TuckerConfig, clear_sweep_cache
+    from repro_torch.core import graphs as G
+    from repro_torch.serve import BucketPolicy, TuckerService
+    cfg = TuckerConfig(ranks=RES_RANKS, impl="auto")
+    rng = np.random.default_rng(6)
+    race = [torch.from_numpy(rng.standard_normal(
+        RACE_BUCKET if i % 2 == 0 else (23, 22, 24)).astype(np.float32)
+        ).cuda() for i in range(RACE_N + 1)]
+    torch.cuda.synchronize()
+    clear_sweep_cache()
+    opened, release = threading.Event(), threading.Event()
+    held = {"n": 0}
+    begin = G._Recorder.begin
+
+    def holding_begin(rec):
+        begin(rec)
+        if threading.current_thread().name == "tucker-service" \
+                and not held["n"]:
+            held["n"] += 1
+            opened.set()
+            release.wait(timeout=RACE_WAIT_S)
+
+    svc = TuckerService(policy=BucketPolicy(grid=8, pad_mode="mask",
+                                            wave_slots=8),
+                        max_queue=2 * RACE_N)
+    tickets, submit_errors, inside = [], [], 0
+    G._Recorder.begin = holding_begin
+    try:
+        svc.start()
+        tickets.append(svc.submit(race[0], cfg))
+        if opened.wait(timeout=RACE_WAIT_S):
+            for x in race[1:]:
+                try:
+                    tickets.append(svc.submit(x, cfg, validate="finite"))
+                except Exception as e:  # noqa: BLE001 - reported
+                    submit_errors.append(repr(e)[:200])
+                inside += not release.is_set()
+        release.set()
+        got = []
+        for tk in tickets:
+            try:
+                got.append(svc.wait(tk, timeout=120))
+            except Exception as e:  # noqa: BLE001 - reported
+                got.append(e)
+        st = svc.stats()
+        svc.stop(force=True, join_timeout=60)
+    finally:
+        release.set()
+        G._Recorder.begin = begin
+    row = dict(capture_mode=G.CAPTURE_MODE, opened=opened.is_set(),
+               admitted_during_capture=inside, requests=len(got),
+               failed=sum(isinstance(r, Exception) for r in got),
+               submit_errors=len(submit_errors),
+               first_submit_error=submit_errors[0] if submit_errors else None,
+               plans_built=st["plans_built"],
+               errors=[repr(r)[:200] for r in got
+                       if isinstance(r, Exception)][:2])
+    return row, got, race
+
+
+def race_control() -> dict:
+    """The capture race again in a child process with captures in torch's
+    default ``"global"`` mode, where another thread's synchronizing call is
+    illegal during a capture: the control that shows the race reaches the
+    hazard.  Reported, not required (the child's CUDA context may not
+    survive it)."""
+    import os
+    code = ("import json, sys, torch\n"
+            "import chip_smoke as C\n"
+            "from repro_torch.core import graphs as G\n"
+            "G.CAPTURE_MODE = 'global'\n"
+            "row, got, race = C.capture_race(torch)\n"
+            "print(json.dumps(row))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(SRC), str(ROOT)]))
+    try:
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        return dict(exit="timeout after 300 s")
+    lines = proc.stdout.strip().splitlines()
+    try:
+        row = json.loads(lines[-1]) if lines else {}
+    except json.JSONDecodeError:
+        row = {"stdout_tail": proc.stdout[-300:]}
+    return dict(row, exit=proc.returncode, stderr_tail=proc.stderr[-300:])
+
+
+def phase_tucker_serve(torch) -> dict:
+    """The port's TuckerService on the card: stream_ref, hsi_tiles and
+    resilience (see the module docstring); returns the TTT, GEMM and
+    interior-TTM launches of the two streams."""
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.core import clear_sweep_cache
+    t_phase = time.perf_counter()
+    gc.collect()
+    gc.freeze()     # as in phase_tune: each capture runs gc.collect()
+    launched = {k: 0 for k in ("ttt", "matmul", "ttm_interior")}
+    try:
+        clear_sweep_cache()
+        kernels.reset_launch_counts()
+        ref = serve_stream_ref(torch)
+        for k in launched:
+            launched[k] += kernels.launch_counts()[k]
+        emit("tucker_serve", part="stream_ref", **ref)
+        clear_sweep_cache()
+        torch.cuda.empty_cache()
+        tiles = hsi_tiles(torch, launched)
+        emit("tucker_serve", part="hsi_tiles", **tiles)
+        clear_sweep_cache()
+        torch.cuda.empty_cache()
+        res = resilience_checks(torch)
+        emit("tucker_serve", part="resilience", **res)
+    finally:
+        gc.unfreeze()
+        clear_sweep_cache()
+        torch.cuda.empty_cache()
+    emit("tucker_serve", part="summary", launches=launched,
+         phase_s=time.perf_counter() - t_phase)
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the tune flywheel -- collect, train and calibrate on the card
 # ---------------------------------------------------------------------------
 
@@ -2412,12 +3032,13 @@ def phase_tune(torch, smi: str) -> dict:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "tune"),
+    ap.add_argument("--only", choices=("kernels", "tune", "tucker_serve"),
                     help="kernels: run env, build and the kernel phases "
                          "(small and full-size shapes) only: no large "
                          "operands, main path or serve run; tune: env, "
-                         "build and the tune phase only; neither prints the "
-                         "kernels line")
+                         "build and the tune phase only; tucker_serve: env, "
+                         "build and the Tucker service phase only; none "
+                         "prints the kernels line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -2433,8 +3054,9 @@ def main(argv=None) -> int:
     try:
         smi, peaks = phase_env(torch)
         phase_build()
-        if args.only == "tune":
-            phase_tune(torch, smi)
+        if args.only in ("tune", "tucker_serve"):
+            (phase_tune(torch, smi) if args.only == "tune"
+             else phase_tucker_serve(torch))
             emit("run", seconds=time.perf_counter() - t_run)
             print(smi, flush=True)
             return 0
@@ -2450,6 +3072,7 @@ def main(argv=None) -> int:
         del data
         adaptive = phase_adaptive(torch)
         launched["s6_scan"] = phase_serve(torch)
+        tucker_serve = phase_tucker_serve(torch)
         phase_tune(torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
@@ -2462,6 +3085,7 @@ def main(argv=None) -> int:
         m = full[name]
         row = dict(name=name, route="cuda", **meta, launches=launched[name],
                    launches_adaptive=adaptive.get(name),
+                   launches_tucker_serve=tucker_serve.get(name),
                    max_abs_err=m["max_abs_err"], ms=m["ms"],
                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                    bound_by=m["bound_by"], library_ms=m["library_ms"],

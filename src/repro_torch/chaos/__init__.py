@@ -4,10 +4,11 @@ The port's copy of ``repro/chaos``.  The execution layers call :func:`fire`
 / :func:`poison` at well-known **seams** — ``"sweep"`` (a fixed-rank
 plan's cached sweep), ``"sweep_out"`` / ``"solve_out"`` (result poisoning
 points), ``"solve"`` (each recorded mode solve), ``"sketch"`` (adaptive
-range finder); the serve seams (``"wave"``, ``"wave_job"``,
-``"wave_job_data"``, ``"worker"``) arrive with the serve service.  With no
-rules installed both calls are a single list check, so the clean path pays
-nothing.
+range finder) and the serve service's (:mod:`repro_torch.serve.service`):
+``"wave"`` (each fused wave), ``"wave_job"`` (each lane and each isolated
+run), ``"wave_job_data"`` (poisoning one lane's data) and ``"worker"``
+(each turn of the background pump).  With no rules installed both calls
+are a single list check, so the clean path pays nothing.
 
 A :class:`Rule` is deterministic and seed-addressable: it matches one
 seam (plus optional context-field equality via ``match=``), fires on the

@@ -927,6 +927,13 @@ class TuckerPlan:
         may choose different ranks per tensor.  ``donate`` is accepted for
         the reference's signature and ignored."""
         del donate
+        return self._execute_lanes(xs, keep_errors=False)
+
+    def _execute_lanes(self, xs, *, keep_errors: bool) -> list:
+        """:meth:`execute_batch` item by item; with ``keep_errors`` an item
+        that raises yields its exception in its place and the other items
+        still run (the serve service's per-lane failure isolation: one
+        poisoned lane of a fused wave fails alone)."""
         xs = _as_tensor(xs)
         if tuple(xs.shape[1:]) != self.shape:
             raise ValueError(f"plan is for batches of shape {self.shape}, "
@@ -936,9 +943,23 @@ class TuckerPlan:
                              f"{T.dtype_name(xs.dtype)}")
         xs = xs.to(self.device).contiguous()
         if self.is_adaptive:
-            return [self.execute(xs[b]) for b in range(xs.shape[0])]
-        return [self._result(core, factors, [0.0] * len(self.schedule))
-                for core, factors in self._sweep(batched=True)(xs)]
+            run = self.execute
+        else:
+            fn = self._sweep(batched=True)
+            zeros = [0.0] * len(self.schedule)
+
+            def run(x):
+                ((core, factors),) = fn(x[None])
+                return self._result(core, factors, zeros)
+        out = []
+        for b in range(xs.shape[0]):
+            try:
+                out.append(run(xs[b]))
+            except Exception as e:  # noqa: BLE001 - kept per lane on request
+                if not keep_errors:
+                    raise
+                out.append(e)
+        return out
 
     # -- derivation ----------------------------------------------------------
     def for_shape(self, shape: Sequence[int], *,

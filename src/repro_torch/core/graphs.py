@@ -30,6 +30,15 @@ replay adds the graph's counts.
 
 Capture is decided by the caller from the plan, never from catching an
 error; a capture that fails raises.
+
+Captures run in ``"thread_local"`` capture mode (:data:`CAPTURE_MODE`), not
+torch's default ``"global"``: under global mode a call that may synchronize
+(a ``.item()``, a ``cudaMalloc``) made by ANOTHER thread while a capture is
+open is illegal and invalidates the capture.  The serve service's worker
+thread captures a bucket's sweep on its first wave while the caller's
+thread admits requests, whose finiteness check synchronizes.  Thread-local
+mode still refuses such calls on the capturing thread itself, which the
+host-op cuts above keep out of every graph.
 """
 
 from __future__ import annotations
@@ -50,6 +59,9 @@ from ..obs import trace as _obs
 #: ends a graph segment (``eig``: the Gram's ``eigh``; ``svd``: the
 #: unfolding's ``svd``; ``rand``: the sketched Gram's ``eigh``)
 HOST_OPS = {"eig": 1, "svd": 1, "rand": 1, "als": 0}
+
+#: ``cudaStreamCaptureMode`` of every capture (see the module docstring)
+CAPTURE_MODE = "thread_local"
 
 _local = threading.local()
 
@@ -154,7 +166,7 @@ class _Recorder:
         self._before = kernels.launch_snapshot()
         self._t0 = time.perf_counter()
         self._wall = time.time()
-        g.capture_begin(pool=self.pool)
+        g.capture_begin(pool=self.pool, capture_error_mode=CAPTURE_MODE)
         self._graph = g
 
     def end(self) -> None:
@@ -228,6 +240,7 @@ class CapturedSweep:
         self.outputs = None
         self.constants: list[torch.Tensor] = []
         self.pool_bytes = 0
+        self.build_s = 0.0
 
     @property
     def segments(self) -> int:
@@ -241,13 +254,15 @@ class CapturedSweep:
 
     def stats(self) -> dict:
         """Segments, host ops, the private pool's reserved bytes (the
-        ``memory_reserved`` growth across capture) and the static input's
-        bytes."""
+        ``memory_reserved`` growth across capture), the static input's
+        bytes and the seconds the first call took (warm-up, capture and
+        the first replay)."""
         return dict(segments=self.segments,
                     host_ops=sum(isinstance(p, _HostOp)
                                  for p in self.program or ()),
                     pool_bytes=self.pool_bytes,
-                    input_bytes=self.input_bytes)
+                    input_bytes=self.input_bytes,
+                    build_s=self.build_s)
 
     def __call__(self, x: torch.Tensor):
         if self.program is None:
@@ -264,6 +279,7 @@ class CapturedSweep:
             item.run()
 
     def _build(self, x: torch.Tensor):
+        t0 = time.perf_counter()
         dev = self.device
         static = torch.empty(x.shape, dtype=x.dtype, device=dev)
         static.copy_(x)
@@ -302,4 +318,7 @@ class CapturedSweep:
                                f"{len(rec.constants)} seeded tensors")
         self.x, self.outputs, self.constants = static, out, rec.constants
         self.program, self.pool_bytes = rec.program, pool_bytes
-        return _clone(out)
+        out = _clone(out)
+        torch.cuda.synchronize(dev)
+        self.build_s = time.perf_counter() - t0
+        return out

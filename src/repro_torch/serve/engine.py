@@ -18,8 +18,12 @@ occupant (and the dummy decodes since) left there, so for a state-space
 model a refilled slot continues the old request's state; see
 ``ROADMAP.md`` Queue 3.
 
-``TuckerBatchEngine``, the Tucker serving counterpart, comes with the
-Tucker serve service (``ROADMAP.md`` Queue 1 item 9).
+``TuckerBatchEngine`` — the decomposition-serving counterpart: a thin
+synchronous wrapper over :class:`~repro_torch.serve.service.TuckerService`
+under the identity bucket policy.  Requests are grouped by (shape, dtype,
+config), each group reuses one cached ``TuckerPlan`` (selector and sweep
+capture amortized across the fleet), and same-shaped groups run as one
+batch through the plan's batched sweep.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..core.api import TuckerConfig, TuckerPlan
+from ..core.sthosvd import SthosvdResult
 from ..models.registry import ModelBundle
 
 
@@ -178,4 +184,88 @@ class ServeEngine:
                         self.pos[s] >= self.max_len - 1:
                     r.done = True
                     self.slot_req[s] = None
+        return requests
+
+
+# ---------------------------------------------------------------------------
+# Tucker decomposition serving (plan/execute front door)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TuckerRequest:
+    """One decomposition job: a dense tensor (or numpy array) plus its
+    TuckerConfig."""
+    x: object
+    config: TuckerConfig
+    rid: int = 0
+    result: SthosvdResult | None = None
+
+
+class TuckerBatchEngine:
+    """Serves fleets of Tucker decompositions with amortized planning.
+
+    A thin synchronous wrapper over
+    :class:`repro_torch.serve.service.TuckerService` running the identity
+    bucket policy (``BucketPolicy.exact()``: every (shape, dtype, pinned
+    config) is its own bucket, waves are unbounded, no request is ever
+    padded) with an unbounded admission queue: per group the service plans
+    ONCE (the selector runs and the sweep is captured on the first request
+    only), singleton groups run the plan's unbatched cached sweep via
+    ``TuckerPlan.execute``, and larger groups one batch via
+    ``execute_batch``.
+
+    ``impl`` pins every plan the engine builds to one ops backend
+    (overriding each request config's ``impl``); the default ``None``
+    honours per-request configs (typically ``"auto"``, resolved per
+    device at plan time).  ``stats["backends"]`` counts requests per
+    resolved backend.  ``memory_cap_bytes`` pins a modeled-peak ceiling
+    onto every plan (requests carrying their own cap keep the tighter of
+    the two).  ``device`` is where every request runs (None = ``cuda:0``,
+    raising without CUDA).  ``mesh`` raises until the sharded slice.
+
+    ``record=True`` (optionally with a ``record_store``) runs requests
+    through the eager timed path so engine traffic feeds the autotune
+    flywheel.  For streaming traffic (async submit/poll, shape buckets,
+    backpressure, latency metrics) use the service directly.
+    """
+
+    def __init__(self, selector=None, *, impl: str | None = None,
+                 mesh=None, shard_axis: str | None = None,
+                 memory_cap_bytes: int | None = None,
+                 record: bool = False, record_store=None, device=None):
+        from .buckets import BucketPolicy
+        from .service import TuckerService
+        self.service = TuckerService(
+            selector, policy=BucketPolicy.exact(), impl=impl, mesh=mesh,
+            shard_axis=shard_axis, memory_cap_bytes=memory_cap_bytes,
+            max_queue=None, record=record, record_store=record_store,
+            device=device)
+
+    @property
+    def _plans(self) -> dict[tuple, TuckerPlan]:
+        return self.service._plans
+
+    @property
+    def stats(self) -> dict:
+        return self.service.stats()
+
+    def _pinned(self, config: TuckerConfig) -> TuckerConfig:
+        return self.service._pinned(config)
+
+    def plan_for(self, shape, dtype, config: TuckerConfig) -> TuckerPlan:
+        return self.service.plan_for(shape, dtype, config)
+
+    def run(self, requests: list[TuckerRequest]) -> list[TuckerRequest]:
+        tickets = [self.service.submit(r.x, r.config, rid=r.rid)
+                   for r in requests]
+        self.service.drain()
+        first_err: Exception | None = None
+        for r, t in zip(requests, tickets):
+            try:
+                r.result = self.service.poll(t)
+            except Exception as e:  # noqa: BLE001 - surfaced after the sweep
+                if first_err is None:
+                    first_err = e
+        if first_err is not None:
+            raise first_err
         return requests
