@@ -193,19 +193,52 @@ Phases, each printing one JSON line (any failure exits non-zero):
             record a step with the plan's (I_n, R_n, J_n, method, backend);
             ``default_selector("cuda", "hopper")`` resolves to the shipped
             ``src/repro_torch/core/models/selector_cuda_hopper.json``.
+6c. sharded the sharded backend (``repro_torch.core.distributed``) on
+            ``torch.distributed`` ranks, each a child process on the card
+            (one ``FileStore``, a 1-D ``DeviceMesh`` over axis "data";
+            each spawn's children have 180-360 s and each process group
+            300 s, and a hang or a non-zero exit fails the phase; no NCCL
+            collective runs at world 1), three spawns:
+            world 1 on NCCL: Boats with ``methods="auto"`` and ``"eig"`` and
+            HSI with ``"auto"`` at full size (``mode_order="shrink"``, as in
+            main): ``impl="auto"`` + the mesh must resolve to ``sharded``
+            computing on ``hopper``; against the single-device hopper plan
+            on the same input rel_error <= 0.02, projector gap <= 1e-3 and
+            |d rel_error| <= 1e-4 (whether the results are bitwise equal is
+            printed); warm executes timed beside the hopper plan's captured
+            and eager sweeps (the sharded layer's own overhead).
+            world 4 on gloo, four processes time-sharing the one card (no
+            speed-up measure): the same cases plus HSI at
+            ``mode_parallel=2`` and ``"auto"``, each rank passing the global
+            input: the same checks on rank 0, every rank's factors bitwise
+            equal to rank 0's, ``describe()``'s shard modes, and the calls,
+            bytes and ms of each collective (one execute with the device
+            synchronized around each collective); then the per-device cap:
+            Boats with ``mode_order="opt"`` under half the least cap the
+            single-device hopper search admits — that plan must refuse it
+            and the 4-way plan admit it — each rank making only its slab on
+            the card and passing it as a ``DTensor``; step by step, the
+            slab plus what is allocated beyond it within the cap and within
+            each step's modeled peak on every rank, rel_error <= 0.02 over
+            the mesh.  world 2 on gloo: ``TuckerBatchEngine(mesh=...)`` on 6
+            requests of three shapes, against the single-device engine.
+            ``ttt``, ``matmul`` and ``ttm_interior`` must launch on every
+            rank of every full-size case.
 8. kernels  one JSON line listing every kernel with its numbers (the TTT
             row carries the Gram's under "gram" and the range sample's under
             "sketch", the GEMM row its wide route's under "wide";
-            ``launches_adaptive`` counts the adaptive phase and
-            ``launches_tucker_serve`` the streams of tucker_serve), after a
+            ``launches_adaptive`` counts the adaptive phase,
+            ``launches_tucker_serve`` the streams of tucker_serve and
+            ``launches_sharded`` the sharded phase's ranks), after a
             ``run`` line with the whole run's seconds; then the
             ``nvidia-smi`` name/power-limit line; then the final
             ``{"ok": true, "device": ...}`` line.
 
 ``python3 chip_smoke.py --only kernels`` runs phases 1-3 only (the quick
 check after a kernel edit), ``--only tune`` phases 1, 2 and 7 (the
-command that trains the shipped cuda models) and ``--only tucker_serve``
-phases 1, 2 and 6b; none prints the kernels line.
+command that trains the shipped cuda models), ``--only tucker_serve``
+phases 1, 2 and 6b and ``--only sharded`` phases 1, 2 and 6c; none prints
+the kernels line.
 
 Imports nothing of JAX nor of the JAX package ``repro``.
 """
@@ -2786,6 +2819,471 @@ def phase_tucker_serve(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: sharded -- the sharded backend on torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+#: the accuracy limits of the main path (PERF.md §2): against the
+#: single-device hopper plan on the same input
+SHARD_GAP, SHARD_DREL, SHARD_REL = 1e-3, 1e-4, 0.02
+#: seconds a rank's process group waits in a collective before it fails
+RANK_TIMEOUT = 300
+#: the engine run's request shapes (the tucker_serve anchors) and ranks
+ENGINE_SHAPES = ((48, 40, 32), (64, 48, 32), (40, 40, 40))
+
+
+def _digest(ts) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _kernel_counts(kernels) -> dict:
+    c = kernels.launch_counts()
+    return dict({k: c[k] for k in ("ttt", "matmul", "ttm_interior")},
+                ttt_routes=kernels.ttt_route_counts(),
+                matmul_routes=kernels.matmul_route_counts())
+
+
+def sharded_main_case(torch, mesh, world, rank, name, shape, ranks, methods,
+                      mode_parallel="off") -> dict:
+    """One full-size case on the mesh: the global input (the same on every
+    rank, made from seed 0) through a sharded plan with ``impl="auto"``;
+    rank 0 also runs the single-device hopper plan on it.  Returns this
+    rank's row (the checks against the single-device plan on rank 0)."""
+    from repro_torch import kernels
+    from repro_torch.core import TuckerConfig, clear_sweep_cache, plan
+    from repro_torch.core import distributed as D
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = lowrank(torch, shape, ranks, gen)
+    cfg = dict(ranks=ranks, methods=methods, mode_order="shrink")
+    ps = plan(shape, "float32", TuckerConfig(impl="auto", mesh=mesh,
+                                             mode_parallel=mode_parallel,
+                                             **cfg))
+    require(ps.backend == "sharded" and ps.local_backend == "hopper",
+            f"{name}: impl='auto' + mesh resolved to {ps.backend!r} on "
+            f"{ps.local_backend!r}, not 'sharded' on 'hopper'")
+    if mode_parallel != "off":
+        require(any(s.group is not None for s in ps.schedule),
+                f"{name}: mode_parallel={mode_parallel!r} formed no group")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = ps.execute(x)
+    torch.cuda.synchronize()
+    launches = _kernel_counts(kernels)
+    D.reset_collective_stats()
+    with D.timed_collectives():
+        ps.execute(x)
+    coll = D.collective_stats()
+    t_sharded = synced_ms(torch, lambda: ps.execute(x), 3)   # warm: 2 ran
+    ph = xp = None
+    if rank == 0:
+        clear_sweep_cache()
+        ph = plan(shape, "float32", TuckerConfig(impl="auto", **cfg))
+        require(ph.backend == "hopper",
+                f"{name}: the single-device plan resolved to {ph.backend!r}")
+        xp = ph._place(x)
+    row = dict(case=name, world=world, rank=rank, shape=list(shape),
+               ranks=list(ranks), methods=list(ps.methods),
+               mode_parallel=mode_parallel,
+               schedule=[dict(mode=s.mode, method=s.method,
+                              shard_mode=s.shard_mode, n_shards=s.n_shards,
+                              group=s.group, peak_bytes=s.peak_bytes)
+                         for s in ps.schedule],
+               describe=ps.describe().splitlines(),
+               factors_digest=_digest(res.tucker.factors),
+               core_digest=_digest([res.tucker.core]),
+               launches=launches, collectives=coll,
+               execute_ms=statistics.median(t_sharded),
+               execute_ms_all=t_sharded)
+    if rank == 0:
+        ref = ph.execute(x)
+        rel = float(res.tucker.rel_error(x))
+        rel_h = float(ref.tucker.rel_error(x))
+        gaps = [projector_gap(torch, a, b) for a, b in
+                zip(res.tucker.factors, ref.tucker.factors)]
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip([res.tucker.core, *res.tucker.factors],
+                          [ref.tucker.core, *ref.tucker.factors]))
+        ph._run(xp, False)   # warm (ph.execute ran above)
+        if world == 1:
+            # in turns, so that the three share the card's state: the
+            # sharded execute, the hopper plan's eager and captured sweeps
+            ps.execute(x)   # its cache entry went with clear_sweep_cache
+            ts, t_he, t_h = [], [], []
+            for _ in range(3):
+                for out, fn in ((ts, lambda: ps.execute(x)),
+                                (t_he, lambda: ph._run(xp, False)),
+                                (t_h, lambda: ph.execute(x))):
+                    out.extend(synced_ms(torch, fn, 1))
+            row.update(execute_ms=statistics.median(ts), execute_ms_all=ts)
+        else:
+            t_h = synced_ms(torch, lambda: ph.execute(x), 3)
+            t_he = synced_ms(torch, lambda: ph._run(xp, False), 3)
+        row.update(rel_error=rel, rel_error_hopper=rel_h,
+                   max_projector_gap=max(gaps),
+                   bitwise_equal_hopper=bitwise,
+                   hopper_methods=list(ph.methods),
+                   hopper_execute_ms=statistics.median(t_h),
+                   hopper_execute_ms_all=t_h,
+                   hopper_eager_ms=statistics.median(t_he),
+                   hopper_eager_ms_all=t_he)
+        require(math.isfinite(rel) and rel <= SHARD_REL,
+                f"{name} (world {world}): rel_error {rel} > {SHARD_REL}")
+        require(max(gaps) <= SHARD_GAP,
+                f"{name} (world {world}): projector gap {max(gaps)} to the "
+                f"single-device hopper plan > {SHARD_GAP}")
+        require(abs(rel - rel_h) <= SHARD_DREL,
+                f"{name} (world {world}): |rel_error - hopper| = "
+                f"{abs(rel - rel_h)} > {SHARD_DREL}")
+        del ref, xp
+        clear_sweep_cache()
+    del res, x
+    torch.cuda.empty_cache()
+    _barrier(world)
+    return row
+
+
+def _barrier(world: int) -> None:
+    """Wait for every rank (nothing to wait for at world 1, whose NCCL
+    group then never starts a communicator)."""
+    if world > 1:
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def sharded_cap_case(torch, mesh, world, rank) -> dict:
+    """Boats with ``mode_order="opt"`` under a per-device cap of half the
+    least cap the single-device hopper search admits: the single-device
+    plan must refuse it (MemoryCapError) and the sharded plan admit it.
+    Each rank makes only its slab on the card (the low-rank factors from
+    seed 0 on every rank, the rows of the first step's shard mode cut to
+    the rank's chunk, 1% noise from seed 100 + rank) and passes it as a
+    DTensor.  Through the entry point, ``p.execute(dt)``, the slab plus
+    what the execute allocates beyond it must stay within the cap and
+    within the plan's largest modeled step peak; the kernels' launches are
+    read from that execute.  Then step by step (the sweep's own loop,
+    ``distributed._sweep_batches``, with a hook after each step) the same
+    must hold for each step against its own modeled peak."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch import kernels
+    from repro_torch.core import (MemoryCapError, TuckerConfig,
+                                  clear_sweep_cache, plan)
+    from repro_torch.core import distributed as D
+    from repro_torch.core import tensor_ops as T
+    shape, ranks = BOATS
+
+    def single(c):
+        return plan(shape, "float32", TuckerConfig(
+            ranks=ranks, mode_order="opt", memory_cap_bytes=c, impl="auto"))
+    least = least_cap(single)
+    cap = least // 2
+    try:
+        single(cap)
+        refused = None
+    except MemoryCapError as e:
+        refused = str(e)
+    require(refused is not None, f"cap: the single-device plan admits "
+            f"{cap} B, half its least cap {least} B")
+    p = plan(shape, "float32", TuckerConfig(
+        ranks=ranks, mode_order="opt", memory_cap_bytes=cap, impl="auto",
+        mesh=mesh))
+    require(p.backend == "sharded" and p.local_backend == "hopper",
+            f"cap: the sharded plan resolved to {p.backend!r} on "
+            f"{p.local_backend!r}")
+    require(all(s.peak_bytes <= cap for s in p.schedule),
+            "cap: a sharded step models more than the cap")
+    s0 = p.schedule[0].shard_mode
+    require(s0 is not None, "cap: the first step does not shard")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    core = torch.randn(ranks, generator=gen, device="cuda")
+    us = [torch.linalg.qr(torch.randn((d, r), generator=gen,
+                                      device="cuda"))[0]
+          for d, r in zip(shape, ranks)]
+    c = shape[s0] // world
+    mine = list(us)
+    mine[s0] = us[s0][rank * c:(rank + 1) * c]
+    slab = T.reconstruct(core, mine)
+    g2 = torch.Generator(device="cuda").manual_seed(100 + rank)
+    noise = torch.randn(slab.shape, generator=g2, device="cuda")
+    slab.add_(noise, alpha=0.01 * float(T.fro_norm(slab) / T.fro_norm(noise)))
+    del noise, core, us, mine
+    clear_sweep_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dt = DTensor.from_local(slab, mesh, [Shard(s0)])
+    base = torch.cuda.memory_allocated()
+    x_bytes = slab.numel() * slab.element_size()
+    step_peak = max(s.peak_bytes for s in p.schedule)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = p.execute(dt)
+    torch.cuda.synchronize()
+    launches = _kernel_counts(kernels)
+    execute_peak = x_bytes + torch.cuda.max_memory_allocated() - base
+    # per step, on the sweep's own loop (the factors and the gathered core
+    # stay referenced by res, so they sit in the base of no step)
+    ax = D.ShardAxis.of(mesh, p.config.resolved_shard_axis)
+    inside, boundary = [], []
+
+    def on_batch(batch, y):
+        torch.cuda.synchronize()
+        inside.extend([torch.cuda.max_memory_allocated() - base2]
+                      * len(batch))
+        boundary.append(torch.cuda.memory_allocated() - base2)
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    base2 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    D._sweep_batches(slab, p.schedule, ax, p.local_backend, s0,
+                     p.config.als_iters, on_batch)
+    torch.cuda.empty_cache()
+    over_cap = [k for k, b in enumerate(inside) if x_bytes + b > cap]
+    over_model = [k for k, (s, b) in enumerate(zip(p.schedule, inside))
+                  if x_bytes + b > s.peak_bytes]
+    # rel_error over the mesh: each rank's slab against its rows of X̂
+    f = list(res.tucker.factors)
+    f[s0] = f[s0][rank * c:(rank + 1) * c]
+    resid = (slab - T.reconstruct(res.tucker.core, f)).double().square().sum()
+    norm = slab.double().square().sum()
+    sums = torch.stack([resid, norm])
+    dist.all_reduce(sums)
+    rel = float((sums[0] / sums[1]).sqrt())
+    row = dict(case="cap", world=world, rank=rank, shape=list(shape),
+               ranks=list(ranks), cap=cap, single_least_cap=least,
+               single_refusal=refused,
+               schedule=[dict(mode=s.mode, method=s.method,
+                              shard_mode=s.shard_mode, n_shards=s.n_shards,
+                              peak_bytes=s.peak_bytes) for s in p.schedule],
+               slab_bytes=x_bytes, other_bytes_before=base - x_bytes,
+               execute_peak_with_slab=execute_peak,
+               max_modeled_step_peak=step_peak, plan_peak_bytes=p.peak_bytes,
+               max_allocated_with_slab_inside_steps=[x_bytes + b
+                                                     for b in inside],
+               allocated_beyond_slab_at_boundaries=boundary,
+               launches=launches, rel_error=rel,
+               factors_digest=_digest(res.tucker.factors))
+    require(execute_peak <= cap and execute_peak <= step_peak,
+            f"cap (rank {rank}): p.execute held {execute_peak} B with its "
+            f"slab, over the cap {cap} or the largest modeled step peak "
+            f"{step_peak}")
+    require(not over_cap, f"cap (rank {rank}): steps {over_cap} exceed the "
+            f"cap {cap}: {row['max_allocated_with_slab_inside_steps']}")
+    require(not over_model, f"cap (rank {rank}): steps {over_model} exceed "
+            f"their modeled peaks {[s.peak_bytes for s in p.schedule]}: "
+            f"{row['max_allocated_with_slab_inside_steps']}")
+    require(math.isfinite(rel) and rel <= SHARD_REL,
+            f"cap: rel_error {rel} > {SHARD_REL}")
+    del res, slab, dt
+    clear_sweep_cache()
+    torch.cuda.empty_cache()
+    _barrier(world)
+    return row
+
+
+def sharded_engine_case(torch, mesh, world, rank) -> dict:
+    """``TuckerBatchEngine(mesh=...)`` on 6 requests of three shapes (ranks
+    (4, 4, 4), ``methods="eig"``), against the single-device engine's
+    results on rank 0 (projector gap and rel_error)."""
+    from repro_torch import kernels
+    from repro_torch.core import TuckerConfig, clear_sweep_cache
+    from repro_torch.serve import TuckerBatchEngine, TuckerRequest
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cfg = TuckerConfig(ranks=(4, 4, 4), methods="eig")
+    xs = [lowrank(torch, s, (4, 4, 4), gen) for s in ENGINE_SHAPES * 2]
+    reqs = [TuckerRequest(x=x, config=cfg, rid=i) for i, x in enumerate(xs)]
+    eng = TuckerBatchEngine(mesh=mesh)
+    kernels.reset_launch_counts()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = _kernel_counts(kernels)
+    st = eng.stats
+    row = dict(case="engine", world=world, rank=rank,
+               shapes=[list(s) for s in ENGINE_SHAPES],
+               backends=st["backends"], plans_built=st["plans_built"],
+               batches=st["batches"], launches=launches,
+               factors_digest=_digest([u for r in reqs
+                                       for u in r.result.tucker.factors]))
+    require(st["backends"] == {"sharded": len(reqs)},
+            f"engine: backends {st['backends']}")
+    if rank == 0:
+        clear_sweep_cache()
+        ref = [TuckerRequest(x=x, config=cfg, rid=i)
+               for i, x in enumerate(xs)]
+        TuckerBatchEngine().run(ref)
+        gaps, drel = [], []
+        for a, b, x in zip(reqs, ref, xs):
+            gaps.append(max(projector_gap(torch, u, v) for u, v in
+                            zip(a.result.tucker.factors,
+                                b.result.tucker.factors)))
+            drel.append(abs(float(a.result.tucker.rel_error(x))
+                            - float(b.result.tucker.rel_error(x))))
+        row.update(max_projector_gap=max(gaps), max_rel_error_diff=max(drel))
+        require(max(gaps) <= SHARD_GAP and max(drel) <= SHARD_DREL,
+                f"engine: against the single-device engine, projector gap "
+                f"{max(gaps)}, |d rel_error| {max(drel)}")
+        clear_sweep_cache()
+    _barrier(world)
+    return row
+
+
+#: the cases each spawn of ranks runs: (world, backend, seconds its ranks
+#: may take in all, [case specs]); a rank that outlives them is killed and
+#: fails the phase
+SHARD_SPAWNS = (
+    (1, "nccl", 180, [("main", "boats", "auto", "off"),
+                 ("main", "boats_eig", "eig", "off"),
+                 ("main", "hsi", "auto", "off")]),
+    (4, "gloo", 360, [("main", "boats", "auto", "off"),
+                 ("main", "boats_eig", "eig", "off"),
+                 ("main", "hsi", "auto", "off"),
+                 ("main", "hsi_mp2", "auto", 2),
+                 ("main", "hsi_mp_auto", "auto", "auto"),
+                 ("cap",), ]),
+    (2, "gloo", 180, [("engine",)]),
+)
+
+
+def sharded_rank(world: int, backend: str, rank: int, store: str,
+                 cases) -> list[dict]:
+    """One rank of a spawn: join the process group (a FileStore, a timeout),
+    build the 1-D mesh over axis ``"data"`` on the card and run ``cases``.
+    Prints one JSON line per case."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    rows = []
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+        for spec in cases:
+            kind = spec[0]
+            if kind == "main":
+                _, name, methods, mp = spec
+                shape, ranks = BOATS if name.startswith("boats") else HSI
+                row = sharded_main_case(torch, mesh, world, rank, name,
+                                        shape, ranks, methods, mp)
+            elif kind == "cap":
+                row = sharded_cap_case(torch, mesh, world, rank)
+            else:
+                row = sharded_engine_case(torch, mesh, world, rank)
+            row["backend"] = backend
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def spawn_ranks(world: int, backend: str, limit: float,
+                cases) -> list[list[dict]]:
+    """Run ``cases`` in ``world`` child processes (one a rank, all on the
+    card) over one FileStore; the children have ``limit`` seconds, a hang
+    or a non-zero exit fails the phase (a failed rank's peers, which may
+    wait on it in a collective, are killed at once).  Returns each rank's
+    rows."""
+    import os
+    import tempfile
+    code = ("import json, sys\n"
+            "import chip_smoke as C\n"
+            "C.sharded_rank(int(sys.argv[1]), sys.argv[2], int(sys.argv[3]),"
+            " sys.argv[4], json.loads(sys.argv[5]))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(SRC), str(ROOT)]))
+    with tempfile.TemporaryDirectory() as d:
+        store = str(Path(d) / "store")
+        logs = [(open(Path(d) / f"out{r}", "w+"), open(Path(d) / f"err{r}",
+                                                          "w+"))
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, str(world), backend, str(r), store,
+             json.dumps(cases)], env=env, stdout=logs[r][0],
+            stderr=logs[r][1], text=True) for r in range(world)]
+        hung = []
+        deadline = time.monotonic() + limit
+        while True:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break   # all done, or one failed (the rest may wait on it)
+            if time.monotonic() > deadline:
+                hung = [r for r, c in enumerate(codes) if c is None]
+                break
+            time.sleep(0.2)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        outs = []
+        for out, err in logs:
+            out.seek(0)
+            err.seek(0)
+            outs.append((out.read(), err.read()))
+            out.close()
+            err.close()
+    for r, (out, err) in enumerate(outs):
+        if r in hung or procs[r].returncode != 0:
+            print(f"--- rank {r} of world {world} ({backend}) ---\n"
+                  f"{out[-2000:]}\n{err[-3000:]}", file=sys.stderr,
+                  flush=True)
+    require(not hung, f"sharded: ranks {hung} of world {world} ({backend}) "
+            f"timed out after {limit} s")
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    require(not bad, f"sharded: ranks {bad} of world {world} ({backend}) "
+            f"exited {[procs[r].returncode for r in bad]}")
+    return [[json.loads(ln) for ln in out.splitlines()
+             if ln.startswith("{")] for out, _ in outs]
+
+
+def phase_sharded(torch) -> dict:
+    """The sharded backend on the card (see the module docstring): world 1
+    on NCCL, world 4 on gloo (four processes time-sharing the one card) with
+    the per-device cap case, world 2 on gloo through the engine.  Checks
+    every rank's factors bitwise equal to rank 0's and every Tucker kernel
+    launched on every rank of the full-size cases; returns the kernels'
+    launches summed over ranks and cases."""
+    t_phase = time.perf_counter()
+    launched = {k: 0 for k in ("ttt", "matmul", "ttm_interior")}
+    for world, backend, limit, cases in SHARD_SPAWNS:
+        t0 = time.perf_counter()
+        per_rank = spawn_ranks(world, backend, limit, cases)
+        for i, spec in enumerate(cases):
+            rows = [rs[i] for rs in per_rank]
+            digests = {r["factors_digest"] for r in rows}
+            require(len(digests) == 1, f"sharded {rows[0]['case']} (world "
+                    f"{world}): factors differ across ranks {digests}")
+            for r in rows:
+                for k in launched:
+                    launched[k] += r["launches"][k]
+                if spec[0] in ("main", "cap"):
+                    missing = [k for k in launched if r["launches"][k] == 0]
+                    require(not missing, f"sharded {r['case']} (world "
+                            f"{world}, rank {r['rank']}): {missing} never "
+                            "launched")
+            head = dict(rows[0])
+            head["ranks_execute_ms"] = [r.get("execute_ms") for r in rows]
+            head["ranks_launches"] = [r["launches"] for r in rows]
+            if "collectives" in head:
+                head["ranks_collectives"] = [r["collectives"] for r in rows]
+            if "execute_peak_with_slab" in head:
+                head["ranks_execute_peak"] = [r["execute_peak_with_slab"]
+                                              for r in rows]
+            emit("sharded", **head)
+        emit("sharded", part="spawn", world=world, backend=backend,
+             seconds=time.perf_counter() - t0)
+    emit("sharded", part="summary", launches=launched,
+         phase_s=time.perf_counter() - t_phase)
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the tune flywheel -- collect, train and calibrate on the card
 # ---------------------------------------------------------------------------
 
@@ -3032,12 +3530,14 @@ def phase_tune(torch, smi: str) -> dict:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernels", "tune", "tucker_serve"),
+    ap.add_argument("--only", choices=("kernels", "tune", "tucker_serve",
+                                       "sharded"),
                     help="kernels: run env, build and the kernel phases "
                          "(small and full-size shapes) only: no large "
                          "operands, main path or serve run; tune: env, "
                          "build and the tune phase only; tucker_serve: env, "
-                         "build and the Tucker service phase only; none "
+                         "build and the Tucker service phase only; sharded: "
+                         "env, build and the sharded phase only; none "
                          "prints the kernels line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3054,9 +3554,10 @@ def main(argv=None) -> int:
     try:
         smi, peaks = phase_env(torch)
         phase_build()
-        if args.only in ("tune", "tucker_serve"):
-            (phase_tune(torch, smi) if args.only == "tune"
-             else phase_tucker_serve(torch))
+        if args.only in ("tune", "tucker_serve", "sharded"):
+            {"tune": lambda: phase_tune(torch, smi),
+             "tucker_serve": lambda: phase_tucker_serve(torch),
+             "sharded": lambda: phase_sharded(torch)}[args.only]()
             emit("run", seconds=time.perf_counter() - t_run)
             print(smi, flush=True)
             return 0
@@ -3073,6 +3574,7 @@ def main(argv=None) -> int:
         adaptive = phase_adaptive(torch)
         launched["s6_scan"] = phase_serve(torch)
         tucker_serve = phase_tucker_serve(torch)
+        sharded = phase_sharded(torch)
         phase_tune(torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
@@ -3086,6 +3588,7 @@ def main(argv=None) -> int:
         row = dict(name=name, route="cuda", **meta, launches=launched[name],
                    launches_adaptive=adaptive.get(name),
                    launches_tucker_serve=tucker_serve.get(name),
+                   launches_sharded=sharded.get(name),
                    max_abs_err=m["max_abs_err"], ms=m["ms"],
                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                    bound_by=m["bound_by"], library_ms=m["library_ms"],

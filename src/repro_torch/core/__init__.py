@@ -1,10 +1,14 @@
 """a-Tucker core on PyTorch: input-adaptive, matricization-free Tucker decomposition.
 
-Public API (single-device plans; the sharded path is a later slice):
+Public API:
   TuckerConfig / plan / TuckerPlan / decompose — plan/execute front door
       (static solver schedules, cached sweeps on the plan's device —
       captured into CUDA graphs on the card —, batched execution; fixed
-      ranks or an error target; the execute-time fallback ladder)
+      ranks or an error target; the execute-time fallback ladder; sharded
+      and mode-parallel plans over a torch.distributed DeviceMesh)
+  mesh_spec / mesh_from_spec — a mesh's JSON spec and its rebuild
+  distributed — the sharded backend's execution engine (SPMD collectives,
+      sthosvd_distributed legacy entry, pick_shard_mode)
   clear_sweep_cache / CACHE_STATS — the process-wide sweep cache
   sthosvd / sthosvd_eig / sthosvd_als / sthosvd_svd, variants.thosvd /
       variants.hooi — legacy per-call wrappers over plan/execute
@@ -19,17 +23,18 @@ Public API (single-device plans; the sharded path is a later slice):
   tensor_ops — matricization-free TTM/TTT/Gram (+ explicit baselines)
   OpsBackend / register_backend / get_backend / resolve_backend /
       backend_names — pluggable ops-backend registry (matfree | explicit |
-      hopper | custom) behind TuckerConfig.impl
+      hopper | sharded | custom) behind TuckerConfig.impl
 """
 
 # NOTE: the attribute ``repro_torch.core.plan`` is the api.plan FUNCTION (the
 # front-door entry point), which shadows the ``plan`` submodule on the
 # package.  ``from repro_torch.core.plan import ...`` still resolves the
 # module (sys.modules), and ``plan_lib`` aliases it for attribute access.
-from . import backend, cost_model, plan as plan_lib, tensor_ops, variants
+from . import (backend, cost_model, distributed, plan as plan_lib, tensor_ops,
+               variants)
 from .api import (CACHE_STATS, TuckerConfig, TuckerPlan, clear_sweep_cache,
-                  decompose, fallback_hops, plan, reset_fallback_hops,
-                  resolve_device)
+                  decompose, fallback_hops, mesh_from_spec, mesh_spec, plan,
+                  reset_fallback_hops, resolve_device)
 from .backend import (
     OpsBackend,
     backend_names,
@@ -59,8 +64,9 @@ __all__ = [
     "als_solve", "backend", "backend_names", "check_finite",
     "classify_exception", "clear_sweep_cache", "coerce_exception",
     "cost_model", "decompose",
-    "default_selector", "eig_solve", "extract_features", "fallback_hops",
-    "get_backend", "optimize_grouping", "optimize_schedule", "plan",
+    "default_selector", "distributed", "eig_solve", "extract_features",
+    "fallback_hops", "get_backend", "mesh_from_spec", "mesh_spec",
+    "optimize_grouping", "optimize_schedule", "plan",
     "plan_lib", "rand_sketch", "rand_solve", "register_backend",
     "reset_fallback_hops", "resolve_backend", "resolve_device",
     "resolve_schedule", "sthosvd", "sthosvd_als", "sthosvd_eig",

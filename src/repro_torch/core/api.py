@@ -53,8 +53,13 @@ captured graph, each fallback hop as a ``fallback`` event and in the
 ``atucker_fallback_hops_total`` counter) and carries the chaos seams of
 :mod:`repro_torch.chaos` (``sweep``, ``sweep_out``, ``sketch``).
 
-The reference's sharded (``mesh``) and mode-parallel paths arrive with a
-later slice; asking for them raises :class:`NotImplementedError`.
+Sharded plans (``TuckerConfig(mesh=...)`` with a ``torch.distributed``
+``DeviceMesh``) run SPMD: every rank of the mesh calls ``plan`` and
+``execute`` with the same arguments, passing either the global tensor or a
+``DTensor`` holding only its slab; :mod:`repro_torch.core.distributed` runs
+the schedule with explicit collectives, and every rank gets the replicated
+factors and the all-gathered core.  With a mesh, ``device=None`` is the
+rank's current CUDA device.
 """
 
 from __future__ import annotations
@@ -75,7 +80,8 @@ from ..obs import metrics as _metrics
 from ..obs import trace as _obs
 from . import graphs as G
 from . import tensor_ops as T
-from .backend import backend_ops, get_backend, resolve_backend
+from .backend import (backend_ops, get_backend, local_backend,
+                      resolve_backend)
 from .errors import (CancelledError, DeadlineError, InputError,
                      NumericalError, ResourceError, check_finite,
                      check_result_finite, classify_exception)
@@ -96,9 +102,34 @@ def _active_sink():
     return tune.active_sink() if tune is not None else None
 
 
-def _later(feature: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{feature} is not part of the PyTorch port "
-                               f"yet; it lands with the {slice_name} slice")
+def mesh_spec(mesh) -> dict | None:
+    """JSON-serializable description of a ``DeviceMesh``: axis names +
+    per-axis sizes, the reference's schema.  Device identities are not
+    serialized: a plan made on one host rebuilds its mesh from the local
+    process group on another."""
+    if mesh is None:
+        return None
+    return {"axis_names": list(mesh.mesh_dim_names),
+            "shape": [int(s) for s in mesh.shape]}
+
+
+def mesh_from_spec(spec: dict | None):
+    """Rebuild a ``DeviceMesh`` from :func:`mesh_spec` output over the
+    initialized default process group (every rank calls it, as it calls
+    ``init_device_mesh``): on CUDA when the host has it, else on the CPU.
+    Returns None when the spec is None, no process group is initialized, or
+    the world is not the spec's size — the plan then loads for inspection
+    but ``execute`` raises until a real mesh is available."""
+    if spec is None:
+        return None
+    import torch.distributed as dist
+    shape = tuple(int(s) for s in spec["shape"])
+    if not (dist.is_available() and dist.is_initialized()) or \
+            math.prod(shape) != dist.get_world_size():
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cuda" if torch.cuda.is_available() else "cpu",
+                            shape, mesh_dim_names=tuple(spec["axis_names"]))
 
 
 @dataclass(frozen=True)
@@ -128,6 +159,20 @@ class TuckerConfig:
     reference's plan-level cap check: the held input must fit beside every
     later step (see :func:`plan`).
 
+    ``mesh`` attaches a ``torch.distributed`` ``DeviceMesh`` (with
+    ``mesh_dim_names``) for multi-device execution: ``impl="sharded"``
+    requires one, and ``impl="auto"`` resolves to the sharded backend
+    whenever one is present; a single-device ``impl`` with a mesh is
+    rejected.  ``shard_axis`` names the mesh axis the tensor is sharded over
+    (default: the mesh's first axis).  The mesh serializes as its SPEC
+    (:func:`mesh_spec`).  ``memory_cap_bytes`` is then a per-device cap.
+
+    ``mode_parallel`` opts sharded st-HOSVD sweeps into MODE-PARALLEL
+    groups (one collective barrier for a group's Grams, more FLOPs):
+    ``"off"`` (default), an int ``G ≥ 2`` (the first G modes of the resolved
+    order), or ``"auto"`` (the schedule DP prices it; sequential on a single
+    device).
+
     ``error_target`` switches the plan RANK-ADAPTIVE (st-HOSVD only): pass a
     target relative reconstruction error ε ∈ (0, 1) and ``ranks`` becomes
     optional — the plan carries a rank POLICY, and execution reads each
@@ -144,8 +189,6 @@ class TuckerConfig:
     (ℓ = r + oversample columns, subspace-iteration count).
     ``SthosvdResult.error_bound`` then reports the certified bound
     ``sqrt(Σ_n tail_n)/||X||`` measured from the executed sketch.
-
-    ``mesh`` raises until the sharded slice.
     """
     ranks: tuple[int, ...] | None = None
     variant: str = "sthosvd"
@@ -166,8 +209,11 @@ class TuckerConfig:
     power_iters: int = DEFAULT_POWER_ITERS
 
     def __post_init__(self):
-        if self.mesh is not None or self.shard_axis is not None:
-            raise _later("multi-device execution (mesh=...)", "sharded")
+        if self.mesh is not None and \
+                not getattr(self.mesh, "mesh_dim_names", None):
+            raise ValueError("mesh must be a torch.distributed DeviceMesh "
+                             "with mesh_dim_names (init_device_mesh(..., "
+                             "mesh_dim_names=('data',)))")
         if self.ranks is not None:
             object.__setattr__(self, "ranks",
                                tuple(int(r) for r in self.ranks))
@@ -188,11 +234,12 @@ class TuckerConfig:
                 raise ValueError("rank-adaptive plans are sequential (the "
                                  "per-mode budget check threads the shrink); "
                                  "mode_parallel must stay 'off'")
-            if self.impl == "sharded":
+            if self.mesh is not None or self.impl == "sharded":
                 raise ValueError("rank-adaptive plans run replicated (the "
                                  "sketch has no collective path); drop the "
-                                 "sharded impl, or resolve ranks first and "
-                                 "plan the fixed-rank sweep at the result")
+                                 "mesh / sharded impl, or resolve ranks "
+                                 "first and plan the fixed-rank sharded "
+                                 "sweep at the result")
         if self.rank_grid is not None:
             if self.error_target is None:
                 raise ValueError("rank_grid is part of the rank-adaptive "
@@ -229,7 +276,14 @@ class TuckerConfig:
             raise ValueError(f"unknown variant {self.variant!r}; "
                              f"expected one of {VARIANTS}")
         if self.impl != "auto":
-            get_backend(self.impl)   # ValueError on unregistered names
+            b = get_backend(self.impl)   # ValueError on unregistered names
+            # a mesh on a single-device backend would be silently ignored
+            if self.mesh is not None and not b.requires_mesh:
+                raise ValueError(
+                    f"config carries a mesh but impl={self.impl!r} executes "
+                    "on a single device; pass impl='sharded' (or 'auto', "
+                    "which resolves to it when a mesh is present) or drop "
+                    "the mesh")
         if self.compute_dtype is not None:
             T.dtype_name(self.compute_dtype)
         if self.als_iters < 1 or self.hooi_iters < 0:
@@ -241,6 +295,26 @@ class TuckerConfig:
                              "or an int max group size")
         if isinstance(mp, int) and mp < 1:
             raise ValueError(f"mode_parallel={mp} must be >= 1")
+        if self.shard_axis is not None and self.mesh is not None and \
+                self.shard_axis not in self.mesh.mesh_dim_names:
+            raise ValueError(f"shard_axis {self.shard_axis!r} not in mesh "
+                             f"axes {self.mesh.mesh_dim_names}")
+
+    @property
+    def resolved_shard_axis(self) -> str | None:
+        """The mesh axis sharded executions split over (explicit
+        ``shard_axis`` or the mesh's first axis); None without a mesh."""
+        if self.mesh is None:
+            return self.shard_axis
+        return self.shard_axis or self.mesh.mesh_dim_names[0]
+
+    @property
+    def n_shards(self) -> int:
+        """Device count along the shard axis (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        names = tuple(self.mesh.mesh_dim_names)
+        return int(self.mesh.size(names.index(self.resolved_shard_axis)))
 
     def to_dict(self) -> dict:
         d = {"ranks": None if self.ranks is None else list(self.ranks),
@@ -253,7 +327,7 @@ class TuckerConfig:
              "impl": self.impl, "als_iters": self.als_iters,
              "hooi_iters": self.hooi_iters,
              "compute_dtype": self.compute_dtype,
-             "mesh": None,
+             "mesh": mesh_spec(self.mesh),
              "shard_axis": self.shard_axis,
              "memory_cap_bytes": self.memory_cap_bytes,
              "donate_input": self.donate_input,
@@ -271,9 +345,6 @@ class TuckerConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "TuckerConfig":
-        if d.get("mesh") is not None:
-            raise _later("multi-device execution (a plan with a mesh)",
-                         "sharded")
         rg = d.get("rank_grid")
         if rg is not None:
             rg = tuple(tuple(g) if isinstance(g, list) else int(g)
@@ -290,6 +361,7 @@ class TuckerConfig:
                    als_iters=d.get("als_iters", DEFAULT_ALS_ITERS),
                    hooi_iters=d.get("hooi_iters", 3),
                    compute_dtype=d.get("compute_dtype"),
+                   mesh=mesh_from_spec(d.get("mesh")),
                    shard_axis=d.get("shard_axis"),
                    memory_cap_bytes=d.get("memory_cap_bytes"),
                    donate_input=d.get("donate_input"),
@@ -300,10 +372,13 @@ class TuckerConfig:
                    power_iters=d.get("power_iters", DEFAULT_POWER_ITERS))
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device a plan runs on: ``cuda:0`` when ``device`` is None.  Raises
-    when CUDA is asked for (or implied) and not available — never falls
-    back to the CPU."""
+def resolve_device(device=None, *, mesh=None) -> torch.device:
+    """The device a plan runs on: ``cuda:0`` when ``device`` is None, or,
+    with a ``mesh``, the rank's current CUDA device.  Raises when CUDA is
+    asked for (or implied) and not available — never falls back to the
+    CPU."""
+    if device is None and mesh is not None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
     dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -374,6 +449,60 @@ def _eager_sweep(steps: tuple, cfg: "TuckerConfig", n: int
     return sweep
 
 
+def _require_mesh(cfg: "TuckerConfig") -> None:
+    """Raise when a sharded plan's config has no mesh to run on."""
+    if cfg.mesh is None:
+        raise RuntimeError(
+            "plan requires a mesh to execute its sharded schedule (no "
+            "process group of the plan's mesh size was initialized when it "
+            "loaded, or the config lost its mesh); re-plan with "
+            "TuckerConfig(mesh=...) after init_process_group")
+
+
+def _sharded_sweep(p: "TuckerPlan") -> Callable[[torch.Tensor], tuple]:
+    """The sweep of a sharded plan as ``x -> (core, factors)`` on this
+    rank's slab ``x`` (sharded on the first step's shard mode): the
+    compute-dtype cast, then :mod:`repro_torch.core.distributed`'s sweep on
+    the plan's mesh, computing on :attr:`TuckerPlan.local_backend`."""
+    cfg = p.config
+    _require_mesh(cfg)
+    from .distributed import sweep_mode_parallel
+    steps = p.schedule
+    cdtype = T.torch_dtype(cfg.compute_dtype) if cfg.compute_dtype else None
+    mesh, axis, local = cfg.mesh, cfg.resolved_shard_axis, p.local_backend
+
+    def sweep(x: torch.Tensor):
+        if cdtype is not None:
+            x = x.to(cdtype)
+        return sweep_mode_parallel(x, steps, mesh=mesh, axis=axis,
+                                   local=local, placed=steps[0].shard_mode,
+                                   als_iters=cfg.als_iters)
+
+    return sweep
+
+
+def _plan_sweep(p: "TuckerPlan") -> Callable[[torch.Tensor], tuple]:
+    """The uncached eager sweep of a fixed-rank plan."""
+    if p.backend == "sharded":
+        return _sharded_sweep(p)
+    return _eager_sweep(p.schedule, p.config, len(p.shape))
+
+
+def _check_finite_everywhere(x: torch.Tensor, cfg: "TuckerConfig") -> None:
+    """:func:`~repro_torch.core.errors.check_finite` of a sharded plan's
+    input: every rank learns (one ``all_reduce`` of a count) whether any
+    rank's slab holds NaN/Inf, so all of them raise together instead of
+    one raising while the others wait in the sweep's first collective.  A
+    rank whose own slab is bad names the mode as ``check_finite`` does."""
+    from .distributed import ShardAxis, all_reduce
+    bad = (~torch.isfinite(x)).sum().reshape(1).to(torch.float64)
+    bad = all_reduce(bad, ShardAxis.of(cfg.mesh, cfg.resolved_shard_axis))
+    if float(bad[0]) > 0:
+        check_finite(x, name="input")
+        raise InputError(f"input contains {int(bad[0])} non-finite value(s) "
+                         "on other ranks of the mesh")
+
+
 class _Sweep:
     """One cache entry: a plan's sweep, eager or captured
     (:class:`~repro_torch.core.graphs.CapturedSweep`), over one tensor or
@@ -384,7 +513,7 @@ class _Sweep:
     captures."""
 
     def __init__(self, p: "TuckerPlan", batched: bool, captured: bool):
-        run = _eager_sweep(p.schedule, p.config, len(p.shape))
+        run = _plan_sweep(p)
         self.graphs = G.CapturedSweep(run, device=p.device,
                                       on_capture=_count_trace) \
             if captured else None
@@ -467,9 +596,23 @@ class TuckerPlan:
         return sum(s.predicted_s for s in self.schedule)
 
     @property
+    def local_backend(self) -> str | None:
+        """The backend each rank of a sharded plan computes its slab with
+        (:func:`repro_torch.core.backend.local_backend`: ``hopper`` on CUDA,
+        ``matfree`` on the CPU); None for single-device plans."""
+        if self.backend != "sharded":
+            return None
+        return local_backend(self.device.type,
+                             self.config.compute_dtype or self.dtype,
+                             self.shape)
+
+    @property
     def input_bytes(self) -> int:
-        """Bytes of the caller's input buffer in the plan's storage dtype."""
-        return math.prod(self.shape) * T.itemsize(self.dtype)
+        """Per-device bytes of the caller's input buffer in the plan's
+        storage dtype: divided by the first step's shard count for sharded
+        plans (the rank's slab of a ``DTensor`` input)."""
+        return math.prod(self.shape) * T.itemsize(self.dtype) \
+            // self.schedule[0].n_shards
 
     @property
     def donates(self) -> bool:
@@ -479,16 +622,23 @@ class TuckerPlan:
 
     @property
     def peak_bytes(self) -> int:
-        """Modeled peak across the sweep.  The sweep never donates, so an
-        st-HOSVD sweep keeps the caller's (dead after step 0) input alive
-        through every later step: those steps charge ``input_bytes`` on top
-        of their own working set (the reference's undonated figure)."""
+        """Modeled (per-device) peak across the sweep.  The sweep never
+        donates, so an st-HOSVD sweep keeps the caller's (dead after step 0)
+        input alive through every later step: those steps charge
+        ``input_bytes`` on top of their own working set (the reference's
+        undonated figure).  A leading mode-parallel group counts as step 0:
+        every member reads the full input, which its group peak charges."""
         peaks = [s.peak_bytes for s in self.schedule]
         if self.config.variant != "sthosvd" or len(peaks) == 1:
             # t-HOSVD/HOOI read X in (almost) every step — it is already
             # counted in their per-step io
             return max(peaks)
-        return max(peaks[0], max(p + self.input_bytes for p in peaks[1:]))
+        from .plan import iter_groups
+        k0 = len(next(iter_groups(self.schedule)))
+        if k0 >= len(peaks):
+            return max(peaks)
+        return max(max(peaks[:k0]),
+                   max(p + self.input_bytes for p in peaks[k0:]))
 
     @property
     def capped_peak_bytes(self) -> int:
@@ -510,7 +660,8 @@ class TuckerPlan:
         graphs' private pool and static input would sit beside every step).
         Decided from the plan alone, never from an error."""
         return (self.device.type == "cuda" and not self.is_adaptive
-                and self.config.memory_cap_bytes is None)
+                and self.config.memory_cap_bytes is None
+                and self.backend != "sharded")
 
     @property
     def graph_segments(self) -> int:
@@ -523,13 +674,15 @@ class TuckerPlan:
     def _cache_key(self, batched: bool, captured: bool) -> tuple:
         # keyed on the RESOLVED per-step backend, not config.impl: two plans
         # whose "auto" resolved identically share one sweep; a captured and
-        # an eager sweep of one schedule are distinct entries
+        # an eager sweep of one schedule are distinct entries; sharded plans
+        # also key on the mesh, the axis and the frozen shard modes/groups
         return (self.shape, self.dtype,
-                tuple((s.mode, s.method, s.r_n, s.backend)
+                tuple((s.mode, s.method, s.r_n, s.backend, s.shard_mode,
+                       s.group)
                       for s in self.schedule),
                 self.config.variant, self.config.als_iters,
                 self.config.compute_dtype, batched, str(self.device),
-                captured)
+                captured, self.config.mesh, self.config.resolved_shard_axis)
 
     def _sweep(self, batched: bool = False, eager: bool = False) -> _Sweep:
         """The cached sweep (``eager=True`` forces the eager one)."""
@@ -560,6 +713,10 @@ class TuckerPlan:
 
     # -- execution -----------------------------------------------------------
     def _place(self, x) -> torch.Tensor:
+        """``x`` on the plan's device, checked against its shape and dtype;
+        for a sharded plan this rank's slab of it, sharded on the first
+        step's shard mode (:func:`repro_torch.core.distributed.local_input`:
+        a ``DTensor`` gives its local tensor, a global tensor is narrowed)."""
         x = _as_tensor(x)
         if tuple(x.shape) != self.shape:
             raise InputError(f"plan is for shape {self.shape}, got "
@@ -567,6 +724,12 @@ class TuckerPlan:
         if T.dtype_name(x.dtype) != self.dtype:
             raise InputError(f"plan is for dtype {self.dtype}, got "
                              f"{T.dtype_name(x.dtype)}")
+        if self.backend == "sharded":
+            _require_mesh(self.config)
+            from .distributed import local_input
+            return local_input(x, self.config.mesh,
+                               self.config.resolved_shard_axis,
+                               self.schedule[0].shard_mode, self.device)
         return x.to(self.device).contiguous()
 
     def execute(self, x, *, record: bool = False, donate: bool | None = None,
@@ -589,6 +752,13 @@ class TuckerPlan:
         mode and checks the outputs (raising
         :class:`~repro_torch.core.errors.NumericalError`, which the ladder
         then gets a chance to recover).
+
+        A sharded plan is executed by every rank of its mesh with the same
+        arguments; ``x`` is the global tensor or a ``DTensor`` on the mesh
+        holding the rank's slab.  Its sweep stays eager (a cached closure
+        per plan key); ``record=True`` raises, since the per-step recorded
+        runner is single-device (:func:`~repro_torch.core.distributed.sthosvd_distributed`
+        times sharded steps), and an active recording context is not fed.
 
         A rank-adaptive plan runs its sketch pass and then the sketch's own
         result or a fixed-rank refinement (:meth:`_execute_adaptive`), both
@@ -631,13 +801,18 @@ class TuckerPlan:
         if validate not in (None, "none", "finite"):
             raise ValueError(
                 f"validate must be None, 'none' or 'finite', got {validate!r}")
-        for s in self.schedule:
-            if s.n_shards > 1 or s.group is not None:
-                raise _later("executing a sharded or mode-parallel schedule",
-                             "sharded")
+        sharded = self.backend == "sharded"
+        if record and sharded:
+            raise ValueError(
+                "record=True needs the per-step recorded runner, which "
+                "sharded plans do not have; time sharded steps with "
+                "distributed.sthosvd_distributed")
         x = self._place(x)
         if validate == "finite":
-            check_finite(x, name="input")
+            if sharded:
+                _check_finite_everywhere(x, self.config)
+            else:
+                check_finite(x, name="input")
         if self.is_adaptive:
             try:
                 return self._execute_adaptive(x, record=record)
@@ -648,7 +823,7 @@ class TuckerPlan:
                 raise
 
         def run(p: "TuckerPlan") -> SthosvdResult:
-            sink = _active_sink()
+            sink = None if sharded else _active_sink()
             if record or sink is not None:
                 # the recorded runner, never the captured sweep: its steps
                 # are what the sink learns from (a fallback hop's degraded
@@ -694,8 +869,7 @@ class TuckerPlan:
                 x = x.to(T.torch_dtype(cfg.compute_dtype))
             core, factors, seconds = self._run_recorded(x)
             return self._result(core, factors, seconds)
-        core, factors = _eager_sweep(self.schedule, self.config,
-                                     len(self.shape))(x)
+        core, factors = _plan_sweep(self)(x)
         return self._result(core, factors, [0.0] * len(self.schedule))
 
     def _run_recorded(self, x: torch.Tensor):
@@ -942,7 +1116,9 @@ class TuckerPlan:
             raise ValueError(f"plan is for dtype {self.dtype}, got "
                              f"{T.dtype_name(xs.dtype)}")
         xs = xs.to(self.device).contiguous()
-        if self.is_adaptive:
+        if self.is_adaptive or self.backend == "sharded":
+            # adaptive: the policy may choose other ranks per tensor;
+            # sharded: each item is placed onto the mesh by execute
             run = self.execute
         else:
             fn = self._sweep(batched=True)
@@ -1026,6 +1202,12 @@ class TuckerPlan:
             lines.append(
                 f"  cuda graphs: {self.graph_segments} segment(s); each "
                 "eigh/svd runs eagerly between two")
+        per_dev = any(s.n_shards > 1 for s in self.schedule)
+        if self.backend == "sharded":
+            lines.append(
+                f"  mesh={mesh_spec(cfg.mesh)}  "
+                f"shard_axis={cfg.resolved_shard_axis!r}  "
+                f"local_backend={self.local_backend}")
         seg = 0
         for k, s in enumerate(self.schedule):
             pred = f"  pred={s.predicted_s * 1e3:.3f}ms" if s.predicted_s \
@@ -1033,6 +1215,9 @@ class TuckerPlan:
             pol = (f"  grid={s.rank_grid[0]}..{s.rank_grid[-1]}"
                    f"({len(s.rank_grid)})"
                    if s.rank_grid is not None else "")
+            shard = f"  shard_mode={s.shard_mode}/{s.n_shards}" \
+                if per_dev else ""
+            grp = f"  ∥group={s.group}" if s.group is not None else ""
             graph = ""
             if self.captures:
                 last = seg + G.HOST_OPS[s.method]
@@ -1042,12 +1227,13 @@ class TuckerPlan:
             lines.append(
                 f"  step {k}: mode {s.mode} {s.method:>3s}  "
                 f"I={s.i_n} R={s.r_n} J={s.j_n}  "
-                f"flops={s.flops:.3g}  peak={s.peak_bytes:,}B{pol}{pred}"
-                f"{graph}")
+                f"flops={s.flops:.3g}  peak={s.peak_bytes:,}B"
+                f"{shard}{grp}{pol}{pred}{graph}")
         total_pred = self.total_predicted_s
         lines.append(
             f"  total: flops={self.total_flops:.3g}  "
             f"peak={self.peak_bytes:,}B"
+            + (" (per device)" if per_dev else "")
             + (f"  predicted={total_pred * 1e3:.3f}ms" if total_pred else "")
             + (f"  cap_headroom={cap - self.capped_peak_bytes:,}B"
                if cap is not None else ""))
@@ -1070,11 +1256,12 @@ class TuckerPlan:
         if d.get("version", 1) > PLAN_FORMAT_VERSION:
             raise ValueError(f"plan format {d['version']} newer than supported "
                              f"{PLAN_FORMAT_VERSION}")
+        config = TuckerConfig.from_dict(d["config"])
         return cls(shape=tuple(d["shape"]), dtype=T.dtype_name(d["dtype"]),
-                   config=TuckerConfig.from_dict(d["config"]),
+                   config=config,
                    schedule=tuple(ModeStep.from_dict(s) for s in d["schedule"]),
                    select_seconds=d.get("select_seconds", 0.0),
-                   device=resolve_device(device))
+                   device=resolve_device(device, mesh=config.mesh))
 
     @classmethod
     def from_json(cls, s: str, *, device=None) -> "TuckerPlan":
@@ -1205,6 +1392,13 @@ def plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
     (:func:`_plan_adaptive`): the plan freezes a rank policy and sweep
     order; per-mode ranks resolve per input at execute time.
 
+    With a mesh (``impl="sharded"``, or ``"auto"`` when one is attached)
+    the shard-mode schedule is frozen here too — per-step shard modes,
+    reshard points, mode-parallel groups and per-device ``peak_bytes`` —
+    and ``device`` None is the rank's current CUDA device; the selector and
+    the memory model are the rank's local backend's
+    (:attr:`TuckerPlan.local_backend`).
+
     ``memory_cap_bytes`` holds every step's modeled peak (the schedule
     search and :func:`~repro_torch.core.schedule_opt.validate_schedule_cap`);
     with ``donate_input=False`` the plan must also fit with the held input
@@ -1233,13 +1427,22 @@ def _plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
           device=None) -> TuckerPlan:
     shape = tuple(int(s) for s in shape)
     dtype = T.dtype_name(dtype)
-    device = resolve_device(device)
+    device = resolve_device(device, mesh=config.mesh)
     if config.error_target is not None:
         return _plan_adaptive(shape, dtype, config, device)
     platform = device.type
     compute_dtype = T.dtype_name(config.compute_dtype or dtype)
     backend = resolve_backend(config.impl, platform=platform,
-                              dtype=compute_dtype, shape=shape)
+                              dtype=compute_dtype, shape=shape,
+                              mesh=config.mesh)
+    sharded = backend.requires_mesh
+    if sharded and config.variant != "sthosvd":
+        raise ValueError(f"backend {backend.name!r} supports variant "
+                         f"'sthosvd' only, got {config.variant!r}")
+    # a sharded plan's ranks compute on their device's own backend, which
+    # is what its selector and its memory model are for
+    local = local_backend(platform, compute_dtype, shape) if sharded else None
+    sel_backend = local if sharded else backend.name
     # selector resolution sees the RESOLVED backend: a per-backend trained
     # model outranks the platform-pooled one, and its embedded (possibly
     # calibrated) cost model prices the schedule either way
@@ -1247,18 +1450,24 @@ def _plan(shape: Sequence[int], dtype, config: TuckerConfig, *,
     timed = None
     if config.methods == "auto":
         if selector is None:
-            selector = default_selector(platform, backend=backend.name)
+            selector = default_selector(platform, backend=sel_backend)
         selector = timed = TimedSelector(selector)
     cost_model = getattr(selector, "cost_model", None) or \
-        default_selector(platform, backend=backend.name).cost_model
+        default_selector(platform, backend=sel_backend).cost_model
+    mp = config.mode_parallel
+    if not sharded and mp not in ("off", "auto", 1):
+        raise ValueError(
+            f"mode_parallel={mp} needs a sharded backend (attach a mesh); "
+            f"impl resolved to {backend.name!r}")
     schedule = resolve_schedule(
         shape, config.ranks, variant=config.variant, methods=config.methods,
         mode_order=config.mode_order, selector=selector,
         als_iters=config.als_iters, hooi_iters=config.hooi_iters,
         itemsize=T.itemsize(compute_dtype), backend=backend.name,
-        platform=platform, cost_model=cost_model,
-        memory_cap_bytes=config.memory_cap_bytes,
-        mode_parallel=config.mode_parallel, n_sms=_device_sms(device))
+        platform=platform, n_shards=config.n_shards if sharded else 1,
+        cost_model=cost_model, memory_cap_bytes=config.memory_cap_bytes,
+        mode_parallel=mp if sharded else "off",
+        n_sms=_device_sms(device), local_backend=local)
     p = TuckerPlan(shape=shape, dtype=dtype, config=config,
                    schedule=schedule,
                    select_seconds=timed.seconds if timed else 0.0,
@@ -1334,8 +1543,15 @@ def _next_hop(p: TuckerPlan, err: BaseException,
 
     The reference's ``pallas_to_matfree`` rung has no counterpart (a kernel
     that fails on the card raises), and its ``donate_off`` rung has nothing
-    to turn off (the port never donates)."""
+    to turn off (the port never donates).
+
+    A sharded plan has no rung: every rank runs the same collectives in
+    the same order, and a rung taken by the failing rank alone would pair
+    its new plan's collectives with its peers' old ones.  So it re-raises
+    the classified error, and the caller decides on every rank at once."""
     cfg = p.config
+    if p.backend == "sharded":
+        return None
     if isinstance(err, NumericalError):
         if "als_to_eig" not in applied and \
                 any(s.method == "als" for s in p.schedule):

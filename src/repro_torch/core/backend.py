@@ -21,12 +21,20 @@ Built-in backends:
                 the CPU too — the analogue of the reference's Pallas
                 interpret mode.
 
+  ``sharded``   st-HOSVD over a ``torch.distributed`` device mesh
+                (core/distributed.py): each rank's partial Gram/TTT on its
+                slab plus an all-reduce over the shard axis, local TTMs,
+                and an all-to-all reshard to the largest remaining mode
+                between steps.  Requires a mesh (``TuckerConfig(mesh=...)``);
+                each rank's local primitives are its device's own ``auto``
+                backend (:func:`local_backend`: ``hopper`` on CUDA,
+                ``matfree`` on the CPU), so it never matricizes either.
+
 ``resolve_backend("auto", ...)`` picks the best available backend for the
 plan's platform (``"cuda"`` or ``"cpu"``, a ``torch.device`` type) at
-*plan* time, honouring each backend's dtype/platform capabilities.  Custom
-backends register via :func:`register_backend` and are immediately usable
-as ``impl=`` values.  The reference's mesh backend ``sharded`` ports with
-its own slice.
+*plan* time, honouring each backend's dtype/platform capabilities (a mesh
+→ ``sharded``).  Custom backends register via :func:`register_backend` and
+are immediately usable as ``impl=`` values.
 """
 
 from __future__ import annotations
@@ -70,6 +78,11 @@ class OpsBackend:
     max_extent
         Largest extent A, I_n or B of any mode's (A, I_n, B) view the
         primitives take (None = no limit).
+    requires_mesh
+        True if the backend executes across a device mesh: plans must carry
+        one (``TuckerConfig(mesh=...)``), ``auto`` selects it only when a
+        mesh is supplied, and per-step ``peak_bytes`` are per-device
+        figures.
     """
     name: str
     loader: Callable[[], OpsTriple]
@@ -80,6 +93,7 @@ class OpsBackend:
     interpret_fallback: bool = False
     solvers: tuple[str, ...] = ("eig", "als", "svd", "rand")
     max_extent: int | None = None
+    requires_mesh: bool = False
     _ops: list = field(default_factory=list, repr=False, compare=False)
 
     def ops(self) -> OpsTriple:
@@ -108,9 +122,8 @@ class OpsBackend:
 
 _REGISTRY: dict[str, OpsBackend] = {}
 
-#: backends of the reference that arrive with later slices of the port
-_LATER = {"sharded": "the sharded slice (torch.distributed execution)",
-          "pallas": "no slice: the port's kernel backend is 'hopper'"}
+#: backends of the reference that the port does not carry
+_LATER = {"pallas": "no slice: the port's kernel backend is 'hopper'"}
 
 
 def register_backend(backend: OpsBackend, *, overwrite: bool = False) -> OpsBackend:
@@ -155,7 +168,7 @@ AUTO_ORDER: dict[str, tuple[str, ...]] = {
 
 
 def resolve_backend(impl: str, *, platform: str, dtype=None,
-                    shape=None) -> OpsBackend:
+                    shape=None, mesh=None) -> OpsBackend:
     """Resolve an ``impl`` name (or ``"auto"``) to a concrete backend for
     ``platform`` (``"cuda"`` or ``"cpu"``).
 
@@ -166,12 +179,18 @@ def resolve_backend(impl: str, *, platform: str, dtype=None,
     backends, falling back to ``matfree``: ``hopper`` on CUDA for fp32 and
     bf16, ``matfree`` for fp64 (the kernels take no fp64) or for a ``shape``
     with a view extent beyond 2**31 - 1 (the kernels take int extents).
+    With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``) ``"auto"``
+    resolves to the ``sharded`` backend, and never without one.
     """
     if impl != "auto":
         b = get_backend(impl)
         if dtype is not None and not b.supports_dtype(dtype):
             raise ValueError(f"backend {b.name!r} does not support dtype "
                              f"{T.dtype_name(dtype)} (supported: {b.dtypes})")
+        if b.requires_mesh and mesh is None:
+            raise ValueError(f"backend {b.name!r} requires a mesh; pass "
+                             "TuckerConfig(mesh=...) or call "
+                             "sthosvd_distributed directly")
         if not b.native_on(platform) and not b.interpret_fallback:
             raise ValueError(f"backend {b.name!r} runs on {b.platforms}, not "
                              f"{platform!r}, and has no plain-PyTorch path")
@@ -180,6 +199,10 @@ def resolve_backend(impl: str, *, platform: str, dtype=None,
                              f"extent beyond {b.max_extent}; shape "
                              f"{tuple(shape)} has one")
         return b
+    if mesh is not None:
+        b = _REGISTRY.get("sharded")
+        if b is not None and (dtype is None or b.supports_dtype(dtype)):
+            return b
     for name in AUTO_ORDER.get(platform, ("matfree",)):
         b = _REGISTRY.get(name)
         if b is not None and b.native_on(platform) and \
@@ -247,6 +270,23 @@ register_backend(OpsBackend(
     interpret_fallback=True,
     # extents are C ints; memory is indexed in 64 bits
     max_extent=2 ** 31 - 1))
+
+
+register_backend(OpsBackend(
+    # the registry's own triple is matfree's, as in the reference; the
+    # sharded runner (core/distributed.py) computes each rank's slab
+    # through local_backend() instead and adds the all-reduces
+    name="sharded", loader=_load_matfree,
+    dtypes=("*",), platforms=("*",), matricizes=False,
+    requires_mesh=True, cost_scale=1.0))
+
+
+def local_backend(platform: str, dtype=None, shape=None) -> str:
+    """The ops backend a ``sharded`` plan's ranks compute their slabs
+    with: the device's own ``auto`` choice without a mesh (``hopper`` on
+    CUDA for fp32/bf16, ``matfree`` on the CPU and for fp64)."""
+    return resolve_backend("auto", platform=platform, dtype=dtype,
+                           shape=shape).name
 
 
 def backend_ops(impl: str) -> OpsTriple:

@@ -16,17 +16,17 @@ seams); the ``sweep_*`` functions run the same schedules without timing,
 and are what a plan's cached sweep runs (captured into CUDA graphs on the
 card, :mod:`repro_torch.core.graphs`).
 
-This slice of the port covers single-device, sequential schedules, with
-the ``mode_order="opt"`` search and ``memory_cap_bytes`` of
-:mod:`repro_torch.core.schedule_opt`; the reference's sharded and
-mode-parallel branches arrive with the sharded slice.
+With ``n_shards > 1`` (the ``sharded`` backend) each step also freezes
+the mode the tensor is sharded on while it runs, so the reshard points are
+known ahead of execution, and ``mode_parallel`` opens mode-parallel groups;
+:mod:`repro_torch.core.distributed` runs those schedules.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Sequence
 
 import torch
@@ -47,12 +47,17 @@ class ModeStep:
     """One frozen mode solve: which solver runs on which (sub)problem,
     through which ops backend.
 
-    The JSON schema is the reference's unchanged: ``shard_mode``/``n_shards``
-    (sharded schedules), ``group`` (mode-parallel groups) and the rank-policy
-    fields ``rank_grid``/``tau`` (rank-adaptive plans) are carried and
-    serialized as they are; the port builds sequential, single-device
-    steps (``None``/``1``/``None``), with ``rank_grid``/``tau`` set on the
-    steps of rank-adaptive plans.
+    The JSON schema is the reference's unchanged.  For sharded schedules
+    (``backend="sharded"``) ``shard_mode`` is the tensor mode the input is
+    sharded on while this step runs (``None`` = replicated: the shrunk
+    tensor no longer divides over the mesh) and ``n_shards`` the device
+    count the step's slab is split across (1 when replicated);
+    ``peak_bytes`` is then a per-device figure.  ``group`` marks
+    mode-parallel execution: consecutive steps sharing a non-None id
+    compute their factors from the same un-shrunk tensor (their ``j_n`` is
+    the group-entry shape's) and truncate together in one chain of TTMs;
+    every member records the group's modeled peak.  ``rank_grid``/``tau``
+    are set on the steps of rank-adaptive plans.
     """
     mode: int
     method: str          # "eig" | "als" | "svd" | "rand"
@@ -304,36 +309,53 @@ def _hopper_workspace_bytes(method: str, a: int, i_n: int, r_n: int, b: int,
 
 
 def _held_bytes(shape: Sequence[int], factors, itemsize: int,
-                input_held: bool = True) -> int:
+                input_held: bool = True, input_shards: int = 1) -> int:
     """What a ``hopper`` step holds beside its own working set: the factors
-    already solved (``factors``: (mode, rank) pairs) and, once the sweep has
-    left it (``input_held``, and at least one factor solved), the caller's
-    input, which the port never donates.  The reference's model counts
-    neither (it donates the input), so only ``hopper`` steps carry it."""
+    already solved (``factors``: (mode, rank) pairs; replicated on every
+    rank of a mesh) and, once the sweep has left it (``input_held``, and at
+    least one factor solved), the caller's input, which the port never
+    donates — on a mesh the rank's slab of it, ``1 / input_shards`` of the
+    tensor.  The reference's model counts neither (it donates the input),
+    so only ``hopper`` steps (and ``sharded`` steps computing on
+    ``hopper``) carry it."""
     factors = list(factors)
     held = sum(shape[m] * r for m, r in factors)
     if input_held and factors:
-        held += math.prod(shape)
+        held += math.prod(shape) // input_shards
     return held * itemsize
+
+
+def _slab(shape: Sequence[int], shard_mode: int | None,
+          n_shards: int) -> tuple[int, ...]:
+    """One rank's view of a tensor of ``shape`` sharded on ``shard_mode``
+    over ``n_shards`` ranks (the shape itself when replicated)."""
+    view = list(shape)
+    if shard_mode is not None and n_shards > 1:
+        view[shard_mode] //= n_shards
+    return tuple(view)
 
 
 def _backend_peak_bytes(method: str, shape: Sequence[int], mode: int,
                         r_n: int, itemsize: int, backend: str,
                         n_sms: int | None, n_shards: int = 1,
-                        held_bytes: int = 0) -> int:
+                        held_bytes: int = 0,
+                        shard_mode: int | None = None) -> int:
     """:func:`_step_peak_bytes` of solving ``mode`` of a tensor of the
-    current ``shape`` at rank ``r_n``, plus, on the ``hopper`` backend, the
-    largest workspace of the step's calls at its (A, I_n, B) view
-    (:func:`_hopper_workspace_bytes`; ``n_sms`` None means
+    current ``shape`` at rank ``r_n`` (per device over ``n_shards`` when
+    sharded on ``shard_mode``), plus, when the step computes on ``hopper``
+    (``backend`` is the backend that computes, a sharded step's local
+    one), the largest workspace of the step's calls at its rank's (A, I_n,
+    B) view (:func:`_hopper_workspace_bytes`; ``n_sms`` None means
     :data:`H100_SMS`) and ``held_bytes`` (:func:`_held_bytes`).  Other
     backends keep the reference's figure."""
     i_n = shape[mode]
     j_n = math.prod(shape) // i_n
     peak = _step_peak_bytes(method, i_n, r_n, j_n, itemsize, n_shards)
     if backend == "hopper":
+        view = _slab(shape, shard_mode, n_shards)
         peak += held_bytes + _hopper_workspace_bytes(
-            method, math.prod(shape[:mode]), i_n, r_n,
-            math.prod(shape[mode + 1:]), itemsize,
+            method, math.prod(view[:mode]), i_n, r_n,
+            math.prod(view[mode + 1:]), itemsize,
             H100_SMS if n_sms is None else n_sms, first_mode=mode == 0)
     return peak
 
@@ -344,9 +366,7 @@ def _group_peak_bytes(entries, in_elems: int, out_elems: int,
     un-shrunk input slab (charged once), the fused multi-TTM's truncated
     output slab, plus every member's solver scratch at once.  ``entries``
     is a sequence of ``(method, i_n, r_n, j_n)`` at the group's entry
-    shape; a singleton reduces to :func:`_step_peak_bytes`.  Only the
-    schedule search prices groups: the port's plans run no group until the
-    sharded slice."""
+    shape; a singleton reduces to :func:`_step_peak_bytes`."""
     io = (in_elems + out_elems) * itemsize // n_shards
     scratch = sum(_solver_scratch_bytes(meth, i_n, r_n, j_n, itemsize,
                                         n_shards)
@@ -354,13 +374,91 @@ def _group_peak_bytes(entries, in_elems: int, out_elems: int,
     return int(io + scratch)
 
 
+def _backend_group_peak_bytes(entries, cur: Sequence[int], group,
+                              out_elems: int, itemsize: int, backend: str,
+                              n_sms: int | None, n_shards: int = 1,
+                              shard_mode: int | None = None,
+                              held_bytes: int = 0) -> int:
+    """:func:`_group_peak_bytes` of the group of modes ``group`` at the
+    current dims ``cur`` (``entries`` as there, per member), plus, when it
+    computes on ``hopper``, ``held_bytes`` and the largest workspace of any
+    member's calls at the rank's view of the group-entry tensor (the
+    members' calls run one after another)."""
+    peak = _group_peak_bytes(entries, math.prod(cur), out_elems, itemsize,
+                             n_shards)
+    if backend == "hopper":
+        view = _slab(cur, shard_mode, n_shards)
+        peak += held_bytes + max(
+            _hopper_workspace_bytes(
+                meth, math.prod(view[:m]), i_n, r_n,
+                math.prod(view[m + 1:]), itemsize,
+                H100_SMS if n_sms is None else n_sms, first_mode=m == 0)
+            for m, (meth, i_n, r_n, _) in zip(group, entries))
+    return peak
+
+
+def _reshard_bytes(shape: Sequence[int], old: int | None, new: int | None,
+                   n_shards: int, itemsize: int) -> int:
+    """What a rank holds at once while :func:`repro_torch.core.distributed._reshard`
+    moves a tensor of ``shape`` from shard mode ``old`` to ``new``: the
+    old slab, the contiguous send copy and the received chunks (an
+    all-to-all, 3 slabs); the full tensor and the narrowed slab (from
+    replicated); or the slab, the gathered slabs and their concatenation
+    (to replicated)."""
+    if old == new or n_shards <= 1:
+        return 0
+    full = math.prod(shape)
+    if old is None:
+        return (full + full // n_shards) * itemsize
+    if new is None:
+        return (full // n_shards + 2 * full) * itemsize
+    return 3 * (full // n_shards) * itemsize
+
+
+def _entry_peak_bytes(peak: int, held_bytes: int, cur: Sequence[int],
+                      prev: int | None, new: int | None, n_shards: int,
+                      itemsize: int) -> int:
+    """A ``hopper``-computed step's ``peak`` with the reshard into its shard
+    mode ``new`` from the previous step's ``prev``, which runs before its
+    solver: the larger of the two, the reshard holding ``held_bytes``
+    beside its buffers (:func:`_reshard_bytes`).  The plan and the schedule
+    search price every step after the first with it."""
+    return max(peak, held_bytes + _reshard_bytes(cur, prev, new, n_shards,
+                                                 itemsize))
+
+
+def iter_groups(steps):
+    """Partition a schedule into execution groups: consecutive steps sharing
+    a non-None ``group`` id run as ONE mode-parallel group (all factors from
+    the shared un-shrunk input, one chain of truncating TTMs); ``None``
+    steps are sequential singletons.  Yields lists of :class:`ModeStep`."""
+    batch: list = []
+    for s in steps:
+        if batch and s.group is not None and s.group == batch[0].group:
+            batch.append(s)
+            continue
+        if batch:
+            yield batch
+        batch = [s]
+    if batch:
+        yield batch
+
+
 def _make_step(mode: int, method, selector, shape: Sequence[int], r_n: int,
                als_iters: int, itemsize: int, backend: str,
                cost_model=None, n_sms: int | None = None,
-               held_bytes: int = 0) -> ModeStep:
+               held_bytes: int = 0, n_shards: int = 1,
+               shard_mode: int | None = None, mem_backend: str | None = None,
+               group: int | None = None,
+               peak_override: int | None = None) -> ModeStep:
     """The step solving ``mode`` of a tensor of the current ``shape`` (the
     step's (A, I_n, B) view sizes the ``hopper`` workspace; ``held_bytes``
-    is what a ``hopper`` step holds beside it, :func:`_held_bytes`)."""
+    is what a ``hopper`` step holds beside it, :func:`_held_bytes`).  On a
+    mesh (``n_shards > 1``) the tensor is sharded on ``shard_mode`` while
+    the step runs — SVD and RAND steps always run replicated — and
+    ``mem_backend`` is the backend that computes each rank's slab, which
+    prices the step's memory (``backend`` when None).  Group members carry
+    the group's peak (``peak_override``)."""
     i_n = shape[mode]
     j_n = math.prod(shape) // i_n
     m = selector(i_n=i_n, r_n=r_n, j_n=j_n) if method is None else method
@@ -370,18 +468,68 @@ def _make_step(mode: int, method, selector, shape: Sequence[int], r_n: int,
             f"backend {backend!r} does not support solver {m!r} "
             f"(capability metadata lists {get_backend(backend).solvers}); "
             "pin a supported method or pick another impl")
+    if m in ("svd", "rand"):
+        # SVD matricizes; RAND's sketch has no collective form: both run
+        # replicated in sharded schedules
+        shard_mode = None
+    eff_shards = n_shards if shard_mode is not None else 1
     scale = get_backend(backend).cost_scale
     # a calibrated cost model predicts wall-clock per step; its scales
     # already absorb the backend it was fitted on, so the registry
     # cost_scale hint is NOT applied on top
     predicted_s = cost_model.predict_seconds(m, i_n, r_n, j_n, als_iters) \
         if cost_model is not None and cost_model.calibrated else 0.0
+    peak = _backend_peak_bytes(
+        m, shape, mode, r_n, itemsize, mem_backend or backend, n_sms,
+        eff_shards, held_bytes, shard_mode) \
+        if peak_override is None else peak_override
     return ModeStep(mode=mode, method=m, i_n=i_n, r_n=r_n, j_n=j_n,
                     flops=scale * _step_cost(m, i_n, r_n, j_n, als_iters),
-                    peak_bytes=_backend_peak_bytes(
-                        m, shape, mode, r_n, itemsize, backend, n_sms,
-                        held_bytes=held_bytes),
-                    backend=backend, predicted_s=predicted_s)
+                    peak_bytes=peak, backend=backend, shard_mode=shard_mode,
+                    n_shards=eff_shards, predicted_s=predicted_s,
+                    group=group)
+
+
+def _make_group_steps(g, gid: int, cur, ranks, methods_g, selector,
+                      als_iters: int, itemsize: int, backend: str,
+                      n_shards: int, cost_model, mem_backend: str,
+                      n_sms: int | None, held_bytes: int) -> list[ModeStep]:
+    """The ModeSteps of one mode-parallel group: every member is sized at
+    the GROUP-ENTRY shape (``j_n`` keeps the other members un-shrunk — the
+    FLOPs premium of parallel execution), one shard mode serves the whole
+    group (chosen OUTSIDE it, so every member's Gram keeps the shard axis
+    inside its contraction dims; ``None`` = replicated when the group covers
+    every shardable mode), and the GROUP's modeled peak — shared input slab
+    + all members' concurrent scratch — is stamped on each member."""
+    j_base = math.prod(cur)
+    if n_shards > 1:
+        from .distributed import pick_shard_mode_group
+        shard = pick_shard_mode_group(tuple(cur), g, n_shards)
+    else:
+        shard = None
+    eff = n_shards if shard is not None else 1
+    resolved = []
+    for m, meth in zip(g, methods_g):
+        i_n, r_n = cur[m], ranks[m]
+        j_n = j_base // i_n
+        meth = selector(i_n=i_n, r_n=r_n, j_n=j_n) if meth is None else meth
+        if meth in ("svd", "rand"):
+            raise ValueError(
+                f"mode {m} resolved to {meth!r}, which runs replicated and "
+                "cannot join a mode-parallel group; pin eig/als for grouped "
+                f"modes (mode_parallel='auto' never groups {meth})")
+        resolved.append((meth, i_n, r_n, j_n))
+    out_elems = j_base
+    for m in g:
+        out_elems = out_elems // cur[m] * ranks[m]
+    gpeak = _backend_group_peak_bytes(resolved, cur, g, out_elems, itemsize,
+                                      mem_backend, n_sms, eff, shard,
+                                      held_bytes)
+    return [
+        _make_step(m, meth, None, cur, r_n, als_iters, itemsize, backend,
+                   cost_model=cost_model, n_sms=n_sms, n_shards=n_shards,
+                   shard_mode=shard, group=gid, peak_override=gpeak)
+        for m, (meth, i_n, r_n, j_n) in zip(g, resolved)]
 
 
 def resolve_schedule(
@@ -398,10 +546,12 @@ def resolve_schedule(
     itemsize: int = 4,
     backend: str = "matfree",
     platform: str = "cuda",
+    n_shards: int = 1,
     cost_model=None,
     memory_cap_bytes: int | None = None,
     mode_parallel: str | int = "off",
     n_sms: int | None = None,
+    local_backend: str | None = None,
 ) -> tuple[ModeStep, ...]:
     """Resolve the full per-mode solver schedule ahead of execution.
 
@@ -415,6 +565,18 @@ def resolve_schedule(
     (``"cuda"`` or ``"cpu"``) picks the default selector when ``methods``
     is ``"auto"`` and no ``selector`` is given.
 
+    ``n_shards > 1`` resolves the DISTRIBUTION schedule too (the
+    ``sharded`` backend, st-HOSVD only): each step freezes the shard mode
+    the tensor lives on while that mode is solved — the largest remaining
+    mode (other than the one being solved) that divides by the shard count,
+    :func:`repro_torch.core.distributed.pick_shard_mode` — so reshard
+    points are known ahead of execution and ``peak_bytes`` become
+    per-device figures.  ``local_backend`` names the backend that computes
+    each rank's slab (``None`` = ``matfree``); where it is ``hopper`` the
+    steps are priced as ``hopper`` steps at the rank's view (workspace, the
+    factors and the rank's slab of the input held beside it, and the
+    reshard's transient buffers), elsewhere as the reference's.
+
     ``cost_model`` annotates each step with its predicted wall-clock
     (``ModeStep.predicted_s``) when CALIBRATED; the textbook model carries
     no seconds unit, so uncalibrated schedules record 0.0.  When a selector
@@ -425,9 +587,9 @@ def resolve_schedule(
     mode order AND per-step solver (respecting pinned ``methods``) to
     minimize the cost model's predicted total under ``memory_cap_bytes``.
 
-    ``memory_cap_bytes`` is a hard ceiling on every step's modeled
-    ``peak_bytes``: fixed-order schedules that exceed it (and ``"opt"``
-    searches that cannot fit under it) raise
+    ``memory_cap_bytes`` is a hard per-device ceiling on every step's
+    modeled ``peak_bytes``: fixed-order schedules that exceed it (and
+    ``"opt"`` searches that cannot fit under it) raise
     :class:`~repro_torch.core.schedule_opt.MemoryCapError` at plan time,
     naming the binding step.
 
@@ -439,21 +601,49 @@ def resolve_schedule(
     step, the caller's input (:func:`_held_bytes`; the port never donates
     it).  Other backends keep the reference's figures.
 
-    ``mode_parallel`` accepts ``"off"``, ``"auto"`` and ``1`` — what the
-    reference does on a single device (``"auto"`` and ``1`` stay
-    sequential).
+    ``mode_parallel`` (sharded st-HOSVD only) opens mode-PARALLEL groups:
+    members compute their Grams/iterates from the same un-shrunk tensor and
+    truncate together — fewer collective barriers (priced as the max over
+    members) at more FLOPs (members see un-shrunk ``j_n``).  ``"off"``
+    keeps the sequential shrink; an int G groups the leading G modes of the
+    resolved order; ``"auto"`` lets the DP price sequential-vs-parallel —
+    jointly with order/solver when ``mode_order="opt"``, as a grouping
+    search along the fixed order otherwise.  ``"auto"`` degrades to
+    sequential when ``n_shards <= 1``; an explicit int G > 1 there is an
+    error.
     """
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     get_backend(backend)   # concrete, registered backend only (never "auto")
-    if isinstance(mode_parallel, bool) or mode_parallel not in ("off", "auto", 1):
-        raise ValueError(
-            f"mode_parallel {mode_parallel!r}: single-device schedules take "
-            "'off', 'auto' or 1 (mode-parallel groups need the sharded "
-            "slice)")
-    if mode_parallel != "off" and variant != "sthosvd":
-        raise ValueError("mode_parallel applies to the sequential st-HOSVD "
-                         f"sweep only; leave it 'off' for variant {variant!r}")
+    if n_shards > 1 and variant != "sthosvd":
+        raise ValueError(f"sharded schedules support variant 'sthosvd' only, "
+                         f"got {variant!r} (t-HOSVD/HOOI re-solve from the "
+                         "full tensor; reshard scheduling assumes the "
+                         "sequential shrink)")
+    mp: str | int = mode_parallel
+    if isinstance(mp, bool) or \
+            not (mp in ("off", "auto") or isinstance(mp, int)):
+        raise ValueError(f"mode_parallel {mode_parallel!r} must be 'off', "
+                         "'auto', or an int max group size")
+    if isinstance(mp, int):
+        if mp < 1:
+            raise ValueError(f"mode_parallel={mp} must be >= 1")
+        if mp == 1:
+            mp = "off"   # a group of one IS the sequential step
+    if mp != "off":
+        if variant != "sthosvd":
+            raise ValueError("mode_parallel applies to the sequential "
+                             "st-HOSVD sweep only; leave it 'off' for "
+                             f"variant {variant!r}")
+        if n_shards <= 1:
+            if mp == "auto":
+                mp = "off"   # single device: sequential shrinking always
+                             # wins the latency race
+            else:
+                raise ValueError(
+                    f"mode_parallel={mp} needs a sharded schedule "
+                    "(n_shards > 1): single-device execution has no "
+                    "concurrent mesh resources to assign mode Grams to")
     shape = tuple(int(s) for s in shape)
     ranks = validate_ranks(shape, ranks)
     n = len(shape)
@@ -465,6 +655,8 @@ def resolve_schedule(
         # a trained selector carries the calibration fitted from the same
         # records; TimedSelector exposes the wrapped selector's cost_model
         cost_model = getattr(selector, "cost_model", None)
+    # the backend that computes (and so allocates): a sharded step's local
+    mem = (local_backend or "matfree") if backend == "sharded" else backend
 
     def method_for(mode):
         return None if fixed is None else fixed[mode]
@@ -494,27 +686,84 @@ def resolve_schedule(
         return _capped(tuple(steps))
 
     # st-HOSVD sweep (also HOOI's init): the tensor shrinks between steps
+    # (or between GROUPS when mode_parallel opens one)
     if variant == "sthosvd" or include_init:
-        if mode_order == "opt":
-            from .schedule_opt import optimize_schedule
-            search = optimize_schedule(
-                shape, ranks, methods=fixed, als_iters=als_iters,
-                itemsize=itemsize, cost_model=cost_model,
-                memory_cap_bytes=memory_cap_bytes, backend=backend,
-                n_sms=n_sms)
-            order, flat_methods = list(search.order), list(search.methods)
+        search_kw = dict(methods=fixed, als_iters=als_iters,
+                         itemsize=itemsize, n_shards=n_shards,
+                         cost_model=cost_model,
+                         memory_cap_bytes=memory_cap_bytes, backend=mem,
+                         n_sms=n_sms)
+        flat_methods: list | None = None
+        if mp == "auto":
+            # the planner prices sequential-vs-parallel per input: joint
+            # subset DP when the order is searched too, grouping search
+            # along the fixed order otherwise
+            from .schedule_opt import optimize_grouping, optimize_schedule
+            if mode_order == "opt":
+                search = optimize_schedule(shape, ranks, max_group=n,
+                                           **search_kw)
+            else:
+                search = optimize_grouping(
+                    shape, ranks,
+                    tuple(resolve_mode_order(shape, ranks, mode_order)),
+                    **search_kw)
+            groups = list(search.groups)
+            flat_methods = list(search.methods)
         else:
-            order = resolve_mode_order(shape, ranks, mode_order)
-            flat_methods = [method_for(m) for m in order]
+            if mode_order == "opt":
+                from .schedule_opt import optimize_schedule
+                search = optimize_schedule(shape, ranks, **search_kw)
+                order, flat_methods = list(search.order), list(search.methods)
+            else:
+                order = resolve_mode_order(shape, ranks, mode_order)
+            if mp == "off":
+                groups = [(m,) for m in order]
+            else:   # int G >= 2: the leading group, the rest sequential
+                g_lead = min(int(mp), n)
+                groups = [tuple(order[:g_lead])] + \
+                    [(m,) for m in order[g_lead:]]
+        if n_shards > 1:
+            from .distributed import pick_shard_mode
         cur = list(shape)
-        for k, (mode, method) in enumerate(zip(order, flat_methods)):
-            held = _held_bytes(shape, ((m, ranks[m]) for m in order[:k]),
-                               itemsize)
-            steps.append(_make_step(mode, method, selector,
-                                    cur, ranks[mode], als_iters, itemsize,
-                                    backend, cost_model=cost_model,
-                                    n_sms=n_sms, held_bytes=held))
-            cur[mode] = ranks[mode]
+        done: list[int] = []
+        pos = gid = 0
+        for g in groups:
+            # the caller's input is held beside every step after the first,
+            # on a mesh as the rank's slab of the first step's shard mode
+            held = _held_bytes(shape, ((m, ranks[m]) for m in done),
+                               itemsize, input_shards=steps[0].n_shards
+                               if steps else 1)
+            meths = [flat_methods[pos + i] if flat_methods is not None
+                     else method_for(m) for i, m in enumerate(g)]
+            prev = steps[-1].shard_mode if steps else None
+            if len(g) == 1:
+                mode = g[0]
+                shard = pick_shard_mode(tuple(cur), mode, n_shards) \
+                    if n_shards > 1 else None
+                step = _make_step(mode, meths[0], selector, cur, ranks[mode],
+                                  als_iters, itemsize, backend,
+                                  cost_model=cost_model, n_sms=n_sms,
+                                  held_bytes=held, n_shards=n_shards,
+                                  shard_mode=shard, mem_backend=mem)
+                new = [step]
+            else:
+                new = _make_group_steps(
+                    g, gid, cur, ranks, meths, selector, als_iters, itemsize,
+                    backend, n_shards, cost_model, mem, n_sms, held)
+                gid += 1
+            if mem == "hopper" and steps:
+                # the reshard into this step's shard mode runs before its
+                # solver: the step's peak is the larger of the two
+                peak = _entry_peak_bytes(new[0].peak_bytes, held, cur, prev,
+                                         new[0].shard_mode, n_shards,
+                                         itemsize)
+                new = [s if s.peak_bytes == peak else
+                       replace(s, peak_bytes=peak) for s in new]
+            steps.extend(new)
+            for m in g:
+                cur[m] = ranks[m]
+                done.append(m)
+            pos += len(g)
     if variant == "sthosvd":
         return _capped(tuple(steps))
 

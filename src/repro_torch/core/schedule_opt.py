@@ -63,10 +63,7 @@ ties (it never does more work).  A group's modeled peak charges the shared
 full-size input once plus every member's solver scratch CONCURRENTLY
 (:func:`repro_torch.core.plan._group_peak_bytes`), so a
 ``memory_cap_bytes`` that admits each mode alone can still force a group to
-split.  The port's plans are single-device and sequential until the sharded
-slice: ``plan()`` calls :func:`optimize_schedule` with ``n_shards=1`` and
-``max_group=1``; the shard and group axes are here because they are part of
-the search, and are held to the reference by the tests.
+split.
 
 Entry points:
 
@@ -82,9 +79,8 @@ Entry points:
 
 Used by :func:`repro_torch.core.plan.resolve_schedule` when
 ``mode_order="opt"`` / ``memory_cap_bytes`` flow in from ``TuckerConfig``.
-Pure Python.  Each search is spanned as ``plan.dp_search`` on the obs bus
-(:mod:`repro_torch.obs`), as in the reference; ``plan.dp_grouping`` comes
-with the mode-parallel groups of the sharded slice.
+Pure Python.  Each search is spanned on the obs bus (:mod:`repro_torch.obs`)
+as in the reference: ``plan.dp_search`` and ``plan.dp_grouping``.
 """
 
 from __future__ import annotations
@@ -144,27 +140,13 @@ class ScheduleSearch:
                 "ranks": list(self.ranks)}
 
 
-def pick_shard_mode(shape: tuple[int, ...], exclude: int,
-                    n_shards: int) -> int | None:
-    """Largest mode ≠ ``exclude`` divisible by the shard count; None → the
-    (shrunk) tensor no longer shards evenly and runs replicated (the
-    reference's ``distributed.pick_shard_mode``, which prices per-device
-    peaks here; the port's own sharded execution is a later slice)."""
-    return pick_shard_mode_group(shape, (exclude,), n_shards)
-
-
-def pick_shard_mode_group(shape: tuple[int, ...], exclude,
-                          n_shards: int) -> int | None:
-    """Largest mode outside ``exclude`` (an iterable of modes) divisible by
-    the shard count.  A mode-parallel group's shard mode lies outside the
-    group, so a group covering every shardable mode runs replicated
-    (``None``) — which is how a per-device cap can refuse an all-modes
-    group."""
-    excluded = frozenset(exclude)
-    for m in sorted(range(len(shape)), key=lambda m: -shape[m]):
-        if m not in excluded and shape[m] % n_shards == 0:
-            return m
-    return None
+def __getattr__(name: str):
+    # pick_shard_mode(_group) live in core/distributed.py, which the search
+    # imports lazily (it imports the plan layer); still importable from here
+    if name in ("pick_shard_mode", "pick_shard_mode_group"):
+        from . import distributed
+        return getattr(distributed, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _candidates(methods, mode: int,
@@ -177,33 +159,45 @@ def _candidates(methods, mode: int,
 
 def _priced_candidates(shape, ranks, methods, itemsize, n_shards, cur, m,
                        search=SEARCH_METHODS, rank_grid=None,
-                       backend="matfree", n_sms=None, done=()):
-    """Every (method, peak_bytes, i_n, r_n, j_n) candidate for solving mode
-    ``m`` at the DP state whose current (partially shrunk) dims are ``cur``
-    — the ONE place the shard-participation and per-device peak rules live,
-    shared by the DP transition loop and the infeasibility message.  With a
-    ``rank_grid`` the rank axis opens: one candidate per (solver, grid rank)
-    pair instead of the single fixed ``ranks[m]``.  ``backend`` and
-    ``n_sms`` price a candidate as the plan prices its step
+                       backend="matfree", n_sms=None, done=(),
+                       input_shards=1, prev_shard=None):
+    """Every (method, peak_bytes, i_n, r_n, j_n, shard_mode) candidate for
+    solving mode ``m`` at the DP state whose current (partially shrunk) dims
+    are ``cur`` — the ONE place the shard-participation and per-device peak
+    rules live, shared by the DP transition loop and the infeasibility
+    message.  With a ``rank_grid`` the rank axis opens: one candidate per
+    (solver, grid rank) pair instead of the single fixed ``ranks[m]``.
+    ``backend`` and ``n_sms`` price a candidate as the plan prices its step
     (:func:`repro_torch.core.plan._backend_peak_bytes`: a ``hopper`` step
-    adds the kernels' workspace at the state's view, and holds the factors
-    of the modes ``done`` and, after the first step, the input)."""
-    from .plan import _backend_peak_bytes, _held_bytes   # shared model;
-    i_n = shape[m]                  # plan.py imports us lazily, so no cycle
+    adds the kernels' workspace at the rank's view of the state, and holds
+    the factors of the modes ``done`` and, after the first step, the input —
+    on a mesh ``1 / input_shards`` of it, the first step's shard count;
+    after the first step it also prices the reshard from the previous step's
+    ``prev_shard``, :func:`repro_torch.core.plan._entry_peak_bytes`). The DP
+    carries ``input_shards`` and ``prev_shard`` along the best path
+    into each state."""
+    # the plan's own model (plan.py imports this module lazily: no cycle)
+    from .plan import _backend_peak_bytes, _entry_peak_bytes, _held_bytes
+    i_n = shape[m]
     j_n = math.prod(cur) // i_n
-    held = _held_bytes(shape, ((d, cur[d]) for d in done), itemsize)
+    held = _held_bytes(shape, ((d, cur[d]) for d in done), itemsize,
+                       input_shards=input_shards)
     rank_cands = (ranks[m],) if rank_grid is None else tuple(rank_grid[m])
     if n_shards > 1:
+        from .distributed import pick_shard_mode
         shard = pick_shard_mode(tuple(cur), m, n_shards)
     else:
         shard = None
     for meth in _candidates(methods, m, search):
-        eff = n_shards if (shard is not None and meth not in ("svd", "rand")) \
-            else 1
+        sm = shard if meth not in ("svd", "rand") else None
+        eff = n_shards if sm is not None else 1
         for r_n in rank_cands:
-            yield meth, _backend_peak_bytes(meth, cur, m, r_n, itemsize,
-                                            backend, n_sms, eff, held), \
-                i_n, r_n, j_n
+            peak = _backend_peak_bytes(meth, cur, m, r_n, itemsize, backend,
+                                       n_sms, eff, held, sm)
+            if backend == "hopper" and done:
+                peak = _entry_peak_bytes(peak, held, cur, prev_shard, sm,
+                                         n_shards, itemsize)
+            yield meth, peak, i_n, r_n, j_n, sm
 
 
 def step_cost(cost_model: CostModel, method: str, i_n: int, r_n: int,
@@ -235,24 +229,32 @@ def step_cost(cost_model: CostModel, method: str, i_n: int, r_n: int,
 
 
 def _price_group(shape, ranks, methods, als_iters, itemsize, n_shards, cur,
-                 g, cost_model):
+                 g, cost_model, backend="matfree", n_sms=None, done=(),
+                 input_shards=1, prev_shard=None):
     """Every priced solver assignment for running the modes of ``g`` as ONE
     mode-parallel group at the state whose current dims are ``cur``: yields
-    ``(assign, latency, flops, peak_bytes)``.  Each member is sized at the
-    group-entry shape (J_n keeps the other members un-shrunk), latency is
-    the max over members (they run concurrently), flops the sum (the work
-    tie-break), and the peak is the group model — shared input slab plus
-    every member's scratch at once.  SVD matricizes and RAND runs replicated
-    — neither joins a group; a group containing a mode pinned to either
-    yields nothing (infeasible).  Groups are also rank-FIXED: the rank axis
-    applies to sequential transitions only (a group's fused multi-TTM is
-    sized at plan time and cannot absorb a run-time rank decision)."""
-    from .plan import _group_peak_bytes   # shared model; lazy, no cycle
+    ``(assign, latency, flops, peak_bytes, shard_mode)``.  Each member is
+    sized at the group-entry shape (J_n keeps the other members un-shrunk),
+    latency is the max over members (they run concurrently), flops the sum
+    (the work tie-break), and the peak is the group model — shared input
+    slab plus every member's scratch at once.  SVD matricizes and RAND runs
+    replicated — neither joins a group; a group containing a mode pinned to
+    either yields nothing (infeasible).  Groups are also rank-FIXED: the
+    rank axis applies to sequential transitions only (a group's fused
+    multi-TTM is sized at plan time and cannot absorb a run-time rank
+    decision).
+    ``backend``, ``n_sms``, ``done``, ``input_shards`` and ``prev_shard``
+    price the group as :func:`_priced_candidates` prices a step."""
+    from .plan import (_backend_group_peak_bytes, _entry_peak_bytes,
+                       _held_bytes)   # lazy
     in_elems = math.prod(cur)
     out_elems = in_elems
     for m in g:
         out_elems = out_elems // cur[m] * ranks[m]
+    held = _held_bytes(shape, ((d, cur[d]) for d in done), itemsize,
+                       input_shards=input_shards)
     if n_shards > 1:
+        from .distributed import pick_shard_mode_group
         shard = pick_shard_mode_group(tuple(cur), g, n_shards)
     else:
         shard = None
@@ -274,22 +276,38 @@ def _price_group(shape, ranks, methods, als_iters, itemsize, n_shards, cur,
             lat = max(lat, c)
             fl += c
             entries.append((meth, i_n, r_n, j_n))
-        peak = _group_peak_bytes(entries, in_elems, out_elems, itemsize, eff)
-        yield assign, lat, fl, peak
+        peak = _backend_group_peak_bytes(entries, cur, g, out_elems,
+                                         itemsize, backend, n_sms, eff,
+                                         shard, held)
+        if backend == "hopper" and done:
+            peak = _entry_peak_bytes(peak, held, cur, prev_shard, shard,
+                                     n_shards, itemsize)
+        yield assign, lat, fl, peak, shard
 
 
 def _relax(best, nxt: int, cost: float, flops: float, prev: int,
-           group, assign, rks, cur) -> None:
+           group, assign, rks, cur, entry) -> None:
     """Lexicographic (latency, flops) relaxation: strictly-better latency
     wins; at equal latency the lower-work schedule wins, so a parallel
     group never displaces a sequential plan it merely ties.  ``rks`` records
     the rank chosen for each mode of ``group`` (the rank axis) and ``cur``
     the resulting current dims, which later transitions read their J_n
-    from — the channel through which a rank choice propagates downstream."""
+    from — the channel through which a rank choice propagates downstream.
+    ``entry`` is ``(input_shards, shard_mode)`` after the transition: the
+    first step's shard count and the last one's shard mode, which price
+    the held input and the next reshard (:func:`_after`)."""
     cand = best.get(nxt)
     if cand is None or (cost, flops) < (cand[0], cand[1]):
         best[nxt] = (cost, flops, prev, tuple(group), tuple(assign),
-                     tuple(rks), tuple(cur))
+                     tuple(rks), tuple(cur), entry)
+
+
+def _after(state, shard, n_shards: int, first: bool) -> tuple:
+    """The ``entry`` of a state reached from ``state`` by a transition that
+    shards on ``shard``: the first transition fixes the input's shard
+    count, every transition the shard mode the next one reshards from."""
+    ins = (n_shards if shard is not None else 1) if first else state[7][0]
+    return ins, shard
 
 
 def optimize_schedule(
@@ -331,8 +349,13 @@ def optimize_schedule(
     ``backend`` and ``n_sms`` price every sequential candidate as the plan
     prices its step: a ``hopper`` candidate adds its calls' workspace at
     the state's view and what it holds beside it (:func:`_priced_candidates`),
-    so the search never picks a schedule that the capped check then refuses.
-    Groups keep the reference's figures (the port runs none yet).
+    so the search never picks a schedule that the capped check then refuses;
+    groups likewise (:func:`_price_group`).  On a mesh a candidate also
+    holds the rank's slab of the input and pays the reshard from the
+    previous step's shard mode, both read off the best path into its state
+    (so under a tight cap the search may miss a schedule whose costlier
+    prefix reshards more cheaply, but it never returns one the plan
+    refuses).
 
     Raises :class:`MemoryCapError` when no complete order fits the cap; the
     message names the cheapest-memory step (or group) that still exceeds it
@@ -356,13 +379,14 @@ def optimize_schedule(
                              "sequential schedules only; groups are "
                              "rank-fixed — use max_group=1")
 
-    # best[mask] = (cost, flops, prev_mask, group, assign, rks, cur); see
+    # best[mask] = (cost, flops, prev_mask, group, assign, rks, cur,
+    # entry); see
     # the module docstring for the full state encoding.  Transitions only
     # ever set bits, so ascending-mask iteration is a valid topological
     # order.  cost is the latency objective, flops the lexicographic
     # tie-break (see _relax); cur carries the chosen-rank dims forward.
     best: dict[int, tuple[float, float, int, tuple, tuple, tuple, tuple]] = {
-        0: (0.0, 0.0, -1, (), (), (), shape)}
+        0: (0.0, 0.0, -1, (), (), (), shape, (1, None))}
     for mask in range(full):
         state = best.get(mask)
         if state is None:
@@ -370,25 +394,29 @@ def optimize_schedule(
         cur = list(state[6])
         rem = [m for m in range(n) if not mask >> m & 1]
         done = [m for m in range(n) if mask >> m & 1]
+        ins, prev_shard = state[7]
         for m in rem:   # sequential edges, exactly the max_group=1 DP
-            for meth, peak, i_n, r_n, j_n in _priced_candidates(
+            for meth, peak, i_n, r_n, j_n, sm in _priced_candidates(
                     shape, ranks, methods, itemsize, n_shards, cur, m,
-                    search, rank_grid, backend, n_sms, done):
+                    search, rank_grid, backend, n_sms, done, ins,
+                    prev_shard):
                 if memory_cap_bytes is not None and peak > memory_cap_bytes:
                     continue
                 c = step_cost(cm, meth, i_n, r_n, j_n, als_iters)
                 nxt_cur = list(cur)
                 nxt_cur[m] = r_n
                 _relax(best, mask | (1 << m), state[0] + c, state[1] + c,
-                       mask, (m,), (meth,), (r_n,), nxt_cur)
+                       mask, (m,), (meth,), (r_n,), nxt_cur,
+                       _after(state, sm, n_shards, not done))
         for size in range(2, min(max_group, len(rem)) + 1):
             for g in combinations(rem, size):
                 nxt = mask
                 for m in g:
                     nxt |= 1 << m
-                for assign, lat, fl, peak in _price_group(
+                for assign, lat, fl, peak, sm in _price_group(
                         shape, ranks, methods, als_iters, itemsize,
-                        n_shards, cur, g, cm):
+                        n_shards, cur, g, cm, backend, n_sms, done, ins,
+                        prev_shard):
                     if memory_cap_bytes is not None \
                             and peak > memory_cap_bytes:
                         continue
@@ -397,7 +425,7 @@ def optimize_schedule(
                         nxt_cur[m] = ranks[m]
                     _relax(best, nxt, state[0] + lat, state[1] + fl,
                            mask, g, assign, tuple(ranks[m] for m in g),
-                           nxt_cur)
+                           nxt_cur, _after(state, sm, n_shards, not done))
 
     if full not in best:
         raise MemoryCapError(_infeasible_message(
@@ -411,7 +439,7 @@ def optimize_schedule(
     rkss: list[tuple[int, ...]] = []
     mask = full
     while mask:
-        _, _, prev, g, assign, rks, _cur = best[mask]
+        prev, g, assign, rks = best[mask][2:6]
         groups.append(g)
         meths.append(assign)
         rkss.append(rks)
@@ -455,7 +483,8 @@ def optimize_grouping(
     the contiguous slice ``order[k:k+L]`` as one group (``L=1`` is a plain
     sequential step).  Solver choice per member follows the same rules as
     :func:`optimize_schedule`.  ``max_group=None`` allows groups up to the
-    full tensor order."""
+    full tensor order.  Spanned as ``plan.dp_grouping`` on the obs bus."""
+    wall0, t0 = time.time(), time.perf_counter()
     shape = tuple(int(s) for s in shape)
     ranks = tuple(int(r) for r in ranks)
     order = tuple(int(m) for m in order)
@@ -463,8 +492,7 @@ def optimize_grouping(
     cm = cost_model if cost_model is not None else DEFAULT_COST_MODEL
     max_group = n if max_group is None else max(1, min(int(max_group), n))
 
-    dp: dict[int, tuple[float, float, int, tuple, tuple, tuple, tuple]] = {
-        0: (0.0, 0.0, -1, (), (), (), shape)}
+    dp: dict[int, tuple] = {0: (0.0, 0.0, -1, (), (), (), shape, (1, None))}
     for k in range(n):
         state = dp.get(k)
         if state is None:
@@ -473,28 +501,31 @@ def optimize_grouping(
         cur = [ranks[i] if i in done else shape[i]
                for i in range(len(shape))]
         m = order[k]
-        for meth, peak, i_n, r_n, j_n in _priced_candidates(
+        ins, prev_shard = state[7]
+        for meth, peak, i_n, r_n, j_n, sm in _priced_candidates(
                 shape, ranks, methods, itemsize, n_shards, cur, m,
-                backend=backend, n_sms=n_sms, done=order[:k]):
+                backend=backend, n_sms=n_sms, done=order[:k],
+                input_shards=ins, prev_shard=prev_shard):
             if memory_cap_bytes is not None and peak > memory_cap_bytes:
                 continue
             c = step_cost(cm, meth, i_n, r_n, j_n, als_iters)
             nxt_cur = list(cur)
             nxt_cur[m] = r_n
             _relax(dp, k + 1, state[0] + c, state[1] + c, k, (m,), (meth,),
-                   (r_n,), nxt_cur)
+                   (r_n,), nxt_cur, _after(state, sm, n_shards, k == 0))
         for size in range(2, min(max_group, n - k) + 1):
             g = order[k:k + size]
-            for assign, lat, fl, peak in _price_group(
+            for assign, lat, fl, peak, sm in _price_group(
                     shape, ranks, methods, als_iters, itemsize, n_shards,
-                    cur, g, cm):
+                    cur, g, cm, backend, n_sms, order[:k], ins, prev_shard):
                 if memory_cap_bytes is not None and peak > memory_cap_bytes:
                     continue
                 nxt_cur = list(cur)
                 for gm in g:
                     nxt_cur[gm] = ranks[gm]
                 _relax(dp, k + size, state[0] + lat, state[1] + fl,
-                       k, g, assign, tuple(ranks[gm] for gm in g), nxt_cur)
+                       k, g, assign, tuple(ranks[gm] for gm in g), nxt_cur,
+                       _after(state, sm, n_shards, k == 0))
 
     if n not in dp:
         deepest = max(dp)
@@ -507,7 +538,8 @@ def optimize_grouping(
         binding = _min_peak_binding(shape, ranks, methods, als_iters,
                                     itemsize, n_shards, cur, cands, cm,
                                     backend=backend, n_sms=n_sms,
-                                    done=order[:deepest])
+                                    done=order[:deepest],
+                                    entry=dp[deepest][7])
         raise MemoryCapError(_format_binding(
             shape, ranks, memory_cap_bytes, sorted(done), binding, n_shards))
 
@@ -516,7 +548,7 @@ def optimize_grouping(
     rkss: list[tuple[int, ...]] = []
     k = n
     while k:
-        _, _, prev, g, assign, rks, _cur = dp[k]
+        prev, g, assign, rks = dp[k][2:6]
         groups.append(g)
         meths.append(assign)
         rkss.append(rks)
@@ -529,30 +561,37 @@ def optimize_grouping(
         total_cost=dp[n][0], calibrated=cm.calibrated,
         n_states=len(dp), groups=tuple(groups),
         ranks=tuple(r for rks in rkss for r in rks))
+    _obs.event("span", t=wall0, name="plan.dp_grouping",
+               dur_s=time.perf_counter() - t0, shape=list(shape),
+               order=list(order), groups=[list(g) for g in result.groups],
+               calibrated=result.calibrated, total_cost=result.total_cost)
     return result
 
 
 def _min_peak_binding(shape, ranks, methods, als_iters, itemsize, n_shards,
                       cur, candidate_groups, cost_model,
                       search=SEARCH_METHODS, rank_grid=None,
-                      backend="matfree", n_sms=None, done=()):
+                      backend="matfree", n_sms=None, done=(),
+                      entry=(1, None)):
     """The cheapest-memory candidate over ``candidate_groups`` (each a tuple
     of modes; singletons are plain sequential steps) at the state whose
-    current dims are ``cur`` — the step/group any schedule must eventually
-    pay.  Returns ``(peak, modes, assign, detail)`` where ``detail`` is the
-    singleton's (i_n, r_n, j_n) or ``None`` for a multi-mode group."""
+    current dims are ``cur`` (and whose ``entry`` is ``(input_shards,
+    prev_shard)``, :func:`_relax`) — the step/group any schedule must
+    eventually pay.  Returns ``(peak, modes, assign, detail)`` where
+    ``detail`` is the singleton's (i_n, r_n, j_n) or ``None`` for a
+    multi-mode group."""
     binding = None
     for g in candidate_groups:
         if len(g) == 1:
-            for meth, peak, i_n, r_n, j_n in _priced_candidates(
+            for meth, peak, i_n, r_n, j_n, _ in _priced_candidates(
                     shape, ranks, methods, itemsize, n_shards, cur, g[0],
-                    search, rank_grid, backend, n_sms, done):
+                    search, rank_grid, backend, n_sms, done, *entry):
                 if binding is None or peak < binding[0]:
                     binding = (peak, g, (meth,), (i_n, r_n, j_n))
         else:
-            for assign, _lat, _fl, peak in _price_group(
+            for assign, _lat, _fl, peak, _ in _price_group(
                     shape, ranks, methods, als_iters, itemsize, n_shards,
-                    cur, g, cost_model):
+                    cur, g, cost_model, backend, n_sms, done, *entry):
                 if binding is None or peak < binding[0]:
                     binding = (peak, g, assign, None)
     return binding
@@ -598,7 +637,7 @@ def _infeasible_message(shape, ranks, methods, als_iters, itemsize, n_shards,
         cands.extend(combinations(rem, size))
     binding = _min_peak_binding(shape, ranks, methods, als_iters, itemsize,
                                 n_shards, cur, cands, cm, search, rank_grid,
-                                backend, n_sms, done)
+                                backend, n_sms, done, best[deepest][7])
     return _format_binding(shape, ranks, cap, done, binding, n_shards)
 
 

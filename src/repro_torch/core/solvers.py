@@ -21,7 +21,12 @@ Everything but SVD is matricization-free (built on whichever registered
 :mod:`repro_torch.core.backend` supplies TTM/TTT/Gram); ``impl`` names an
 ops backend — ``matfree`` (torch contractions), ``explicit`` (unfold-based
 baseline for the Fig. 8 comparison), ``hopper`` (hand-written CUDA kernels),
-or any custom-registered name.  Randomness comes from an explicit
+or any custom-registered name.  EIG and ALS also take an ops triple
+``(ttm, gram, ttt)`` in place of the name: the sharded runner
+(:mod:`repro_torch.core.distributed`) passes the local backend's triple
+with ``gram`` and ``ttt`` wrapped to all-reduce their partial sums over the
+shard axis, since the schedule never shards the mode being solved.
+Randomness comes from an explicit
 ``torch.Generator`` on the tensor's device.  The dense factorizations that
 check their result on the host (``eigh``, ``svd``) and the seeded draws go
 through :mod:`repro_torch.core.graphs`, so that a sweep captured into CUDA
@@ -50,13 +55,19 @@ def _accum(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def _ops(impl):
+    """(ttm, gram, ttt) of a backend name, or ``impl`` itself when it is
+    already such a triple."""
+    return backend_ops(impl) if isinstance(impl, str) else tuple(impl)
+
+
 # ---------------------------------------------------------------------------
 # EIG solver
 # ---------------------------------------------------------------------------
 
 def eig_solve(y: torch.Tensor, mode: int, rank: int, *,
-              impl: str = "matfree") -> SolveResult:
-    ttm, gram, _ = backend_ops(impl)
+              impl="matfree") -> SolveResult:
+    ttm, gram, _ = _ops(impl)
     s = gram(y, mode)                                   # (I_n, I_n), fp32+ accum
     _, vecs = G.eigh(s.to(_accum(s.dtype)))             # ascending, like jnp
     u = vecs[:, -rank:].flip(1).to(y.dtype)             # leading R_n eigvecs
@@ -71,7 +82,7 @@ def eig_solve(y: torch.Tensor, mode: int, rank: int, *,
 def als_solve(y: torch.Tensor, mode: int, rank: int, *,
               num_iters: int = DEFAULT_ALS_ITERS,
               seed: int = 0,
-              impl: str = "matfree",
+              impl="matfree",
               l0: torch.Tensor | None = None) -> SolveResult:
     """``l0`` (I_n, R_n) overrides the random start, which is otherwise
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``y``'s device
@@ -80,7 +91,7 @@ def als_solve(y: torch.Tensor, mode: int, rank: int, *,
         # the loop must run at least once: the R-tensor is only written
         # inside the body (zero iterations would return a zero core)
         raise ValueError(f"als_solve needs num_iters >= 1, got {num_iters}")
-    ttm, gram, ttt = backend_ops(impl)
+    ttm, gram, ttt = _ops(impl)
     i_n = y.shape[mode]
     # sub-fp32 inputs (bf16/fp16) iterate in fp32 (the peak_bytes model in
     # plan.py assumes exactly this); fp32/fp64 keep their own precision

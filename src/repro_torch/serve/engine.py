@@ -221,7 +221,15 @@ class TuckerBatchEngine:
     resolved backend.  ``memory_cap_bytes`` pins a modeled-peak ceiling
     onto every plan (requests carrying their own cap keep the tighter of
     the two).  ``device`` is where every request runs (None = ``cuda:0``,
-    raising without CUDA).  ``mesh`` raises until the sharded slice.
+    or with a mesh the rank's current CUDA device; raising without CUDA).
+
+    ``mesh`` (plus optional ``shard_axis``) attaches a ``torch.distributed``
+    ``DeviceMesh`` to every plan the engine builds, so grouped requests run
+    through the ``sharded`` backend — a mesh with no explicit ``impl`` pins
+    ``impl="sharded"``; requests carrying their own mesh keep it; a pinned
+    single-device ``impl`` drops it.  Every rank runs its own engine on the
+    same requests (global tensors); the engine runs them in submission
+    order, item by item through one cached eager sweep per group.
 
     ``record=True`` (optionally with a ``record_store``) runs requests
     through the eager timed path so engine traffic feeds the autotune

@@ -40,8 +40,19 @@ CUDA, as :func:`repro_torch.core.api.plan`):
 
 ``impl`` and ``memory_cap_bytes`` pin every plan the service builds;
 ``TuckerBatchEngine`` is a thin synchronous wrapper over this service
-(identity bucket policy, unbounded waves).  ``mesh`` raises until the
-sharded slice.
+(identity bucket policy, unbounded waves).
+
+``mesh`` (a ``torch.distributed`` ``DeviceMesh``, plus an optional
+``shard_axis``) attaches the mesh to every plan the service builds, as the
+reference does: a mesh with no explicit ``impl`` pins ``impl="sharded"``,
+requests that carry their own mesh keep it, and a pinned single-device
+``impl`` drops it.  Every rank of the mesh runs its own service and submits
+the same requests (global tensors) in the same order; every rank must then
+run the same waves in the same order, or the collectives of different
+requests pair up and hang.  The synchronous pump forms waves from the
+submission order alone, so with a mesh the service runs synchronously:
+``start()`` (a worker forming waves by timing) and ``deadline_s`` (each
+rank's own clock) raise.
 
 Failure isolation:
 
@@ -91,7 +102,7 @@ import torch
 from .. import chaos as _chaos
 from ..core import tensor_ops as T
 from ..core.api import (CACHE_STATS, TuckerConfig, TuckerPlan, _as_tensor,
-                        _later, plan as make_plan, resolve_device)
+                        plan as make_plan, resolve_device)
 from ..core.errors import (CancelledError, DeadlineError, InputError,
                            NumericalError, ResourceError, check_finite,
                            coerce_exception)
@@ -289,8 +300,6 @@ class TuckerService:
                  breaker_cooldown_s: float = 5.0,
                  record: bool = False, record_store=None,
                  trace_path=None, device=None):
-        if mesh is not None or shard_axis is not None:
-            raise _later("multi-device serving (mesh=...)", "sharded")
         if backpressure not in BACKPRESSURE_MODES:
             raise ValueError(f"backpressure {backpressure!r} not in "
                              f"{BACKPRESSURE_MODES}")
@@ -303,10 +312,12 @@ class TuckerService:
             raise ValueError("breaker_threshold must be >= 1")
         if breaker_cooldown_s <= 0:
             raise ValueError("breaker_cooldown_s must be > 0")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh=mesh)
         self._selector = selector
         self._policy = policy if policy is not None else BucketPolicy()
-        self._impl = impl
+        self._impl = "sharded" if impl is None and mesh is not None else impl
+        self._mesh = mesh
+        self._shard_axis = shard_axis
         self._cap = memory_cap_bytes
         self._max_queue = max_queue
         self._backpressure = backpressure
@@ -352,12 +363,21 @@ class TuckerService:
 
     # -- config pinning ------------------------------------------------------
     def _pinned(self, config: TuckerConfig) -> TuckerConfig:
+        from ..core.backend import get_backend
         impl = self._impl if self._impl is not None else config.impl
+        mesh, axis = config.mesh, config.shard_axis
+        if mesh is None and self._mesh is not None:
+            mesh, axis = self._mesh, self._shard_axis or config.shard_axis
+        if impl != "auto" and not get_backend(impl).requires_mesh:
+            mesh = None   # pinned single-device backend: a mesh is moot
         cap = config.memory_cap_bytes
         if self._cap is not None:
             cap = self._cap if cap is None else min(cap, self._cap)
-        if (impl, cap) != (config.impl, config.memory_cap_bytes):
-            config = replace(config, impl=impl, memory_cap_bytes=cap)
+        if (impl, mesh, axis, cap) != (config.impl, config.mesh,
+                                       config.shard_axis,
+                                       config.memory_cap_bytes):
+            config = replace(config, impl=impl, mesh=mesh, shard_axis=axis,
+                             memory_cap_bytes=cap)
         return config
 
     # -- plan cache ----------------------------------------------------------
@@ -424,6 +444,10 @@ class TuckerService:
             raise ValueError(f"validate {validate!r} not in {VALIDATE_MODES}")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError("deadline_s must be > 0 (or None)")
+        if deadline_s is not None and self._mesh is not None:
+            raise ValueError("deadline_s with a mesh: each rank would expire "
+                             "requests by its own clock, and ranks must run "
+                             "the same waves")
         if retries < 0:
             raise ValueError("retries must be >= 0")
         t_adm = time.perf_counter()
@@ -989,7 +1013,15 @@ class TuckerService:
     # -- background worker (async mode) --------------------------------------
     def start(self) -> "TuckerService":
         """Spawn the background wave pump; ``submit`` becomes fire-and-
-        forget and ``poll``/``wait`` observe completions as they land."""
+        forget and ``poll``/``wait`` observe completions as they land.
+        Raises with a mesh: the ranks' workers would form waves by their
+        own timing (ROADMAP Queue 1 item 10b)."""
+        if self._mesh is not None:
+            raise NotImplementedError(
+                "a background worker on a mesh: every rank must dispatch the "
+                "same waves in the same order, which needs rank 0's wave "
+                "choice broadcast to the others (not ported yet); drive a "
+                "mesh service synchronously with drain()")
         with self._lock:
             if self._running:
                 return self

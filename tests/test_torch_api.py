@@ -264,9 +264,9 @@ class TestDevicesAndErrors:
             p.execute(x, record=True)
 
     @pytest.mark.parametrize("kw,exc", [
-        (dict(mesh=object()), NotImplementedError),
+        (dict(mesh=object()), ValueError),
         (dict(error_target=1.5), ValueError),
-        (dict(impl="sharded"), NotImplementedError),
+        (dict(impl="pallas"), NotImplementedError),
         (dict(impl="magic"), ValueError),
         (dict(variant="cp"), ValueError),
         (dict(als_iters=0), ValueError),
@@ -324,7 +324,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys; import repro_torch, repro_torch.core, "
             "repro_torch.kernels, repro_torch.obs, repro_torch.obs.__main__, "
             "repro_torch.chaos, repro_torch.core.variants, "
-            "repro_torch.core.graphs, repro_torch.serve; "
+            "repro_torch.core.graphs, repro_torch.core.distributed, "
+            "repro_torch.serve; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -165,5 +165,5 @@ def test_unknown_backend_rejected():
     for fn in (PS.eig_solve, PS.svd_solve):
         with pytest.raises(ValueError):
             fn(x, 0, 2, impl="magic")
-    with pytest.raises(NotImplementedError):
-        PS.eig_solve(x, 0, 2, impl="sharded")
+    with pytest.raises(NotImplementedError):   # the reference's TPU backend
+        PS.eig_solve(x, 0, 2, impl="pallas")
