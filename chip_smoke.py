@@ -280,6 +280,10 @@ HSI = ((1021, 1340, 33, 8), (10, 10, 10, 5))
 #: make two modes double their sketch width twice (16 -> 32 -> 64)
 ADAPT_HSI = HSI
 ADAPT_WIDE = ((1021, 1340, 33, 8), (40, 40, 10, 5))
+#: adapt_wide's certified bound on hopper against matfree on the same
+#: input: the wide routes' sums must not lean (a truncating accumulator
+#: summed over 32-deep stages put them 1.7e-5 apart)
+WIDE_BOUND_GAP = 2e-6
 KERNELS = {
     "ttt": dict(source="src/repro_torch/csrc/ttt.cu",
                 replaces="src/repro/kernels/ttt.py:37"),
@@ -362,8 +366,9 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln or "arning" in ln]
+    ptxas = {n: [ln.strip()[:160] for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "arning" in ln
+                 or "Function properties" in ln]
              for n, log in _build.BUILD_LOG.items()}
     emit("build", seconds=secs, libraries=[str(p.relative_to(ROOT))
                                           for p in libs.values()],
@@ -601,7 +606,7 @@ def phase_ttt_wide_shapes(torch):
 #: first-mode GEMMs of the wide route in kernels_small: every R with K = 7
 #: and K = 1021, N cycling through an odd width (plain loads), a 16-byte
 #: multiple for fp32 only and one for both dtypes (TMA); R = 130 and 300
-#: split R between the warpgroups, 300 also crosses a chunk of 256
+#: split R between the warpgroups and cross a chunk of 128
 MATMUL_WIDE_CASES = [(r, k, (1283, 2052, 2056)[j % 3]) for j, (r, k) in
                      enumerate((r, k) for r in (17, 24, 40, 64, 130, 300)
                                for k in (7, 1021))]
@@ -620,6 +625,83 @@ def gemm_entry_err(torch, got, a, b, check: bool = True) -> float:
             f"max |kernel - exact| / sqrt((a∘a) @ (b∘b)) = {err:.3e} exceeds "
             f"{ENTRY_TOL:g}")
     return err
+
+
+def energy_bias(got, want) -> float:
+    """(‖got‖² - ‖want‖²) / ‖want‖², in float64: how far the sums of a
+    route lean toward zero (a truncating accumulator) or away from it."""
+    e = float(want.double().square().sum())
+    return (float(got.double().square().sum()) - e) / e
+
+
+#: the wide route's energy bias, measured at adapt_wide's mode-0 depth: u
+#: (64, 1021) @ x (1021, 65536), seed 12
+BIAS_SHAPE = (64, 1021, 65536)
+#: |energy bias| an fp32 input may show (the tests' limit on the emulation),
+#: and the most a bf16 input's truncating stage sums may read high (the
+#: rounding of the fp32 adds of the stage sums, nothing more)
+BIAS_TOL, BF16_BIAS_TOL = 3e-8, 2e-9
+
+
+def bias_operands(torch, kind: str, g):
+    """u (64, 1021) and x (1021, 65536) on the card for an energy-bias case:
+    ``normal`` (standard normal, adapt_wide's signed data), ``uint8``
+    (x whole numbers 0..255 as a video's pixels, u orthonormal rows),
+    ``positive`` (x = 3|z| + 1, a radiance cube's positive values),
+    ``both_positive`` (x as uint8, u's rows positive: a nonnegative
+    tensor's leading direction, where the products share one sign) and
+    ``bf16`` (normal, rounded to bf16: one product a k-step)."""
+    r, k, n = BIAS_SHAPE
+    u = torch.randn((r, k), generator=g, device="cuda")
+    if kind == "normal" or kind == "bf16":
+        x = torch.randn((k, n), generator=g, device="cuda")
+    elif kind == "positive":
+        x = torch.randn((k, n), generator=g, device="cuda").abs() * 3 + 1
+    else:
+        x = torch.randint(0, 256, (k, n), generator=g, device="cuda").float()
+    if kind == "both_positive":
+        u = u.abs() + 1
+        u = u / u.norm(dim=1, keepdim=True)
+    elif kind != "bf16":
+        u = torch.linalg.qr(u.T.double())[0].T.float().contiguous()
+    if kind == "bf16":
+        u, x = u.bfloat16(), x.bfloat16()
+    return u, x
+
+
+def wide_energy_bias(torch) -> dict:
+    """The energy bias of the wide route's sums on the card (one call of
+    the kernel against the float64 product of its operands) on signed,
+    nonnegative, whole-number and bf16 data, beside the emulation of its
+    scheme (``matmul_tf32x3_ref(truncate=True, scheme="grid")``) and of the
+    stage sums it replaced (``scheme="stage"``) on the normal operands.
+    Fails when an fp32 case's |bias| reaches BIAS_TOL or the bf16 case
+    reads more than BF16_BIAS_TOL high."""
+    from repro_torch.kernels import matmul, ref
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = dict(shape=list(BIAS_SHAPE))
+    for kind in ("normal", "uint8", "positive", "both_positive", "bf16"):
+        u, x = bias_operands(torch, kind, g)
+        exact = u.double() @ x.double()
+        out[kind] = energy_bias(matmul(u, x), exact)
+        if kind == "normal":
+            out["emulated_grid"] = energy_bias(ref.matmul_tf32x3_ref(
+                u, x, truncate=True, scheme="grid"), exact)
+            out["emulated_stage"] = energy_bias(ref.matmul_tf32x3_ref(
+                u, x, truncate=True, scheme="stage"), exact)
+            out["plain_fp32"] = energy_bias(ref.matmul_ref(u, x), exact)
+        if kind == "bf16":
+            out["emulated_bf16"] = energy_bias(ref.matmul_tf32x3_ref(
+                u, x, products=1, truncate=True, scheme="grid"), exact)
+        del u, x, exact
+    torch.cuda.empty_cache()
+    bad = {k: out[k] for k in ("normal", "uint8", "positive", "both_positive")
+           if not abs(out[k]) < BIAS_TOL}
+    if not out["bf16"] <= BF16_BIAS_TOL:
+        bad["bf16"] = out["bf16"]
+    require(not bad, f"wide route energy bias out of bounds: {bad} (fp32 "
+          f"|bias| < {BIAS_TOL:g}, bf16 <= {BF16_BIAS_TOL:g})")
+    return out
 
 
 def matmul_module():
@@ -666,36 +748,69 @@ def phase_matmul_wide_shapes(torch):
                     f"matmul: no small case loaded x by {want} in {dt}")
     emit("kernels_small", name="matmul_wide", cases=n, loads=seen,
          dtypes=["float32", "bfloat16"], max_entry_err=worst,
-         entry_tol=ENTRY_TOL, max_abs_err=worst_plain, tol_rel=TOL, ok=True)
+         entry_tol=ENTRY_TOL, max_abs_err=worst_plain, tol_rel=TOL,
+         energy_bias=wide_energy_bias(torch), ok=True)
+
+
+def ttm_module():
+    """The wrapper module of the interior TTM (the package attribute
+    ``ttm_interior`` is the function)."""
+    import importlib
+    return importlib.import_module("repro_torch.kernels.ttm")
 
 
 def phase_ttm_shapes(torch):
-    """The interior TTM on its own: R across the widths it templates and
-    its slabs (4, 10, 16, 20), B = 1 and 8 (the plain-load path), 264 (the
-    bulk-copy ring on tiles of whole values of a) and 1536 (the ring on
-    1024-column ranges that cut across values of a), u in two shared-memory
-    segments (I = 2000 at R = 16), and x at an address that is not 16-byte
-    aligned (the plain path), fp32 and bf16."""
+    """The interior TTM on its own: R across the widths the FFMA routes
+    template (4, 10, 16) and the wide route's (20, 40, 64; 100 splits R
+    between the warpgroups, 130 crosses a chunk of 128), B = 1 and 8 (plain
+    loads on both routes), 264 (the FFMA ring on tiles of whole values of
+    a; the wide route's TMA boxes, 264 of 288 columns filled) and 1536 (the
+    ring on 1024-column ranges that cut across values of a), u in two
+    shared-memory segments (I = 2000 at R = 16), K = 1340 (a ragged last
+    stage), and x at an address that is not 16-byte aligned (plain loads),
+    fp32 and bf16.  Each is held against ``ttm_interior_ref``; the wide
+    route also against its arithmetic written out, ``ttm_tf32x3_ref``
+    (TOL), and per entry against the float64 product (ENTRY_TOL of
+    sqrt((u∘u) @ (x∘x))).  Fails unless each route ran, and the wide route
+    with both of x's loads in both dtypes -- the C library's report,
+    checked against route() and loads()."""
     from repro_torch.kernels import ref, ttm_interior
+    tm = ttm_module()
     g = torch.Generator(device="cuda").manual_seed(7)
-    worst, n = 0.0, 0
+    worst, worst_emu, worst_entry, n, seen = 0.0, 0.0, 0.0, 0, {}
     for dtype in (torch.float32, torch.bfloat16):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda").to(dtype)
-        cases = [(rnd(r, 45), rnd(7, 45, b)) for r in (4, 10, 16, 20)
+        cases = [(rnd(r, 45), rnd(7, 45, b)) for r in (4, 10, 16, 20, 40, 64)
                  for b in (1, 8, 264)]
         cases += [(rnd(r, 45), rnd(3, 45, 1536)) for r in (10, 20)]
+        cases += [(rnd(100, 45), rnd(5, 45, 264)), (rnd(130, 33), rnd(4, 33, 8)),
+                  (rnd(64, 1340), rnd(3, 1340, 264))]
         cases.append((rnd(16, 2000), rnd(3, 2000, 264)))
         flat = rnd(5 * 37 * 264 + 1)
-        cases.append((rnd(10, 37), flat[1:].view(5, 37, 264)))
+        cases += [(rnd(r, 37), flat[1:].view(5, 37, 264)) for r in (10, 40)]
         for u, x in cases:
-            worst = max(worst, close(ttm_interior(u, x),
-                                     ref.ttm_interior_ref(u, x)))
+            info = tm.launch_info(u, x)[0]
+            key = info["route"] + (f"/{info['loads']}" if "loads" in info else "")
+            key += f"/{str(dtype)[6:]}"
+            seen[key] = seen.get(key, 0) + 1
+            got = ttm_interior(u, x)
+            worst = max(worst, close(got, ref.ttm_interior_ref(u, x)))
+            if info["route"] == "wide":
+                worst_emu = max(worst_emu, close(got, ref.ttm_tf32x3_ref(u, x)))
+                cols = x.transpose(0, 1).reshape(x.shape[1], -1)
+                worst_entry = max(worst_entry, gemm_entry_err(
+                    torch, got.transpose(0, 1).reshape(u.shape[0], -1), u, cols))
             n += 1
     torch.cuda.synchronize()
-    emit("kernels_small", name="ttm_interior", cases=n,
-         dtypes=["float32", "bfloat16"], max_abs_err=worst, tol_rel=TOL,
-         ok=True)
+    for want in ("slab", "plain", "wide/tma", "wide/plain"):
+        for dt in ("float32", "bfloat16"):
+            require(f"{want}/{dt}" in seen,
+                    f"ttm_interior: no small case took {want} in {dt}")
+    emit("kernels_small", name="ttm_interior", cases=n, routes=seen,
+         dtypes=["float32", "bfloat16"], max_abs_err=worst,
+         wide_max_abs_err_vs_emulation=worst_emu, wide_max_entry_err=worst_entry,
+         entry_tol=ENTRY_TOL, tol_rel=TOL, ok=True)
 
 
 def ttt_module():
@@ -886,6 +1001,21 @@ def phase_kernels_full(torch, peaks):
             lambda: torch.matmul(a, b),
             4 * (a.numel() + b.numel() + 76800 * 10), 2.0 * 76800 * 7000 * 10,
             matmul_mod.launch_info(a, b))
+    # row 2c: Boats' last mode at R = 64, x2 (76800, 7000) @ u^T (7000, 64),
+    # on the slab route's 128 x 16 tiles (4 of them re-reading x); its flop
+    # priced by tf32x3_bound, as the wide route would run them
+    b = rnd(7000, 64)
+    c_bytes, c_flops = 4 * (a.numel() + b.numel() + 76800 * 64), \
+        2.0 * 76800 * 7000 * 64
+    bnd, terms = tf32x3_bound(c_bytes, c_flops)
+    measure("matmul_last_r64", "(76800, 7000) @ (7000, 64) fp32",
+            lambda: matmul(a, b), lambda: ref.matmul_ref(a, b),
+            lambda: torch.matmul(a, b), c_bytes, c_flops,
+            matmul_mod.launch_info(a, b), b=bnd)
+    out["matmul_last_r64"].update(route=matmul_mod.route(76800, 64),
+                                  bound_terms_ms=terms)
+    emit("kernel_full", name="matmul_last_r64",
+         route=out["matmul_last_r64"]["route"], bound_terms_ms=terms)
     del x, y, a, b
     torch.cuda.empty_cache()
     # gram: the HSI mode-1 EIG Gram; ttm_interior: the HSI mode-1 TTM.  The
@@ -938,10 +1068,15 @@ def phase_kernels_full(torch, peaks):
             lambda: torch.matmul(u, x),
             4 * (x.numel() + u.numel() + 1021 * 10 * 264),
             2.0 * 1021 * 264 * 1340 * 10, ttm_mod.launch_info(u, x))
-    # the sketch's projection at ℓ = 64: the TTM runs its 16-row slabs, each
-    # reading x again (4 here).  Its 2·A·B·I·ℓ flop priced as the TTT's
-    # (tf32x3_bound): the card could do them at fp32 accuracy that way.
+    # row 3b, the sketch's projection of an interior mode at ℓ = 64, on the
+    # wide route (one pass over x, split-TF32 wgmma), its 2·A·B·I·ℓ flop
+    # priced by tf32x3_bound; beside it the route it replaced, 16-row
+    # slabs each reading x (run as R = 16 calls on the same u and x, which
+    # take the FFMA ring), per-entry errors in units of sqrt((u∘u) @
+    # (x∘x)), the energy bias of the sums, and the tile fill (264 of 288
+    # columns: TMA boxes do not straddle two values of a)
     u = rnd(64, 1340)
+    require(ttm_mod.route(64, 264) == "wide", "ttm_interior R = 64: not wide")
     t_bytes, t_flops = 4 * (x.numel() + u.numel() + 1021 * 64 * 264), \
         2.0 * 1021 * 264 * 1340 * 64
     b, terms = tf32x3_bound(t_bytes, t_flops)
@@ -949,14 +1084,60 @@ def phase_kernels_full(torch, peaks):
             lambda: ttm_interior(u, x), lambda: ref.ttm_interior_ref(u, x),
             lambda: torch.matmul(u, x), t_bytes, t_flops,
             ttm_mod.launch_info(u, x), b=b)
-    out["ttm_interior_l64"]["bound_terms_ms"] = terms
-    emit("kernel_full", name="ttm_interior_l64", bound_terms_ms=terms)
+    row = out["ttm_interior_l64"]
+
+    def slab():
+        return [ttm_interior(u[i:i + 16], x) for i in range(0, 64, 16)]
+    got = ttm_interior(u, x)
+    row.update(route="wide", bound_terms_ms=terms,
+               tile_fill=264 / (math.ceil(264 / 32) * 32),
+               slab_ms=time_ms(torch, slab),
+               slab_device_ms=device_ms(torch, slab),
+               slab_launch=ttm_mod.launch_info(u[:16], x),
+               **ttm_exactness(torch, got, torch.cat(slab(), dim=1), u, x))
+    row["bytes_per_s"] = t_bytes / (row["device_ms"] * 1e-3)
+    del got
+    emit("kernel_full", name="ttm_interior_l64", **{k: row[k] for k in (
+        "route", "bound_terms_ms", "tile_fill", "slab_ms", "slab_device_ms",
+        "slab_launch", "max_entry_err", "slab_max_entry_err", "energy_bias",
+        "slab_energy_bias", "bytes_per_s")})
     del u
     phase_matmul_wide_full(torch, x.view(1021, -1), rnd, tf32x3_bound,
                            measure, out)
     del x
     torch.cuda.empty_cache()
     return out
+
+
+def ttm_exactness(torch, got, slab, u, x) -> dict:
+    """Per-entry errors (ENTRY_TOL of sqrt((u∘u) @ (x∘x)), checked for the
+    kernel) and energy biases of a TTM's output ``got`` and of the slab
+    route's ``slab`` against the float64 product, over chunks of a."""
+    err = slab_err = 0.0
+    sums = [0.0, 0.0, 0.0]
+    ud, u2 = u.double(), u.double().square()
+    for lo in range(0, x.shape[0], 64):
+        xd = x[lo:lo + 64].double()
+        want = torch.matmul(ud, xd)
+        scale = torch.matmul(u2, xd.square_()).sqrt_().clamp_min_(1e-300)
+        del xd
+        for i, v in enumerate((got, slab)):
+            d = (v[lo:lo + 64].double() - want).abs_().div_(scale)
+            if i == 0:
+                err = max(err, float(d.max()))
+            else:
+                slab_err = max(slab_err, float(d.max()))
+        sums[0] += float(want.square().sum())
+        sums[1] += float(got[lo:lo + 64].double().square().sum())
+        sums[2] += float(slab[lo:lo + 64].double().square().sum())
+        del want, scale
+    require(math.isfinite(err) and err <= ENTRY_TOL,
+            f"ttm wide: max |kernel - exact| / scale = {err:.3e} exceeds "
+            f"{ENTRY_TOL:g}")
+    return dict(max_entry_err=err, slab_max_entry_err=slab_err,
+                entry_tol=ENTRY_TOL,
+                energy_bias=(sums[1] - sums[0]) / sums[0],
+                slab_energy_bias=(sums[2] - sums[0]) / sums[0])
 
 
 def phase_matmul_wide_full(torch, xw, rnd, tf32x3_bound, measure, out):
@@ -1169,7 +1350,7 @@ def phase_main(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     data = {}
     launched = {k: 0 for k in KERNELS}
-    launched["matmul_routes"] = {}
+    launched["matmul_routes"], launched["ttm_routes"] = {}, {}
     results = []
     for name, shape, ranks, methods in cases:
         if shape not in data:
@@ -1188,8 +1369,10 @@ def phase_main(torch):
         res = p.execute(x)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        for rt, v in kernels.matmul_route_counts().items():
-            launched["matmul_routes"][rt] = launched["matmul_routes"].get(rt, 0) + v
+        for key, by in (("matmul_routes", kernels.matmul_route_counts()),
+                        ("ttm_routes", kernels.ttm_route_counts())):
+            for rt, v in by.items():
+                launched[key][rt] = launched[key].get(rt, 0) + v
         peak = torch.cuda.max_memory_allocated()
         for k, v in counts.items():
             launched[k] += v
@@ -1338,6 +1521,7 @@ def all_launches(kernels) -> dict:
     counts = kernels.launch_counts()
     counts["ttt_routes"] = kernels.ttt_route_counts()
     counts["matmul_routes"] = kernels.matmul_route_counts()
+    counts["ttm_routes"] = kernels.ttm_route_counts()
     return counts
 
 
@@ -1680,6 +1864,7 @@ def adaptive_case(torch, name, x, cfg_kw, want_ranks, launched,
     torch.cuda.synchronize()
     counts, routes = kernels.launch_counts(), kernels.ttt_route_counts()
     mroutes = kernels.matmul_route_counts()
+    troutes = kernels.ttm_route_counts()
     hops = {f"{h}/{b}": n for (h, b), n in fallback_hops().items()}
     peak = torch.cuda.max_memory_allocated()
     for k, v in counts.items():
@@ -1712,7 +1897,7 @@ def adaptive_case(torch, name, x, cfg_kw, want_ranks, launched,
                sketch=probe.tails(res.tucker.ranks, p.schedule[0].mode,
                                   {t.mode: t.tail_err for t in res.trace}),
                hops=hops, launches=counts, ttt_routes=routes,
-               matmul_routes=mroutes,
+               matmul_routes=mroutes, ttm_routes=troutes,
                execute_ms=wall, execute_ms_all=times,
                execute_ms_matfree=statistics.median(times_m),
                execute_ms_matfree_all=times_m, peak_bytes=peak,
@@ -1788,6 +1973,7 @@ def capped_steps(torch, name, p, x, cap):
             f"plus in-step: {[x_bytes + b for b in inside]})")
     counts = kernels.launch_counts()
     counts["matmul_routes"] = kernels.matmul_route_counts()
+    counts["ttm_routes"] = kernels.ttm_route_counts()
     return y, factors, boundary, inside, counts
 
 
@@ -1817,6 +2003,7 @@ def opt_cap_eig_case(torch, x, launched):
     y, factors, boundary, inside, counts = capped_steps(
         torch, "opt_cap_eig", p, x, cap)
     mroutes = counts.pop("matmul_routes")
+    troutes = counts.pop("ttm_routes")
     for k, v in counts.items():
         launched[k] += v
     x_bytes = x.numel() * x.element_size()
@@ -1846,7 +2033,8 @@ def opt_cap_eig_case(torch, x, launched):
                max_allocated_with_input_inside_steps=[x_bytes + b
                                                       for b in inside],
                eigh_fp32_bytes=eigh,
-               rel_error=rel, launches=counts, matmul_routes=mroutes)
+               rel_error=rel, launches=counts, matmul_routes=mroutes,
+               ttm_routes=troutes)
     emit("adaptive", **row)
     require(math.isfinite(rel) and rel <= 0.02,
             f"opt_cap_eig: rel_error {rel} > 0.02")
@@ -1895,6 +2083,7 @@ def opt_cap_case(torch, gen, launched):
     y, factors, boundary, inside, counts = capped_steps(torch, "opt_cap", p,
                                                         x, cap)
     mroutes = counts.pop("matmul_routes")
+    troutes = counts.pop("ttm_routes")
     for k, v in counts.items():
         launched[k] += v
     x_bytes = x.numel() * x.element_size()
@@ -1924,7 +2113,7 @@ def opt_cap_case(torch, gen, launched):
                rel_error=rel, rel_error_execute=rel_x,
                rel_error_matfree=rel_m, max_projector_gap=max(gaps),
                rel_error_free_plan=rel_free, launches=counts,
-               matmul_routes=mroutes,
+               matmul_routes=mroutes, ttm_routes=troutes,
                execute_ms=statistics.median(times), execute_ms_all=times,
                execute_ms_matfree=statistics.median(times_m),
                execute_ms_matfree_all=times_m)
@@ -1989,6 +2178,14 @@ def phase_adaptive(torch):
     require(row["matmul_routes"].get("wide", 0) > 0,
             f"adapt_wide: no first-mode GEMM on the wide route: "
             f"{row['matmul_routes']}")
+    require(row["ttm_routes"].get("wide", 0) > 0,
+            f"adapt_wide: no interior TTM on the wide route: "
+            f"{row['ttm_routes']}")
+    gap = abs(row["error_bound"] - row["error_bound_matfree"])
+    require(gap <= WIDE_BOUND_GAP,
+            f"adapt_wide: the hopper bound {row['error_bound']} is {gap:.3g} "
+            f"from matfree's {row['error_bound_matfree']} (limit "
+            f"{WIDE_BOUND_GAP:g}): the tensor-core sums lean")
     rows.append(row)
     del x
     torch.cuda.empty_cache()
@@ -2008,6 +2205,9 @@ def phase_adaptive(torch):
     launched["matmul_routes"] = {
         rt: sum(r.get("matmul_routes", {}).get(rt, 0) for r in rows)
         for rt in ("slab", "wide")}
+    launched["ttm_routes"] = {
+        rt: sum(r.get("ttm_routes", {}).get(rt, 0) for r in rows)
+        for rt in ("slab", "plain", "wide")}
     return launched
 
 
@@ -2843,7 +3043,8 @@ def _kernel_counts(kernels) -> dict:
     c = kernels.launch_counts()
     return dict({k: c[k] for k in ("ttt", "matmul", "ttm_interior")},
                 ttt_routes=kernels.ttt_route_counts(),
-                matmul_routes=kernels.matmul_route_counts())
+                matmul_routes=kernels.matmul_route_counts(),
+                ttm_routes=kernels.ttm_route_counts())
 
 
 def sharded_main_case(torch, mesh, world, rank, name, shape, ranks, methods,
@@ -2945,12 +3146,184 @@ def sharded_main_case(torch, mesh, world, rank, name, shape, ranks, methods,
     return row
 
 
+def profiled_device_ms(torch, fn) -> float:
+    """The CUDA kernels' time of one synchronized call of ``fn`` under
+    torch.profiler (CPU and CUDA activities)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
 def _barrier(world: int) -> None:
     """Wait for every rank (nothing to wait for at world 1, whose NCCL
     group then never starts a communicator)."""
     if world > 1:
         import torch.distributed as dist
         dist.barrier()
+
+
+def sharded_fault_case(torch, mesh, world, rank) -> dict:
+    """A rank-local out-of-memory in the middle of a sweep: Boats on the
+    mesh (``methods="eig"``, a per-device cap of twice the plan's own
+    capped peak, so the ladder's replan_cap rung has room), an OOM planted
+    through the ``"solve"`` chaos seam at step 1 on the last rank alone --
+    after step 0's collectives.  Every rank must read it in the next
+    collective, take replan_cap (and nothing else), finish with factors
+    equal across ranks (the phase compares digests) and within SHARD_REL
+    of the input; the execute is timed beside a clean one."""
+    from repro_torch import chaos, kernels
+    from repro_torch.core import (TuckerConfig, clear_sweep_cache,
+                                  fallback_hops, plan, reset_fallback_hops)
+    shape, ranks = BOATS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = lowrank(torch, shape, ranks, gen)
+    cfg = dict(ranks=ranks, methods="eig", mode_order="shrink", impl="auto",
+               mesh=mesh)
+    cap = 2 * plan(shape, "float32", TuckerConfig(**cfg)).capped_peak_bytes
+    p = plan(shape, "float32", TuckerConfig(memory_cap_bytes=cap, **cfg))
+    t_clean = synced_ms(torch, lambda: p.execute(x), 2)
+    reset_fallback_hops()
+    kernels.reset_launch_counts()
+    if rank == world - 1:
+        chaos.install([chaos.Rule(seam="solve", action="oom", at=1)])
+    t0 = time.perf_counter()
+    try:
+        res = p.execute(x)
+        torch.cuda.synchronize()
+    finally:
+        fired = chaos.fired()
+        chaos.reset()
+    t_fault = (time.perf_counter() - t0) * 1e3
+    launches = _kernel_counts(kernels)
+    hops = {f"{h}/{b}": n for (h, b), n in fallback_hops().items()}
+    rel = float(res.tucker.rel_error(x))
+    require(hops == {"replan_cap/sharded": 1},
+            f"fault (world {world}, rank {rank}): hops {hops}, not one "
+            "replan_cap")
+    require(math.isfinite(rel) and rel <= SHARD_REL,
+            f"fault (world {world}): rel_error {rel} > {SHARD_REL}")
+    row = dict(case="fault", world=world, rank=rank, cap=cap,
+               planted=rank == world - 1, fired=fired, hops=hops,
+               rel_error=rel, factors_digest=_digest(res.tucker.factors),
+               core_digest=_digest([res.tucker.core]), launches=launches,
+               execute_ms=t_fault, clean_execute_ms=t_clean)
+    del res, x
+    clear_sweep_cache()
+    torch.cuda.empty_cache()
+    _barrier(world)
+    return row
+
+
+def sharded_device_case(torch, mesh, world, rank) -> dict:
+    """The sweeps' device time on the mesh: boats and hsi (``auto``,
+    ``shrink``), each executed once warm and once under torch.profiler on
+    every rank at once, and nothing after it in the rank process but the
+    next such execute (in the NCCL spawn, the case after a profiled one
+    once never finished: PERF.md §7).  Returns boats' row with hsi's
+    beside it."""
+    from repro_torch import kernels
+    from repro_torch.core import TuckerConfig, clear_sweep_cache, plan
+    out = {}
+    for name, (shape, ranks) in (("boats", BOATS), ("hsi", HSI)):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = lowrank(torch, shape, ranks, gen)
+        p = plan(shape, "float32", TuckerConfig(ranks=ranks, mode_order="shrink",
+                                                impl="auto", mesh=mesh))
+        res = p.execute(x)
+        wall = synced_ms(torch, lambda: p.execute(x), 1)
+        kernels.reset_launch_counts()
+        dev = profiled_device_ms(torch, lambda: p.execute(x))
+        out[name] = dict(device_ms=dev, execute_ms=wall[0],
+                         launches=_kernel_counts(kernels),
+                         factors_digest=_digest(res.tucker.factors))
+        del res, x
+        clear_sweep_cache()
+        torch.cuda.empty_cache()
+        _barrier(world)
+    head = out["boats"]
+    return dict(case="device", world=world, rank=rank, hsi=out["hsi"], **head)
+
+
+#: the profiler probe's variants (``--only profiler``): (world, backend,
+#: who profiles -- every rank at once, the CPU activity alone, rank 0
+#: alone, or one rank after another -- and what the rank process runs after
+#: the profiled executes: more sharded executes, or a single-device plan's
+#: first execute, which captures CUDA graphs)
+PROFILE_VARIANTS = {
+    "gloo4_cpu_cuda": (4, "gloo", "all", "sharded"),
+    "gloo4_cpu": (4, "gloo", "cpu", "sharded"),
+    "gloo4_cuda_rank0": (4, "gloo", "rank0", "sharded"),
+    "gloo4_seq": (4, "gloo", "seq", "sharded"),
+    "nccl1_then_sharded": (1, "nccl", "all", "sharded"),
+    "nccl1_then_capture": (1, "nccl", "all", "capture"),
+    "gloo4_then_capture": (4, "gloo", "all", "capture"),
+}
+
+
+def sharded_profile_case(torch, mesh, world, rank, variant) -> dict:
+    """One variant of the profiler probe (PROFILE_VARIANTS): hsi on the
+    mesh, two executes under torch.profiler (each its own session: the
+    second tells a one-off start-up cost from a cost of every session),
+    then what the variant runs after them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import TuckerConfig, clear_sweep_cache, plan
+    _, _, who, after = PROFILE_VARIANTS[variant]
+    shape, ranks = HSI
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = lowrank(torch, shape, ranks, gen)
+    cfg = dict(ranks=ranks, mode_order="shrink", impl="auto")
+    p = plan(shape, "float32", TuckerConfig(mesh=mesh, **cfg))
+    res = p.execute(x)
+    torch.cuda.synchronize()
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = {"all": both, "seq": both, "cpu": [ProfilerActivity.CPU],
+            "rank0": both if rank == 0 else None}[who]
+    turns = range(world) if who == "seq" else [rank]
+    dev_ms = again_ms = None
+    t0 = time.perf_counter()
+    for turn in turns:
+        # two executes a turn on every rank (the sweep needs them all); with
+        # "seq" the others run theirs unprofiled meanwhile
+        for k in range(2):
+            t1 = time.perf_counter()
+            if turn == rank and acts is not None:
+                with profile(activities=acts) as prof:
+                    p.execute(x)
+                    torch.cuda.synchronize()
+                if k == 0:
+                    dev_ms = sum(e.time_range.elapsed_us()
+                                 for e in prof.events()
+                                 if e.device_type == DeviceType.CUDA) / 1e3
+                else:
+                    again_ms = (time.perf_counter() - t1) * 1e3
+            else:
+                p.execute(x)
+                torch.cuda.synchronize()
+        if who == "seq":
+            _barrier(world)
+    t_prof = (time.perf_counter() - t0) * 1e3
+    if after == "sharded":
+        t_after = synced_ms(torch, lambda: p.execute(x), 2)
+    else:
+        ph = plan(shape, "float32", TuckerConfig(**cfg))
+        t_after = synced_ms(torch, lambda: ph.execute(x), 2)
+        del ph
+    row = dict(case=f"profile_{variant}", world=world, rank=rank,
+               variant=variant, profiled=acts is not None,
+               profiled_ms=t_prof, second_session_ms=again_ms,
+               device_ms=dev_ms, after=after, after_ms=t_after,
+               factors_digest=_digest(res.tucker.factors))
+    del res, x
+    clear_sweep_cache()
+    torch.cuda.empty_cache()
+    _barrier(world)
+    return row
 
 
 def sharded_cap_case(torch, mesh, world, rank) -> dict:
@@ -3142,9 +3515,14 @@ SHARD_SPAWNS = (
                  ("main", "hsi", "auto", "off"),
                  ("main", "hsi_mp2", "auto", 2),
                  ("main", "hsi_mp_auto", "auto", "auto"),
-                 ("cap",), ]),
-    (2, "gloo", 180, [("engine",)]),
+                 ("cap",), ("fault",)]),
+    (2, "gloo", 180, [("engine",), ("fault",)]),
+    (4, "gloo", 180, [("device",)]),
 )
+#: the profiler probe's spawns (``--only profiler``): one world-4 gloo
+#: spawn a variant, each under its own limit; a spawn that outlives it is
+#: recorded as hung, not failed
+PROFILE_SPAWN_LIMIT = 120
 
 
 def sharded_rank(world: int, backend: str, rank: int, store: str,
@@ -3174,6 +3552,12 @@ def sharded_rank(world: int, backend: str, rank: int, store: str,
                                         shape, ranks, methods, mp)
             elif kind == "cap":
                 row = sharded_cap_case(torch, mesh, world, rank)
+            elif kind == "fault":
+                row = sharded_fault_case(torch, mesh, world, rank)
+            elif kind == "device":
+                row = sharded_device_case(torch, mesh, world, rank)
+            elif kind == "profile":
+                row = sharded_profile_case(torch, mesh, world, rank, spec[1])
             else:
                 row = sharded_engine_case(torch, mesh, world, rank)
             row["backend"] = backend
@@ -3185,12 +3569,13 @@ def sharded_rank(world: int, backend: str, rank: int, store: str,
 
 
 def spawn_ranks(world: int, backend: str, limit: float,
-                cases) -> list[list[dict]]:
+                cases, hang_ok: bool = False) -> list[list[dict]]:
     """Run ``cases`` in ``world`` child processes (one a rank, all on the
     card) over one FileStore; the children have ``limit`` seconds, a hang
     or a non-zero exit fails the phase (a failed rank's peers, which may
-    wait on it in a collective, are killed at once).  Returns each rank's
-    rows."""
+    wait on it in a collective, are killed at once) -- unless ``hang_ok``,
+    when the ranks that outlived the limit are killed and their rows are
+    what they printed before.  Returns each rank's rows."""
     import os
     import tempfile
     code = ("import json, sys\n"
@@ -3233,9 +3618,10 @@ def spawn_ranks(world: int, backend: str, limit: float,
             print(f"--- rank {r} of world {world} ({backend}) ---\n"
                   f"{out[-2000:]}\n{err[-3000:]}", file=sys.stderr,
                   flush=True)
-    require(not hung, f"sharded: ranks {hung} of world {world} ({backend}) "
-            f"timed out after {limit} s")
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    require(hang_ok or not hung, f"sharded: ranks {hung} of world {world} "
+            f"({backend}) timed out after {limit} s")
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0
+           and r not in hung]
     require(not bad, f"sharded: ranks {bad} of world {world} ({backend}) "
             f"exited {[procs[r].returncode for r in bad]}")
     return [[json.loads(ln) for ln in out.splitlines()
@@ -3269,6 +3655,7 @@ def phase_sharded(torch) -> dict:
                             "launched")
             head = dict(rows[0])
             head["ranks_execute_ms"] = [r.get("execute_ms") for r in rows]
+            head["ranks_device_ms"] = [r.get("device_ms") for r in rows]
             head["ranks_launches"] = [r["launches"] for r in rows]
             if "collectives" in head:
                 head["ranks_collectives"] = [r["collectives"] for r in rows]
@@ -3281,6 +3668,30 @@ def phase_sharded(torch) -> dict:
     emit("sharded", part="summary", launches=launched,
          phase_s=time.perf_counter() - t_phase)
     return launched
+
+
+def phase_profiler_probe(torch) -> dict:
+    """The profiler hang of the sharded phase, reproduced: one spawn a
+    variant of PROFILE_VARIANTS, under PROFILE_SPAWN_LIMIT seconds.  A
+    spawn whose ranks outlive the limit is killed and reported hung (with
+    the rows its ranks printed first); nothing here fails the run but a
+    rank that exits with an error."""
+    out = {}
+    for variant, (world, backend, _, _) in PROFILE_VARIANTS.items():
+        t0 = time.perf_counter()
+        per_rank = spawn_ranks(world, backend, PROFILE_SPAWN_LIMIT,
+                               [("profile", variant)], hang_ok=True)
+        rows = [rs[0] if rs else None for rs in per_rank]
+        out[variant] = dict(
+            hung=[r for r, row in enumerate(rows) if row is None],
+            seconds=time.perf_counter() - t0,
+            device_ms=[row and row["device_ms"] for row in rows],
+            profiled_ms=[row and row["profiled_ms"] for row in rows],
+            second_session_ms=[row and row["second_session_ms"]
+                               for row in rows],
+            after_ms=[row and row["after_ms"] for row in rows])
+        emit("profiler_probe", variant=variant, **out[variant])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3531,14 +3942,15 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "tune", "tucker_serve",
-                                       "sharded"),
+                                       "sharded", "profiler"),
                     help="kernels: run env, build and the kernel phases "
                          "(small and full-size shapes) only: no large "
                          "operands, main path or serve run; tune: env, "
                          "build and the tune phase only; tucker_serve: env, "
                          "build and the Tucker service phase only; sharded: "
-                         "env, build and the sharded phase only; none "
-                         "prints the kernels line")
+                         "env, build and the sharded phase only; profiler: "
+                         "env, build and the profiler probe of the sharded "
+                         "phase's hang; none prints the kernels line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -3554,10 +3966,11 @@ def main(argv=None) -> int:
     try:
         smi, peaks = phase_env(torch)
         phase_build()
-        if args.only in ("tune", "tucker_serve", "sharded"):
+        if args.only in ("tune", "tucker_serve", "sharded", "profiler"):
             {"tune": lambda: phase_tune(torch, smi),
              "tucker_serve": lambda: phase_tucker_serve(torch),
-             "sharded": lambda: phase_sharded(torch)}[args.only]()
+             "sharded": lambda: phase_sharded(torch),
+             "profiler": lambda: phase_profiler_probe(torch)}[args.only]()
             emit("run", seconds=time.perf_counter() - t_run)
             print(smi, flush=True)
             return 0
@@ -3628,12 +4041,22 @@ def main(argv=None) -> int:
                 adaptive["matmul_routes"].get("wide", 0)
             row["launches_by_route"] = launched["matmul_routes"]
             row["launches_adaptive_by_route"] = adaptive["matmul_routes"]
+            # row 2c: the last mode at R = 64 on the slab route
+            row["last_r64"] = {k: full["matmul_last_r64"][k] for k in (
+                "shapes", "route", "max_abs_err", "ms", "device_ms",
+                "plain_ms", "bound_ms", "bound_by", "bound_terms_ms",
+                "library_ms", "library_device_ms", "launch")}
         if name == "ttm_interior":
-            # the sketch's projection at ℓ = 64 (four 16-row slabs)
+            # row 3b: the sketch's projection at ℓ = 64 on the wide route,
+            # with the 16-row slabs it replaced; launches by route
             row["l64"] = {k: full["ttm_interior_l64"][k] for k in
-                          ("shapes", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "bound_terms_ms",
-                           "library_ms", "device_ms", "library_device_ms")}
+                          ("shapes", "route", "max_abs_err", "max_entry_err",
+                           "ms", "plain_ms", "bound_ms", "bound_by",
+                           "bound_terms_ms", "library_ms", "device_ms",
+                           "library_device_ms", "slab_ms", "slab_device_ms",
+                           "tile_fill", "energy_bias", "launch")}
+            row["launches_by_route"] = launched["ttm_routes"]
+            row["launches_adaptive_by_route"] = adaptive["ttm_routes"]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -474,9 +474,12 @@ def _sharded_sweep(p: "TuckerPlan") -> Callable[[torch.Tensor], tuple]:
     def sweep(x: torch.Tensor):
         if cdtype is not None:
             x = x.to(cdtype)
-        return sweep_mode_parallel(x, steps, mesh=mesh, axis=axis,
-                                   local=local, placed=steps[0].shard_mode,
-                                   als_iters=cfg.als_iters)
+        # the plan's "sweep" seam fires inside the ranks' agreement, so a
+        # fault planted there on one rank ends the sweep on all of them
+        return sweep_mode_parallel(
+            x, steps, mesh=mesh, axis=axis, local=local,
+            placed=steps[0].shard_mode, als_iters=cfg.als_iters,
+            on_start=lambda: _chaos.fire("sweep", backend="sharded"))
 
     return sweep
 
@@ -807,7 +810,7 @@ class TuckerPlan:
                 "record=True needs the per-step recorded runner, which "
                 "sharded plans do not have; time sharded steps with "
                 "distributed.sthosvd_distributed")
-        x = self._place(x)
+        raw, x = x, self._place(x)
         if validate == "finite":
             if sharded:
                 _check_finite_everywhere(x, self.config)
@@ -832,8 +835,12 @@ class TuckerPlan:
                 if sink is not None:
                     p._feed(sink, res.trace)
             else:
-                _chaos.fire("sweep", backend=p.backend)
-                core, factors = p._sweep(eager=eager)(x)
+                if not sharded:
+                    _chaos.fire("sweep", backend=p.backend)
+                # a hop's plan may shard its first step on another mode: x
+                # is placed again through that plan
+                xp = p._place(raw) if sharded and p is not self else x
+                core, factors = p._sweep(eager=eager)(xp)
                 if _chaos.active() and _chaos.poison("sweep_out",
                                                      backend=p.backend):
                     core = core * float("nan")
@@ -1535,6 +1542,16 @@ def _replan_safe(p: TuckerPlan, cfg: TuckerConfig) -> TuckerPlan | None:
         return None
 
 
+def _agreed_on_mesh(p: TuckerPlan, err: BaseException) -> bool:
+    """Whether every rank of a sharded plan's mesh raised ``err``'s class
+    together: a :class:`~repro_torch.core.distributed.MeshError`, or any
+    failure when the shard axis has one rank."""
+    from .distributed import MeshError, ShardAxis
+    if isinstance(err, MeshError):
+        return True
+    return ShardAxis.of(p.config.mesh, p.config.resolved_shard_axis).size == 1
+
+
 def _next_hop(p: TuckerPlan, err: BaseException,
               applied: list[str]) -> tuple[str, TuckerPlan] | None:
     """The next ladder rung for a classified failure, or None when the
@@ -1545,12 +1562,15 @@ def _next_hop(p: TuckerPlan, err: BaseException,
     that fails on the card raises), and its ``donate_off`` rung has nothing
     to turn off (the port never donates).
 
-    A sharded plan has no rung: every rank runs the same collectives in
-    the same order, and a rung taken by the failing rank alone would pair
-    its new plan's collectives with its peers' old ones.  So it re-raises
-    the classified error, and the caller decides on every rank at once."""
+    A sharded plan takes a rung only on a failure every rank of its mesh
+    agreed on (:class:`~repro_torch.core.distributed.MeshError`, raised
+    alike on every rank, or any failure on a one-rank mesh): its rung is
+    then chosen from the agreed class, and the degraded plan is planned
+    the same way on every rank (planning is deterministic given the plan),
+    so every rank pairs its new plan's collectives with its peers'.  A
+    failure the mesh did not agree on re-raises."""
     cfg = p.config
-    if p.backend == "sharded":
+    if p.backend == "sharded" and not _agreed_on_mesh(p, err):
         return None
     if isinstance(err, NumericalError):
         if "als_to_eig" not in applied and \

@@ -238,11 +238,12 @@ def _load_hopper() -> OpsTriple:
     def ttm(x, u, mode):
         return K.ttm(x, u.to(x.dtype), mode).to(x.dtype)
 
-    def gram(x, mode):
-        return K.gram(x, mode).to(torch.promote_types(x.dtype, torch.float32))
+    def gram(x, mode, out=None):
+        return K.gram(x, mode, out).to(
+            torch.promote_types(x.dtype, torch.float32))
 
-    def ttt(x, y, mode):
-        return K.ttt(x, y.to(x.dtype), mode).to(
+    def ttt(x, y, mode, out=None):
+        return K.ttt(x, y.to(x.dtype), mode, out).to(
             torch.promote_types(x.dtype, torch.float32))
 
     return ttm, gram, ttt

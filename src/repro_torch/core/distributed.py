@@ -42,21 +42,47 @@ this module only executes frozen schedules:
 The result's factors are replicated on every rank, and its core is
 all-gathered to every rank as a plain tensor (the reference leaves the
 core sharded on its last shard mode).
+
+A failure on one rank ends the sweep on every rank (the reference is
+single-controller, so its fallback ladder degrades the whole mesh at
+once; here every rank must leave its collectives together).  Every
+collective of a sweep carries one extra element: this rank's failure code
+(0 ok, 1 numerical, 2 resource, 3 other, as base-256 digits so that the
+sum over ranks keeps the largest code).  The order of a sweep's
+collectives and the size and dtype of each follow from the plan alone
+(:func:`planned_collectives`): the schedule fixes every reshard and every
+solver's all-reduces (one Gram for EIG, a TTT and a Gram per ALS
+iteration, one flat buffer for a group's EIG Grams), the shapes shrink by
+the schedule's ranks, and no collective depends on the data.  So every
+rank runs the same sequence, and a rank that fails between two
+collectives knows the next one: it issues it with zeros of the planned
+size and its code (:class:`_Link`), every rank reads the code in that
+same collective, and all of them leave the sweep there with the same
+classified error (:class:`MeshError` of the agreed code).  No rank waits
+on a peer that has left, and no collective runs after the one that
+carried the code.  The plan-time check holds every collective of a
+healthy sweep to its planned kind, size and dtype.
 """
 
 from __future__ import annotations
 
+import math
+import threading
 import time
+import traceback
 from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
+from .. import chaos as _chaos
 from ..obs import drift as _drift
 from ..obs import trace as _obs
 from . import graphs as G
 from .backend import backend_ops
+from .errors import (NumericalError, ResourceError, TuckerError,
+                     classify_exception)
 from .plan import ModeStep, iter_groups, solve_step
 from .solvers import DEFAULT_ALS_ITERS, _accum, als_solve, eig_solve
 from .sthosvd import ModeTrace, SthosvdResult, TuckerTensor
@@ -156,12 +182,220 @@ def _collective(kind: str, t: torch.Tensor, fn, *args, **kw) -> None:
     st["seconds"] += time.perf_counter() - t0
 
 
-def all_reduce(t: torch.Tensor, ax: ShardAxis) -> torch.Tensor:
-    """Sum ``t`` over the shard axis in place (a contiguous copy first if
-    it is not) and return it."""
-    t = t.contiguous()
-    if ax.size > 1:
-        _collective("all_reduce", t, dist.all_reduce, t, group=ax.group)
+# ---------------------------------------------------------------------------
+# Agreement on a rank-local failure
+# ---------------------------------------------------------------------------
+
+#: failure codes the sweep's collectives carry; the largest over ranks wins
+OK, NUMERICAL, RESOURCE, OTHER = 0, 1, 2, 3
+#: ranks a shard axis may have for the codes' base-256 digits to stay exact
+#: in an fp32 sum (255 · 256² < 2²⁴)
+MAX_AGREEING_RANKS = 255
+
+
+class MeshError(TuckerError):
+    """A sharded sweep ended on every rank of its mesh because a rank
+    failed.  ``code`` is the agreed failure code (the largest over the
+    ranks); the failing rank chains its own error."""
+
+    code = OTHER
+
+
+class MeshNumericalError(MeshError, NumericalError):
+    code = NUMERICAL
+
+
+class MeshResourceError(MeshError, ResourceError):
+    code = RESOURCE
+
+
+def mesh_error(code: int, what: str) -> MeshError:
+    """The classified error every rank raises for an agreed ``code``."""
+    cls = {NUMERICAL: MeshNumericalError,
+           RESOURCE: MeshResourceError}.get(code, MeshError)
+    kind = {NUMERICAL: "numerical", RESOURCE: "resource"}.get(code, "other")
+    return cls(f"sharded sweep ended on every rank: a rank failed ({kind}) "
+               f"before {what}")
+
+
+def failure_code(exc: BaseException) -> int:
+    """The code of a rank's own failure: its class in the taxonomy."""
+    t = classify_exception(exc)
+    if isinstance(t, NumericalError):
+        return NUMERICAL
+    if isinstance(t, ResourceError):
+        return RESOURCE
+    return OTHER
+
+
+def _digit(code: int) -> float:
+    return 0.0 if code == OK else float(256 ** (code - 1))
+
+
+def _agreed(total: float) -> int:
+    """The largest code in a sum of :func:`_digit` contributions."""
+    v = int(round(total))
+    return OTHER if v >= 256 ** 2 else RESOURCE if v >= 256 else \
+        NUMERICAL if v >= 1 else OK
+
+
+def planned_collectives(shape, dtype, steps, n_shards: int,
+                        placed: int | None, als_iters: int,
+                        local: str) -> list[tuple[str, int, torch.dtype]]:
+    """The collectives a sweep of ``steps`` issues on each rank, in order:
+    ``(kind, payload elements, dtype)``, the payload without the flag
+    element.  Reshards move this rank's slab of the current shape (an
+    ``all_to_all`` between shard modes, an ``all_gather`` to replicated, a
+    local narrow from it); each step sharded on a mode all-reduces its
+    solver's partial sums in the accumulation dtype (EIG the I_n² Gram, ALS
+    per iteration the (I_n, R_n) TTT and the R_n² Gram, a group its EIG
+    Grams in one flat buffer); the core is all-gathered last.  y keeps its
+    dtype through a lone ALS (or RAND, SVD) step and takes the local TTM's
+    output dtype (fp32 on ``hopper``) through EIG steps and groups."""
+    if n_shards == 1:
+        return []
+    acc = torch.promote_types(dtype, torch.float32)
+    ydt, cur, out = dtype, list(shape), []
+
+    def reshard(old, new):
+        if old != new and old is not None:
+            out.append(("all_to_all" if new is not None else "all_gather",
+                        math.prod(cur) // n_shards, ydt))
+
+    for batch in iter_groups(steps):
+        shard = batch[0].shard_mode
+        reshard(placed, shard)
+        placed = shard
+        if shard is not None:
+            eig = [s.i_n ** 2 for s in batch if s.method == "eig"]
+            if eig:
+                out.append(("all_reduce", sum(eig), acc))
+            for s in batch:
+                if s.method == "als":
+                    out += [("all_reduce", s.i_n * s.r_n, acc),
+                            ("all_reduce", s.r_n ** 2, acc)] * als_iters
+        if (len(batch) > 1 or batch[0].method == "eig") and local == "hopper":
+            ydt = torch.float32
+        for s in batch:
+            cur[s.mode] = s.r_n
+    reshard(placed, None)
+    return out
+
+
+class _Link:
+    """One sweep's agreement: the collectives it has left (in plan order)
+    and, as a context manager around the sweep, the handling of this
+    rank's own failure: join the next planned collective with zeros and
+    the failure's code, then leave with the agreed :class:`MeshError`."""
+
+    _local = threading.local()
+
+    def __init__(self, plan, ax: ShardAxis, device):
+        self.plan, self.ax, self.device, self.pos = plan, ax, device, 0
+
+    @classmethod
+    def current(cls) -> "_Link | None":
+        stack = getattr(cls._local, "stack", None)
+        return stack[-1] if stack else None
+
+    def expect(self, kind: str, numel: int, dtype) -> None:
+        """Hold a collective about to run to the plan."""
+        if self.pos >= len(self.plan) or self.plan[self.pos] != \
+                (kind, numel, dtype):
+            want = self.plan[self.pos] if self.pos < len(self.plan) else None
+            raise RuntimeError(
+                f"sharded sweep: collective {self.pos} is {(kind, numel, dtype)}"
+                f", the plan has {want}")
+
+    def __enter__(self):
+        if self.ax.size > MAX_AGREEING_RANKS:
+            raise ValueError(f"a shard axis of {self.ax.size} ranks exceeds "
+                             f"the {MAX_AGREEING_RANKS} that agree on a fault")
+        stack = self._local.__dict__.setdefault("stack", [])
+        stack.append(self)
+        return self
+
+    def __exit__(self, typ, exc, tb):
+        self._local.stack.pop()
+        if exc is None or isinstance(exc, MeshError) or \
+                not isinstance(exc, Exception) or self.pos >= len(self.plan):
+            # clean, already agreed, or no collective left to carry it
+            return False
+        # the failed step's frames still hold what it allocated (after an
+        # OOM, up to the cap): drop their locals and the allocator's cache,
+        # so that the join's buffer fits where the healthy collective's did
+        traceback.clear_frames(tb)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        kind, numel, dtype = self.plan[self.pos]
+        raise mesh_error(self.join(kind, numel, dtype, failure_code(exc)),
+                         f"{kind} {self.pos}") from exc
+
+    def join(self, kind: str, numel: int, dtype, code: int) -> int:
+        """Issue the planned collective with a zero payload and ``code``;
+        returns the agreed code."""
+        k, dev = self.ax.size, self.device
+        if kind == "all_reduce":
+            buf = torch.zeros(numel + 1, dtype=dtype, device=dev)
+            buf[numel] = _digit(code)
+            _collective(kind, buf, dist.all_reduce, buf, group=self.ax.group)
+            return _agreed(float(buf[numel]))
+        if kind == "all_to_all":
+            buf = torch.zeros((k, numel // k + 1), dtype=dtype, device=dev)
+            buf[:, -1] = _digit(code)
+            got = torch.empty_like(buf)
+            _collective(kind, buf, dist.all_to_all_single, got, buf,
+                        group=self.ax.group)
+            return _agreed(float(got[:, -1].double().sum()))
+        buf = torch.zeros(numel + 1, dtype=dtype, device=dev)
+        buf[numel] = _digit(code)
+        parts = [torch.empty_like(buf) for _ in range(k)]
+        _collective(kind, buf, dist.all_gather, parts, buf,
+                    group=self.ax.group)
+        return _agreed(sum(float(q[numel]) for q in parts))
+
+
+def _flagged(kind: str, payload: torch.Tensor, issue, read) -> None:
+    """Run one collective of the sweep in progress: hold it to the plan,
+    ``issue()`` it, then ``read()`` the sum of the ranks' codes and raise
+    the agreed :class:`MeshError` when a rank failed."""
+    link = _Link.current()
+    if link is not None:
+        link.expect(kind, payload.numel(), payload.dtype)
+    issue()
+    if link is not None:
+        link.pos += 1
+    code = _agreed(read())
+    if code != OK:
+        raise mesh_error(code, f"{kind} {link.pos - 1 if link else ''}")
+
+
+def partial_sums(shape, dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(buf, t)``: a buffer for partial sums that :func:`all_reduce` sums
+    in place -- ``t`` (``shape``) is its payload, which the solver's op
+    writes, and the element after it carries the failure code."""
+    n = math.prod(shape)
+    buf = torch.empty(n + 1, dtype=dtype, device=device)
+    buf[n] = 0.0
+    return buf, buf[:n].view(shape)
+
+
+def all_reduce(t: torch.Tensor, ax: ShardAxis,
+               buf: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum ``t`` over the shard axis and return it, in one collective that
+    carries the failure code's element after the payload: in place when
+    ``t`` is the payload of ``buf`` (:func:`partial_sums`), else over a copy
+    of ``t`` with the element appended (a small tensor)."""
+    if ax.size == 1:
+        return t
+    n = t.numel()
+    if buf is None:
+        buf, payload = partial_sums(t.shape, t.dtype, t.device)
+        payload.copy_(t)
+        t = payload
+    _flagged("all_reduce", t, lambda: _collective(
+        "all_reduce", buf, dist.all_reduce, buf, group=ax.group),
+        lambda: float(buf[n]))
     return t
 
 
@@ -170,9 +404,11 @@ def _reshard(y: torch.Tensor, old: int | None, new: int | None,
     """Move this rank's ``y`` (sharded on mode ``old``; None = replicated)
     to mode ``new``.  Between two shard modes it is one
     ``all_to_all_single``: every rank splits its slab along ``new`` (moved
-    to the front and made contiguous) and joins the chunks it receives along
+    to the front) into a send buffer of one row a rank, each row ending in
+    the failure code's element, and joins the chunks it receives along
     ``old`` in group-rank order.  From replicated it is a local ``narrow``;
-    to replicated a list-form ``all_gather``."""
+    to replicated a list-form ``all_gather`` of the slab and its code,
+    into buffers (and the concatenation's output) allocated before it."""
     k, r = ax.size, ax.rank
     if old == new or k == 1:
         return y
@@ -180,29 +416,42 @@ def _reshard(y: torch.Tensor, old: int | None, new: int | None,
         c = y.shape[new] // k
         return y.narrow(new, r * c, c).contiguous()
     y = y.contiguous()
+    n = y.numel()
     if new is None:
-        parts = [torch.empty_like(y) for _ in range(k)]
-        _collective("all_gather", y, dist.all_gather, parts, y,
-                    group=ax.group)
-        return torch.cat(parts, dim=old)
-    n = y.ndim
-    yt = y.movedim(new, 0).contiguous()
-    out = torch.empty_like(yt)
-    _collective("all_to_all", yt, dist.all_to_all_single, out, yt,
-                group=ax.group)
-    del yt
-    c = out.shape[0] // k
-    # out is (k, c, *the other dims of y in order): chunk j came from rank
-    # j and holds rank j's part of mode ``old``; one permutation puts every
-    # dim back in place with the source rank just outside ``old``
-    out = out.reshape(k, c, *out.shape[1:])
+        send = torch.empty(n + 1, dtype=y.dtype, device=y.device)
+        send[:n].copy_(y.view(-1))
+        send[n] = 0.0
+        parts = [torch.empty_like(send) for _ in range(k)]
+        shape = list(y.shape)
+        shape[old] *= k
+        out = torch.empty(shape, dtype=y.dtype, device=y.device)
+        _flagged("all_gather", y, lambda: _collective(
+            "all_gather", send, dist.all_gather, parts, send, group=ax.group),
+            lambda: sum(float(q[n]) for q in parts))
+        return torch.cat([q[:n].view(y.shape) for q in parts], dim=old,
+                         out=out)
+    c = y.shape[new] // k
+    others = [y.shape[d] for d in range(y.ndim) if d != new]
+    send = torch.empty((k, n // k + 1), dtype=y.dtype, device=y.device)
+    send[:, :-1].view(k, c, *others).copy_(
+        y.movedim(new, 0).unflatten(0, (k, c)))
+    send[:, -1] = 0.0
+    got = torch.empty_like(send)
+    _flagged("all_to_all", y, lambda: _collective(
+        "all_to_all", send, dist.all_to_all_single, got, send,
+        group=ax.group), lambda: float(got[:, -1].double().sum()))
+    del send
+    # got is (k, c·others + 1): row j came from rank j and holds rank j's
+    # part of mode ``old``; one permutation puts every dim back in place
+    # with the source rank just outside ``old``
+    out = got[:, :-1].view(k, c, *others)
 
     def pos(d):   # where y's dim d (≠ new) sits in out
         return (d + 1 if d < new else d) + 1
 
     perm: list[int] = []
     shape: list[int] = []
-    for d in range(n):
+    for d in range(y.ndim):
         if d == new:
             perm.append(1)
             shape.append(c)
@@ -224,12 +473,21 @@ def sharded_ops(local: str, ax: ShardAxis):
     ttm, gram, ttt = backend_ops(local)
 
     def pgram(x, mode):
-        return all_reduce(gram(x, mode), ax)
+        i = x.shape[mode]
+        buf, z = partial_sums((i, i), _sum_dtype(x), x.device)
+        return all_reduce(gram(x, mode, z), ax, buf)
 
     def pttt(x, y, mode):
-        return all_reduce(ttt(x, y, mode), ax)
+        buf, z = partial_sums((x.shape[mode], y.shape[mode]), _sum_dtype(x),
+                              x.device)
+        return all_reduce(ttt(x, y, mode, z), ax, buf)
 
     return ttm, pgram, pttt
+
+
+def _sum_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of the partial sums the local ops return for ``x``."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +513,9 @@ def solve_step_sharded(y: torch.Tensor, placed: int | None, step: ModeStep,
 
 def _step_on_slab(y, step, ax, local, als_iters):
     """:func:`solve_step_sharded` on a ``y`` already sharded on the step's
-    shard mode."""
+    shard mode.  Fires the chaos seam ``"solve"`` first, as the
+    single-device runner does for each step."""
+    _chaos.fire("solve", mode=step.mode, method=step.method)
     if step.shard_mode is None:
         # replicated: every rank runs the plain local solve
         res = solve_step(y, step, als_iters=als_iters, impl=local)
@@ -293,6 +553,8 @@ def _group_on_slab(y, group, ax, local, als_iters):
             raise ValueError(
                 f"method {step.method!r} cannot run in a mode-parallel "
                 "group (plan-time resolution should have rejected it)")
+    for step in group:
+        _chaos.fire("solve", mode=step.mode, method=step.method)
     shard = group[0].shard_mode   # one shard mode serves the whole group
     ttm, gram, _ = backend_ops(local)
     factors: dict[int, torch.Tensor] = {}
@@ -310,13 +572,16 @@ def _group_on_slab(y, group, ax, local, als_iters):
     else:
         eig_steps = [s for s in group if s.method == "eig"]
         if eig_steps:
-            grams = [gram(y, s.mode) for s in eig_steps]
-            flat = all_reduce(torch.cat([g.reshape(-1) for g in grams]), ax)
-            for s, g in zip(eig_steps,
-                            flat.split([g.numel() for g in grams])):
-                factors[s.mode] = _eig_u(g.view(s.i_n, s.i_n), s.r_n,
-                                         y.dtype)
-            del grams, flat
+            sizes = [s.i_n ** 2 for s in eig_steps]
+            buf, flat = partial_sums((sum(sizes),), _sum_dtype(y), y.device)
+            grams = [g.view(s.i_n, s.i_n)
+                     for s, g in zip(eig_steps, flat.split(sizes))]
+            for s, g in zip(eig_steps, grams):
+                gram(y, s.mode, g)
+            all_reduce(flat, ax, buf)
+            for s, g in zip(eig_steps, grams):
+                factors[s.mode] = _eig_u(g, s.r_n, y.dtype)
+            del grams, flat, buf
         ops = sharded_ops(local, ax)
         for step in group:
             if step.method == "als":
@@ -338,25 +603,37 @@ def _solve_batch(y, batch, ax, local, als_iters):
 
 
 def _sweep_batches(x, steps, ax: ShardAxis, local: str, placed: int | None,
-                   als_iters: int, on_batch=None):
+                   als_iters: int, on_batch=None, on_start=None):
     """THE sharded sweep loop, shared by every runner: for each entry of
     :func:`iter_groups`, reshard this rank's tensor to the entry's shard
     mode, then solve it.  The tensor is rebound after the reshard, so the
     one before it is freed before the solve allocates (the step's modeled
     peak holds one slab beside the caller's ``x``).  ``on_batch(batch, y)``
     runs after each entry with its output (the per-step runner's timing
-    hook; it must not keep ``y``).  Returns ``(core, factors)``: the core
-    all-gathered to every rank, the factors keyed by mode."""
+    hook; it must not keep ``y``); ``on_start()`` runs first, inside the
+    agreement (a plan's ``"sweep"`` chaos seam).  Returns ``(core, factors)``: the core
+    all-gathered to every rank, the factors keyed by mode.  A failure on
+    any rank ends the loop on every rank with the same :class:`MeshError`
+    (:class:`_Link`)."""
     y = x
     factors: dict[int, torch.Tensor] = {}
-    for batch in iter_groups(steps):
-        y = _reshard(y, placed, batch[0].shard_mode, ax)
-        placed = batch[0].shard_mode
-        fs, y = _solve_batch(y, batch, ax, local, als_iters)
-        factors.update(fs)
-        if on_batch is not None:
-            on_batch(batch, y)
-    return _reshard(y, placed, None, ax), factors
+    # the plan is of the global shape: x is this rank's slab of it
+    shape = tuple(d * ax.size if m == placed else d
+                  for m, d in enumerate(x.shape))
+    plan = planned_collectives(shape, x.dtype, steps, ax.size, placed,
+                               als_iters, local)
+    with _Link(plan, ax, x.device):
+        if on_start is not None:
+            on_start()
+        for batch in iter_groups(steps):
+            y = _reshard(y, placed, batch[0].shard_mode, ax)
+            placed = batch[0].shard_mode
+            fs, y = _solve_batch(y, batch, ax, local, als_iters)
+            factors.update(fs)
+            if on_batch is not None:
+                on_batch(batch, y)
+        core = _reshard(y, placed, None, ax)
+    return core, factors
 
 
 def run_sharded_schedule(x: torch.Tensor, steps, mesh, axis: str, *,
@@ -416,13 +693,15 @@ def sweep_sharded(x, steps, *, mesh, axis: str, local: str,
 
 
 def sweep_mode_parallel(x, steps, *, mesh, axis: str, local: str,
-                        placed: int | None = None, als_iters: int):
+                        placed: int | None = None, als_iters: int,
+                        on_start=None):
     """The sharded sweep on this rank's slab ``x`` (sharded on ``placed``):
     ``(core, factors)``, the core all-gathered to every rank and the
     factors (replicated) in mode order.  Steps sharing a ``group`` id run
-    as one mode-parallel group (:func:`solve_group_sharded`)."""
+    as one mode-parallel group (:func:`solve_group_sharded`);
+    ``on_start()`` runs first, inside the agreement on a rank's failure."""
     core, factors = _sweep_batches(x, steps, ShardAxis.of(mesh, axis), local,
-                                   placed, als_iters)
+                                   placed, als_iters, on_start=on_start)
     return core, [factors[m] for m in range(x.ndim)]
 
 
@@ -549,8 +828,10 @@ def sthosvd_distributed(
 
 
 __all__ = [
-    "ShardAxis", "all_reduce", "collective_stats", "local_input",
-    "pick_shard_mode", "pick_shard_mode_group",
+    "MeshError", "MeshNumericalError", "MeshResourceError", "ShardAxis",
+    "all_reduce", "collective_stats", "failure_code", "local_input",
+    "mesh_error", "pick_shard_mode", "pick_shard_mode_group",
+    "planned_collectives",
     "reset_collective_stats", "run_sharded_schedule", "sharded_ops",
     "solve_group_sharded", "solve_step_sharded", "sthosvd_distributed",
     "sweep_mode_parallel", "sweep_sharded", "timed_collectives",

@@ -256,7 +256,8 @@ def _qr_bytes(i: int, ell: int, itemsize: int) -> int:
 
 def _hopper_workspace_bytes(method: str, a: int, i_n: int, r_n: int, b: int,
                             itemsize: int, n_sms: int,
-                            first_mode: bool = False) -> int:
+                            first_mode: bool = False,
+                            interior: bool = False) -> int:
     """The most bytes that one call of a ``hopper`` step allocates beyond
     the reference's model of the step, over the calls the step's solver
     makes at its (A, I_n, B) view.  TTT/Gram calls hold the split-K
@@ -266,7 +267,10 @@ def _hopper_workspace_bytes(method: str, a: int, i_n: int, r_n: int, b: int,
     ℓ) Gram (fp32, as those solvers iterate).  On the first mode the TTMs
     are GEMMs, whose wide route holds u's pre-split image
     (:func:`repro_torch.kernels.matmul.workspace_bytes`): EIG u (R_n, I_n);
-    ALS L (R_n, I_n) and R̂ (R_n, R_n); RAND Q (ℓ, I_n) and V (R_n, ℓ).
+    ALS L (R_n, I_n) and R̂ (R_n, R_n); RAND Q (ℓ, I_n) and V (R_n, ℓ).  On
+    an ``interior`` mode the same u's go to the interior TTM, whose wide
+    route (R > 16) holds the same image
+    (:func:`repro_torch.kernels.ttm.workspace_bytes`).
     The dense factorizations hold cuSOLVER's workspace: EIG's ``eigh`` of
     the Gram (:func:`_eigh_bytes`, whose eigenvectors then stay beside the
     core update's GEMM image); ALS's fp32 QR of L (I_n, R_n) and RAND's
@@ -278,6 +282,7 @@ def _hopper_workspace_bytes(method: str, a: int, i_n: int, r_n: int, b: int,
     reference's model has no such term, so only ``hopper`` steps carry
     it."""
     from ..kernels.matmul import workspace_bytes as gemm_workspace_bytes
+    from ..kernels.ttm import workspace_bytes as ttm_workspace_bytes
     from ..kernels.ttt import workspace_bytes
     ell = min(i_n, r_n + DEFAULT_OVERSAMPLE)
     accum = max(itemsize, 4)
@@ -296,8 +301,12 @@ def _hopper_workspace_bytes(method: str, a: int, i_n: int, r_n: int, b: int,
         return 0
     need = [workspace_bytes(a, i, r, b, sym, n_sms, dtype, aligned)
             for i, r, sym in ttts for aligned in (True, False)]
-    image = max(gemm_workspace_bytes(m, b, k, dtype) for m, k in gemms) \
-        if first_mode else 0
+    if first_mode:
+        image = max(gemm_workspace_bytes(m, b, k, dtype) for m, k in gemms)
+    elif interior:
+        image = max(ttm_workspace_bytes(m, k, dtype) for m, k in gemms)
+    else:
+        image = 0
     if method == "eig":
         need += [_eigh_bytes(i_n, accum), i_n * i_n * accum + image]
     elif method == "als":
@@ -356,8 +365,26 @@ def _backend_peak_bytes(method: str, shape: Sequence[int], mode: int,
         peak += held_bytes + _hopper_workspace_bytes(
             method, math.prod(view[:mode]), i_n, r_n,
             math.prod(view[mode + 1:]), itemsize,
-            H100_SMS if n_sms is None else n_sms, first_mode=mode == 0)
+            H100_SMS if n_sms is None else n_sms, first_mode=mode == 0,
+            interior=0 < mode < len(shape) - 1)
+        if n_shards > 1 and shard_mode is not None:
+            peak += _all_reduce_bytes([(method, i_n, r_n)], itemsize)
     return peak
+
+
+def _all_reduce_bytes(entries, itemsize: int) -> int:
+    """What the all-reduces of sharded steps hold beside their payload: the
+    element after it that carries the rank's failure code, 4 bytes (8 in
+    float64).  The solvers' ops write their partial sums (an EIG step's
+    I_n² Gram, an ALS iteration's (I_n, R_n) TTT and R_n² Gram, a group's
+    EIG Grams in one flat buffer) into the buffer the all-reduce sums in
+    place (:func:`repro_torch.core.distributed.partial_sums`), so nothing
+    is copied.  ``entries`` are ``(method, i_n, r_n)``, one for a step and
+    one a member for a group.  ``hopper`` steps charge it; ``matfree``
+    steps keep the reference's figures, which have no such element."""
+    if not any(m in ("eig", "als") for m, _, _ in entries):
+        return 0
+    return max(itemsize, 4)
 
 
 def _group_peak_bytes(entries, in_elems: int, out_elems: int,
@@ -392,8 +419,11 @@ def _backend_group_peak_bytes(entries, cur: Sequence[int], group,
             _hopper_workspace_bytes(
                 meth, math.prod(view[:m]), i_n, r_n,
                 math.prod(view[m + 1:]), itemsize,
-                H100_SMS if n_sms is None else n_sms, first_mode=m == 0)
+                H100_SMS if n_sms is None else n_sms, first_mode=m == 0,
+                interior=0 < m < len(cur) - 1)
             for m, (meth, i_n, r_n, _) in zip(group, entries))
+        if n_shards > 1 and shard_mode is not None:
+            peak += _all_reduce_bytes([e[:3] for e in entries], itemsize)
     return peak
 
 
@@ -401,18 +431,20 @@ def _reshard_bytes(shape: Sequence[int], old: int | None, new: int | None,
                    n_shards: int, itemsize: int) -> int:
     """What a rank holds at once while :func:`repro_torch.core.distributed._reshard`
     moves a tensor of ``shape`` from shard mode ``old`` to ``new``: the
-    old slab, the contiguous send copy and the received chunks (an
-    all-to-all, 3 slabs); the full tensor and the narrowed slab (from
-    replicated); or the slab, the gathered slabs and their concatenation
-    (to replicated)."""
+    old slab, the send copy and the received chunks, each chunk with one
+    element for the failure code (an all-to-all, 3 slabs and 2 elements a
+    rank); the full tensor and the narrowed slab (from replicated); or the
+    slab, its send copy with the code's element, the gathered slabs with
+    theirs, and their concatenation (to replicated)."""
     if old == new or n_shards <= 1:
         return 0
     full = math.prod(shape)
+    slab = full // n_shards
     if old is None:
-        return (full + full // n_shards) * itemsize
+        return (full + slab) * itemsize
     if new is None:
-        return (full // n_shards + 2 * full) * itemsize
-    return 3 * (full // n_shards) * itemsize
+        return (2 * slab + 2 * full + n_shards + 1) * itemsize
+    return (3 * slab + 2 * n_shards) * itemsize
 
 
 def _entry_peak_bytes(peak: int, held_bytes: int, cur: Sequence[int],

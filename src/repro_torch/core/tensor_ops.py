@@ -88,23 +88,35 @@ def ttm_chain(x: torch.Tensor, us) -> torch.Tensor:
     return y
 
 
-def _contract(x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
-    """z (I, R) = Σ_{a,b} x3[a,i,b] y3[a,r,b], accumulated in ≥ fp32."""
+def _contract(x3: torch.Tensor, y3: torch.Tensor,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """z (I, R) = Σ_{a,b} x3[a,i,b] y3[a,r,b], accumulated in ≥ fp32.
+    ``out`` (of that dtype) receives z straight from one matmul, as the
+    sharded solvers' partial sums land in the buffer their all-reduce
+    sends; the operands are laid out (I, A·B) as einsum lays them out."""
     dt = _accum(x3)
-    return torch.einsum("aib,arb->ir", x3.to(dt), y3.to(dt))
+    if out is None:
+        return torch.einsum("aib,arb->ir", x3.to(dt), y3.to(dt))
+    xm = x3.to(dt).transpose(0, 1).reshape(x3.shape[1], -1)
+    ym = xm if y3 is x3 else \
+        y3.to(dt).transpose(0, 1).reshape(y3.shape[1], -1)
+    return torch.mm(xm, ym.T, out=out)
 
 
-def gram(x: torch.Tensor, mode: int) -> torch.Tensor:
+def gram(x: torch.Tensor, mode: int,
+         out: torch.Tensor | None = None) -> torch.Tensor:
     """S = Y_(n) Y_(n)^T  (I_n × I_n) without forming Y_(n).
 
     Special case of TTT with both inputs equal (paper Sec. V).  Contracts the
-    merged outer and inner axes directly: einsum 'anb,amb->nm'.
+    merged outer and inner axes directly: einsum 'anb,amb->nm' (into
+    ``out`` when given).
     """
     x3 = _as3(x, mode)
-    return _contract(x3, x3)
+    return _contract(x3, x3, out)
 
 
-def ttt(x: torch.Tensor, y: torch.Tensor, mode: int) -> torch.Tensor:
+def ttt(x: torch.Tensor, y: torch.Tensor, mode: int,
+        out: torch.Tensor | None = None) -> torch.Tensor:
     """Mode-(I,J) product contracting every mode except ``mode``.
 
     x: (I_1..I_n..I_N), y: (I_1..R_n..I_N) with all non-``mode`` dims equal.
@@ -116,7 +128,7 @@ def ttt(x: torch.Tensor, y: torch.Tensor, mode: int) -> torch.Tensor:
         if m != mode and x.shape[m] != y.shape[m]:
             raise ValueError(f"ttt: common mode {m} differs: "
                              f"{tuple(x.shape)} vs {tuple(y.shape)}")
-    return _contract(_as3(x, mode), _as3(y, mode))
+    return _contract(_as3(x, mode), _as3(y, mode), out)
 
 
 # ---------------------------------------------------------------------------

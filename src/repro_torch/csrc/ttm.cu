@@ -3,10 +3,23 @@
 // Replaces the Pallas kernel repro/kernels/ttm.py::ttm_interior.  R is small
 // (a few dozen at most) and x large, so the kernel is bound by the bytes of
 // x: at u (10, 1340), x (1021, 1340, 264) fp32 that is 1.445 GB, 0.435 ms at
-// 3.35 TB/s, against 0.108 ms of FFMA.
+// 3.35 TB/s, against 0.108 ms of FFMA.  Three routes, a pure function of
+// (R, B, dtype, alignment) (mirrored in repro_torch/kernels/ttm.py,
+// route()): slab and plain (R <= 16, FFMA, below) and wide (R > 16).
 //
-// Design.  The output columns j = (a, b) of the flattened A*B axis are cut
-// into tiles, times the slabs of R below.  Every tile reads all I rows of
+// wide (R > 16).  One FFMA pass is above the bytes bound from R ~ 40 on (67
+// TFLOP/s: at R = 64 the FFMA time is 0.690 ms against 0.452 ms of bytes),
+// and 16-row slabs re-read x once per 16 rows (4 reads at R = 64, 5.3 ms
+// measured).  For each a, out[a] (R, B) = u (R, I) @ x[a] (I, B): a batch of
+// A first-mode GEMMs sharing u, which is wgmma.cuh's wide route with X_a =
+// x[a] -- one pass over x for R <= 128 on split-TF32 wgmma, x by TMA through
+// a 3-D map over (B, I, A) (rows of x a 16-byte multiple of at least 128
+// bytes, x aligned; else the producer's plain loads, with columns packed
+// across values of a), u pre-split once a call into the caller's workspace
+// (kernels/ttm.py workspace_bytes), each stage's hi*hi summed exactly.
+//
+// slab / plain (R <= 16).  The output columns j = (a, b) of the flattened
+// A*B axis are cut into tiles.  Every tile reads all I rows of
 // its columns, so all work units are equally long, and a persistent grid --
 // as many blocks as fit on the SMs, one per SM -- walks them in turn.  The
 // one-thread-per-column design before it ran 2,106 whole-length blocks at 7
@@ -23,25 +36,23 @@
 // fed by row-sized copies streamed x markedly slower.
 // Each consumer thread owns CPT columns of the tile and keeps their TR
 // outputs in registers; u is loaded into shared memory once per block (as
-// us[i][RP], read as float4 broadcasts), and again only when the slab of R
-// changes or when R*I does not fit in U_MAX_FLOATS, which takes u in
-// segments of rows.
+// us[i][RP], read as float4 broadcasts), and again only when R*I does not
+// fit in U_MAX_FLOATS, which takes u in segments of rows.
 //
 // R runs exactly: TR is a template on the widths the paths use (4, 8, 10,
-// 12, 16); an R between them takes the next width, with zero rows of u; an
-// R above 16 is cut into ceil(R / 16) equal slabs, each reading x again.
+// 12, 16); an R between them takes the next width, with zero rows of u.
 //
-// A bulk copy needs 16-byte aligned rows, so the ring runs when a row of x
-// (B elements) is a multiple of 16 bytes, at least 128 bytes, and x is
-// 16-byte aligned.  Any other shape (B = 1, odd B, small B) takes the plain
-// path of the same kernel: no producer, each consumer thread loads its
-// columns' elements from memory itself (coalesced along b).
+// A bulk copy needs 16-byte aligned rows, so the ring (route slab) runs
+// when a row of x (B elements) is a multiple of 16 bytes, at least 128
+// bytes, and x is 16-byte aligned.  Any other shape (B = 1, odd B, small B)
+// takes the plain path of the same kernel (route plain): no producer, each
+// consumer thread loads its columns' elements from memory itself (coalesced
+// along b).
 //
 // fp32 FFMA accumulation (TF32 cannot meet the fp32 tolerance); bf16 x and u
 // are converted on load.  Ragged edges are masked, nothing is padded, and
 // memory is indexed in 64 bits.
-#include "async.cuh"
-#include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace atucker;
 
@@ -55,16 +66,15 @@ constexpr int TI = 16;                   // rows of x per stage
 constexpr int STAGES = 2;
 constexpr int U_MAX_FLOATS = 24576;      // u in shared memory: <= 96 KB
 constexpr int MIN_BULK_ROW_BYTES = 128;
-constexpr int SLAB = 16;                 // widest R of one slab
+constexpr int FFMA_MAX_R = 16;           // widest R of the FFMA routes
+constexpr int ROUTE_SLAB = 0, ROUTE_PLAIN = 1, ROUTE_WIDE = 2;
 
 __host__ __device__ constexpr int padded(int tr) { return (tr + 3) / 4 * 4; }
 
 struct Plan {
   long long J;       // A * B columns
   long long W;       // columns per tile: NJ, or k whole rows of B when whole
-  long long units;   // slabs * column tiles
   long long tiles;   // column tiles of W
-  int slabs, width;  // slabs of R, rows of u per slab (the last may be fewer)
   int iseg;          // rows of u per shared-memory segment (all of I, or a multiple of TI)
   int whole;         // tiles are whole values of a: one copy per a and stage
 };
@@ -73,15 +83,14 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"r"(CT) : "memory");
 }
 
-// us[i][r] = u[r0 + r, i0 + i] for the rows [i0, i0 + n) of slab r0 (zeros
-// past the slab's rows); consumers only.
+// us[i][r] = u[r, i0 + i] for the rows [i0, i0 + n) (zeros past R);
+// consumers only.
 template <typename T, int RP>
-__device__ void load_u(const T* __restrict__ u, float* us, int I, int r0, int rows, int i0,
-                       int n) {
+__device__ void load_u(const T* __restrict__ u, float* us, int I, int rows, int i0, int n) {
   consumer_sync();  // nobody still reads the previous segment
   for (int e = threadIdx.x; e < n * RP; e += CT) {
     const int i = e % n, r = e / n;  // consecutive threads walk i of u's row
-    us[i * RP + r] = r < rows ? to_f32(u[(long long)(r0 + r) * I + i0 + i]) : 0.f;
+    us[i * RP + r] = r < rows ? to_f32(u[(long long)r * I + i0 + i]) : 0.f;
   }
   consumer_sync();
 }
@@ -161,8 +170,8 @@ ttm_interior_kernel(const T* __restrict__ u, const T* __restrict__ x, float* __r
     // ---- producer warp: fill the ring ----
     const int lane = tid - CT;
     long long it = 0;
-    for (long long unit = blockIdx.x; unit < p.units; unit += gridDim.x) {
-      const long long j0 = (unit % p.tiles) * p.W;
+    for (long long unit = blockIdx.x; unit < p.tiles; unit += gridDim.x) {
+      const long long j0 = unit * p.W;
       const long long j1 = min(p.J, j0 + p.W);
       const long long a_lo = j0 / B;
       const int nseg = (int)((j1 - 1) / B - a_lo + 1);
@@ -200,13 +209,10 @@ ttm_interior_kernel(const T* __restrict__ u, const T* __restrict__ x, float* __r
   // ---- consumers ----
   const int lane = tid % 32;
   const int nseg_u = (I + p.iseg - 1) / p.iseg;
-  int u_slab = -1;
+  bool u_loaded = false;
   long long it = 0;
-  for (long long unit = blockIdx.x; unit < p.units; unit += gridDim.x) {
-    const int slab = (int)(unit / p.tiles);
-    const int r0 = slab * p.width;
-    const int rows_r = min(p.width, R - r0);
-    const long long j0 = (unit % p.tiles) * p.W;
+  for (long long unit = blockIdx.x; unit < p.tiles; unit += gridDim.x) {
+    const long long j0 = unit * p.W;
     const long long j1 = min(p.J, j0 + p.W);
     long long col_off[CPT];  // plain path: offset of (a, 0, b) of each column
     int soff[CPT];           // bulk path: offset of the column in a stage
@@ -227,9 +233,9 @@ ttm_interior_kernel(const T* __restrict__ u, const T* __restrict__ x, float* __r
 
     for (int ib = 0; ib < n_iblocks; ++ib, ++it) {
       const int i0 = ib * TI;
-      if (i0 % p.iseg == 0 && (nseg_u > 1 || slab != u_slab)) {
-        load_u<T, RP>(u, us, I, r0, rows_r, i0, min(p.iseg, I - i0));
-        u_slab = slab;
+      if (i0 % p.iseg == 0 && (nseg_u > 1 || !u_loaded)) {
+        load_u<T, RP>(u, us, I, R, i0, min(p.iseg, I - i0));
+        u_loaded = true;
       }
       const int rows = min(TI, I - i0);
       const float* ub = us + (i0 % p.iseg) * RP;
@@ -256,23 +262,20 @@ ttm_interior_kernel(const T* __restrict__ u, const T* __restrict__ x, float* __r
       const long long j = j0 + tid + c * CT;
       if (j >= j1) continue;
       const long long a = j / B, b = j - a * B;
-      float* op = out + (a * R + r0) * (long long)B + b;
+      float* op = out + a * R * (long long)B + b;
 #pragma unroll
       for (int r = 0; r < TR; ++r)
-        if (r < rows_r) op[(long long)r * B] = acc[c][r];
+        if (r < R) op[(long long)r * B] = acc[c][r];
     }
   }
 }
 
-Plan make_plan(int A, int I, int B, int R, int tr) {
+Plan make_plan(int A, int I, int B, int tr) {
   Plan p;
   p.J = (long long)A * B;
-  p.slabs = R <= SLAB ? 1 : (R + SLAB - 1) / SLAB;
-  p.width = (R + p.slabs - 1) / p.slabs;
   p.W = NJ;
   p.whole = 0;
   p.tiles = (p.J + NJ - 1) / NJ;
-  p.units = p.tiles * p.slabs;
   const int fit = U_MAX_FLOATS / padded(tr) / TI * TI;
   p.iseg = I <= fit ? I : fit;
   return p;
@@ -324,7 +327,7 @@ void whole_tiles(Plan& p, int A, int B, long long resident) {
   long long best = -1;
   for (int k = NJ / B; k >= 1; --k) {
     const long long tiles = (A + k - 1) / k;
-    const long long cost = (tiles * p.slabs + resident - 1) / resident * k;
+    const long long cost = (tiles + resident - 1) / resident * k;
     if (best < 0 || cost < best) {
       best = cost;
       p.W = (long long)k * B;
@@ -332,20 +335,19 @@ void whole_tiles(Plan& p, int A, int B, long long resident) {
     }
   }
   p.whole = 1;
-  p.units = p.tiles * p.slabs;
 }
 
 template <typename T, int TR, bool BULK>
 cudaError_t run(const void* u, const void* x, float* o, int A, int I, int B, int R,
                 cudaStream_t st, int* info) {
-  Plan p = make_plan(A, I, B, R, TR);
+  Plan p = make_plan(A, I, B, TR);
   const size_t smem = smem_bytes<T, TR, BULK>(p);
   int grid = 0;
   long long resident = 0;
   cudaError_t err = configure<T, TR, BULK>(smem, &resident);
   if (err != cudaSuccess) return err;
   if (BULK && B <= NJ) whole_tiles(p, A, B, resident);
-  grid = (int)(p.units < resident ? p.units : resident);
+  grid = (int)(p.tiles < resident ? p.tiles : resident);
   if (info != nullptr) return describe(ttm_interior_kernel<T, TR, BULK>, BULK ? CT + 32 : CT,
                                        grid, info, smem);
   ttm_interior_kernel<T, TR, BULK><<<grid, BULK ? CT + 32 : CT, smem, st>>>(
@@ -353,13 +355,26 @@ cudaError_t run(const void* u, const void* x, float* o, int A, int I, int B, int
   return cudaGetLastError();
 }
 
+// The route a call takes (mirrored in repro_torch/kernels/ttm.py, route()).
+int route_of(const void* x, int B, int R, int esize) {
+  if (R > FFMA_MAX_R) return ROUTE_WIDE;
+  return use_bulk(x, B, esize) ? ROUTE_SLAB : ROUTE_PLAIN;
+}
+
 // info != nullptr: report the launch figures instead of launching
 template <typename T>
-cudaError_t dispatch(const void* u, const void* x, float* o, int A, int I, int B, int R,
-                     cudaStream_t st, int* info) {
-  const Plan p = make_plan(A, I, B, R, 16);
-  const int tr = width_template(p.width);
-  const bool bulk = use_bulk(x, B, sizeof(T));
+cudaError_t dispatch(const void* u, const void* x, float* o, void* ws, int A, int I, int B,
+                     int R, cudaStream_t st, int* info) {
+  const int route = route_of(x, B, R, sizeof(T));
+  if (info != nullptr) info[13] = route;
+  if (route == ROUTE_WIDE) {
+    // out[a] (R, B) = u (R, I) @ x[a] (I, B); x by TMA on the FFMA ring's rule
+    const wide::Call q{u, x, o, ws, R, B, I, A, B, (long long)I * B, (long long)R * B,
+                       use_bulk(x, B, sizeof(T))};
+    return wide::launch<T>(q, st, info);
+  }
+  const int tr = width_template(R);
+  const bool bulk = route == ROUTE_SLAB;
 #define TTM_RUN(TR)                                                          \
   return bulk ? run<T, TR, true>(u, x, o, A, I, B, R, st, info)              \
               : run<T, TR, false>(u, x, o, A, I, B, R, st, info)
@@ -375,26 +390,33 @@ cudaError_t dispatch(const void* u, const void* x, float* o, int A, int I, int B
 
 }  // namespace
 
-extern "C" int atucker_ttm_interior(const void* u, const void* x, void* out, int A, int I,
-                                    int B, int R, int dtype, void* stream) {
+// ws: the wide route's image of u (kernels/ttm.py workspace_bytes); unused
+// by the FFMA routes.
+extern "C" int atucker_ttm_interior(const void* u, const void* x, void* out, void* ws, int A,
+                                    int I, int B, int R, int dtype, void* stream) {
   if (A <= 0 || I <= 0 || B <= 0 || R <= 0) return cudaErrorInvalidValue;
+  if (R > FFMA_MAX_R && ws == nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (dtype == kFloat32) return (int)dispatch<float>(u, x, o, A, I, B, R, st, nullptr);
+  if (dtype == kFloat32) return (int)dispatch<float>(u, x, o, ws, A, I, B, R, st, nullptr);
   if (dtype == kBFloat16)
-    return (int)dispatch<__nv_bfloat16>(u, x, o, A, I, B, R, st, nullptr);
+    return (int)dispatch<__nv_bfloat16>(u, x, o, ws, A, I, B, R, st, nullptr);
   return cudaErrorInvalidValue;
 }
 
 // Launch figures of a call of this shape, for reports: out[0..3] =
 // registers per thread, threads per block, resident blocks per SM and grid
-// blocks (out[4..11] zero: one kernel).
+// blocks of the TTM kernel, out[4..7] the wide route's image kernel,
+// out[12] its dynamic shared memory, out[13] the route (0 slab, 1 plain, 2
+// wide), out[14] 1 when the wide route loads x by TMA, out[15] its ring
+// stages.  x is only inspected for alignment.
 extern "C" int atucker_ttm_interior_info(const void* x, int A, int I, int B, int R, int dtype,
                                          int* out) {
   if (A <= 0 || I <= 0 || B <= 0 || R <= 0) return cudaErrorInvalidValue;
-  for (int i = 0; i < 12; ++i) out[i] = 0;
-  if (dtype == kFloat32) return (int)dispatch<float>(nullptr, x, nullptr, A, I, B, R, 0, out);
+  for (int i = 0; i < 16; ++i) out[i] = 0;
+  if (dtype == kFloat32)
+    return (int)dispatch<float>(nullptr, x, nullptr, nullptr, A, I, B, R, 0, out);
   if (dtype == kBFloat16)
-    return (int)dispatch<__nv_bfloat16>(nullptr, x, nullptr, A, I, B, R, 0, out);
+    return (int)dispatch<__nv_bfloat16>(nullptr, x, nullptr, nullptr, A, I, B, R, 0, out);
   return cudaErrorInvalidValue;
 }

@@ -1,10 +1,13 @@
 // The tensor-core pieces shared by the kernels that run split-TF32
-// products on Hopper's wgmma (ttt.cu's wide route, matmul.cu's wide route):
-// the TF32 rounding of the hi/lo split, the 128-byte swizzle that TMA
-// writes and wgmma reads, shared-memory matrix descriptors, the wgmma
-// fences and the tf32 wgmma itself (A from registers, B from shared
-// memory) at widths 32, 64 and 128, the register pins that keep ptxas from
-// serializing every wgmma of a kernel (C7520), and the tensor-map encoder.
+// products on Hopper's wgmma (ttt.cu's wide route, and the wide route of
+// matmul.cu and ttm.cu): the TF32 rounding of the hi/lo split, the 128-byte
+// swizzle that TMA writes and wgmma reads, shared-memory matrix
+// descriptors, the wgmma fences and the tf32 wgmma itself (A from
+// registers, B from shared memory) at widths 32, 64 and 128, the register
+// pins that keep ptxas from serializing every wgmma of a kernel (C7520),
+// the tensor-map encoder -- and, in namespace wide, the whole batched
+// GEMM C_a = u @ X_a that matmul.cu's first mode and ttm.cu's interior
+// mode run at R > 16.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -47,6 +50,7 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+
 // Pins registers that a wgmma in flight reads or writes: the accumulator,
 // so that no read of it moves above the wait, and the A fragments, so that
 // ptxas does not reuse their registers before the wait (it would fence the
@@ -135,10 +139,12 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[KS][4]) {
 // lane / 4, t = lane % 4; d[4c + 2h + e] is (row g + 8 h, column 8 c + 2 t
 // + e).  INIT writes d without reading it: the accumulator is never set by
 // other instructions, which would make ptxas fence (and, behind a branch,
-// serialize) the wgmma.
+// serialize) the wgmma.  Otherwise d is added to when `keep` is non-zero
+// and overwritten when it is zero (wgmma's scale-d predicate, a run-time
+// value: no branch).
 template <int N, bool INIT>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
+                                           uint64_t db, int keep = 1) {
   static_assert(N == 32 || N == 64 || N == 128, "wgmma_tf32: N is 32, 64 or 128");
   if constexpr (N == 128) {
     if constexpr (INIT)
@@ -155,7 +161,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a
           " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WGMMA_D64
           ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}"
           : WGMMA_D64_OPERANDS
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep)
           : "memory");
   } else if constexpr (N == 64) {
     if constexpr (INIT)
@@ -172,7 +178,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a
           " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WGMMA_D32
           ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}"
           : WGMMA_D32_OPERANDS
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep)
           : "memory");
   } else if constexpr (N == 32) {
     if constexpr (INIT)
@@ -189,7 +195,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a
           " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " WGMMA_D16
           ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}"
           : WGMMA_D16_OPERANDS
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep)
           : "memory");
   }
 }
@@ -217,5 +223,518 @@ inline EncodeTiled encoder() {
   }
   return fn;
 }
+
+
+// ---------------------------------------------------------------------------
+// The wide route: C_a (R, N) = u (R, K) @ X_a (K, N), fp32 out, for a batch
+// of X_a that share u.  matmul.cu runs it with one X (the first mode, u @ X);
+// ttm.cu with X_a = x[a, :, :] of the (A, I, B) view (the interior mode).
+// Bound by the bytes of X at the R of the sketch (a few dozen): one pass
+// over X for R <= CHUNK (R above runs in chunks of CHUNK outputs), on the
+// tensor cores at fp32 accuracy.
+//
+//   * C_a^T = X_a^T u^T: X_a^T is wgmma's A operand from registers (m64, 64
+//     columns of X per consumer warpgroup), u^T its B operand from shared
+//     memory.  fp32 operands are split into hi and lo = rna_tf32(v - hi),
+//     and every k-step is hi*lo + lo*hi + hi*hi (split TF32); bf16
+//     operands are exact in TF32 and take one product.
+//   * The sums.  The tensor cores' fp32 accumulator rounds toward zero, so
+//     a sum kept there drifts low whenever it is inexact: summing each
+//     32-deep stage of split-TF32 products in it biased the energy of C by
+//     about -2e-7 of itself, which lifted the rank-adaptive sketch's
+//     certificate.  So hi is cut to a grid on which a stage's hi*hi sum is
+//     exact.  Per stage (32 k), u's hi is its row's value rounded to a
+//     multiple of 2^(e - 11), where 2^e bounds the row's 32 magnitudes in
+//     the stage (11 bits, which a TF32 holds), and X's hi is its column's
+//     rounded to 2^(e - 10).  A product is then a whole number of units
+//     (under 2^21), and a stage's 32 products sum exactly while the sum
+//     stays under 2^24 units: always for signed data; past it (products of
+//     one sign near both bounds) the sum is cut by less than one unit in
+//     2^23, toward zero, the safe side.  A stage's hi*hi sums run in one
+//     accumulator from zero and are added to the fp32 sum (one FADD a
+//     stage, rounding to nearest); the cross terms hi*lo + lo*hi, 2^-10 of
+//     the products, run in a second accumulator over the whole tile, where
+//     truncation moves the energy by ~1e-10.  lo holds the rest of v to
+//     2^-22 of its group's bound, as the plain split holds each value.  No
+//     constant is fitted to the card: the emulation, kernels/ref.py
+//     matmul_tf32x3_ref(scheme="grid"), reads the energy within 5e-9 on
+//     signed, non-negative and integer data where the stage sums read
+//     -2e-7.  bf16 operands take one product a k-step, summed a stage at a
+//     time; those sums may truncate, which only lowers the energy.  A
+//     at most 64 outputs: R <= 64 has the two warpgroups take 64 columns
+//     of a 128-column tile each; 64 < R <= 128 has them share a 64-column
+//     tile and take half of R each.
+//   * X arrives by TMA (a 3-D map over (N, K, batch), 128-byte boxes of 32
+//     k rows, 128-byte swizzle, zero fill for a ragged K or N) into a ring
+//     of stages kept full by one producer thread, when the caller asks for
+//     it (rows of X a 16-byte multiple, X aligned); otherwise the producer
+//     warpgroup loads X with plain loads into the same layout.
+//   * u is split once per call by a small kernel into a pre-split image in
+//     the caller's workspace: per stage, the hi and lo tiles in the swizzled
+//     K-major layout wgmma reads, zero beyond R and K, copied into the ring
+//     stage by one bulk copy beside X's boxes.
+//   * Each thread reads its A fragment from the landed X tile and splits it
+//     there.  Within a k-step, fragment column t + 4h takes X row 2t + h
+//     (u's image is permuted the same way), so the 32 lanes' reads of 4
+//     rows x 8 columns fall in 32 distinct banks of the swizzle.
+//   * The tiles run over the batch's columns laid end to end, nv columns an
+//     item: with TMA nv is N rounded up to whole 128-byte boxes, so that no
+//     box straddles two items (B = 264 fp32 fills 264 of 288 columns); with
+//     plain loads nv = N, so a small N packs densely.  A persistent block
+//     per SM walks the tiles, so the ring runs ahead across tiles; the sums
+//     go straight from registers to C, each warp writing whole 32-byte
+//     sectors.
+namespace wide {
+
+// Bits of u's and X's hi parts over their group's bound (see above): a
+// product holds U_BITS + X_BITS, a stage's sum five more
+constexpr int U_BITS = 11, X_BITS = 10;
+
+// 1.5 * 2^(e - bits + 23) for a group whose magnitudes are at most m < 2^e:
+// fl(v + s) - s is v rounded to nearest (even) on the grid 2^(e - bits)
+__device__ __forceinline__ float grid_shift(float m, int bits) {
+  int e = (int)((__float_as_uint(m) >> 23) & 0xffu) + 24 - bits;
+  e = e > 254 ? 254 : e;  // |v| >= 2^113: a coarser grid, still exact sums
+  return __uint_as_float(((uint32_t)e << 23) | 0x400000u);
+}
+__device__ __forceinline__ float on_grid(float v, float s) {
+  return __fsub_rn(__fadd_rn(v, s), s);
+}
+
+constexpr int CHUNK = 128;           // outputs per pass over X
+constexpr int TK = 32;               // k rows per stage
+constexpr int KS = TK / 8;           // wgmma k-steps per stage
+constexpr int CONSUMERS = 256;       // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a block can use
+
+// Geometry of a launch: NT outputs per consumer warpgroup (the wgmma width,
+// 32 or 64), SPLIT when the two warpgroups share a tile and split R.
+template <typename T, int NT, bool SPLIT>
+struct Geo {
+  static constexpr int ES = sizeof(T);
+  static constexpr int BOX_N = 128 / ES;               // X columns per box
+  static constexpr int PLANES = ES == 4 ? 2 : 1;       // hi, lo (fp32)
+  static constexpr int BNT = SPLIT ? 64 : 128;         // X columns per tile
+  static constexpr int ROWS = SPLIT ? 2 * NT : NT;     // rows of u's image
+  static constexpr int XBYTES = BNT * TK * ES;         // BNT / BOX_N boxes
+  static constexpr int BBYTES = PLANES * ROWS * 128;   // one image stage
+  static constexpr int STAGE = XBYTES + BBYTES;
+};
+
+struct Args {
+  const void* x;       // X_0 (K, N) row-major; X_a starts x_batch elements on
+  const void* img;     // u's pre-split image: n_k stages of BBYTES
+  float* c;            // C_0 (rows, N), rows ldc apart; C_a starts c_batch on
+  long long x_batch, c_batch;
+  int tiles;           // ceil(batch * nv / BNT); batch * nv < 2^31 (launch_chunk)
+  int rows, N, K, ldc, batch;
+  int nv;              // columns of the tiles per batch item
+  int n_k;             // stages: ceil(K / TK)
+  int tma;             // X by TMA, else plain loads
+  int nst;             // ring stages
+};
+
+// Physical k (within a stage) of column `col` of u's image: the 8 columns of
+// k-step j hold rows 8j + 2t + h at column 8j + t + 4h.
+__device__ __forceinline__ int image_k(int col) {
+  const int cc = col % 8;
+  return col - cc + 2 * (cc % 4) + cc / 4;
+}
+
+// u (rows, K) -> its image: stage s, plane p (hi, lo), row r, column col at
+// s * BBYTES + p * ROWS * 128 + swz(r, col, 4), zero beyond rows and K.
+// A warp takes one row of one stage (TK = 32 columns), whose largest
+// magnitude sets the grid of the row's hi there.
+template <typename T, int ROWS, int PLANES>
+__global__ void __launch_bounds__(256)
+image_kernel(const T* __restrict__ u, unsigned char* __restrict__ img, int rows, int K, int n_k) {
+  static_assert(TK == 32, "image_kernel: a warp is one stage of a row");
+  const long long n = (long long)n_k * ROWS * TK;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;  // n is whole warps
+  const int s = (int)(idx / (ROWS * TK));
+  const int r = (int)(idx / TK % ROWS), col = (int)(idx % TK);
+  const int k = s * TK + image_k(col);
+  const float v = r < rows && k < K ? to_f32(u[(long long)r * K + k]) : 0.f;
+  unsigned char* st = img + (long long)s * PLANES * ROWS * 128;
+  if constexpr (PLANES == 2) {
+    float m = fabsf(v);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float hi = on_grid(v, grid_shift(m, U_BITS));
+    *reinterpret_cast<float*>(st + swz(r, col, 4)) = hi;
+    *reinterpret_cast<float*>(st + ROWS * 128 + swz(r, col, 4)) = tf32_rna(v - hi);
+  } else {
+    *reinterpret_cast<float*>(st + swz(r, col, 4)) = v;  // bf16 is exact in TF32
+  }
+}
+
+// This warpgroup's A fragments of one stage: element q of k-step ks of its
+// 64 columns of the X tile at `st`, read at byte off[q] + 1024 ks and split
+// in registers (the caller keeps `ahi`/`alo` until the wgmma that read them
+// are waited for).  A column's 32 values of the stage lie with the four
+// lanes of a quad (two a k-step each), which agree on its grid.
+template <typename T, int PLANES>
+__device__ __forceinline__ void stage_fragments(uint32_t (&ahi)[KS][4], uint32_t (&alo)[KS][4],
+                                                const unsigned char* st, const int (&off)[4]) {
+  float v[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[ks][q] = to_f32(*reinterpret_cast<const T*>(st + off[q] + 1024 * ks));
+  if constexpr (PLANES == 2) {
+    float m[2] = {0.f, 0.f};  // this lane's two columns: q % 2
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) m[q % 2] = fmaxf(m[q % 2], fabsf(v[ks][q]));
+    float sh[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+      sh[h] = grid_shift(m[h], X_BITS);
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float h = on_grid(v[ks][q], sh[q % 2]);
+        ahi[ks][q] = __float_as_uint(h);
+        alo[ks][q] = __float_as_uint(tf32_rna(v[ks][q] - h));
+      }
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ahi[ks][q] = __float_as_uint(v[ks][q]);
+  }
+}
+
+// The products of one stage for this warpgroup, launched and committed:
+// `hh` = the stage's hi*hi from zero, `cross` += hi*lo + lo*hi (from zero
+// when `keep` is 0, at a tile's first stage); bf16 has hh alone.
+template <int NT, int PLANES>
+__device__ __forceinline__ void stage_products(float (&hh)[NT / 2], float (&cross)[NT / 2],
+                                               const uint32_t (&ahi)[KS][4],
+                                               const uint32_t (&alo)[KS][4],
+                                               const unsigned char* bimg, int rows_img, int keep) {
+  wgmma_fence();
+  // 32-byte k-steps advance the descriptors' 16-byte address field by 2
+  const uint64_t bh = sw128_desc(bimg);
+  const uint64_t bl = sw128_desc(bimg + rows_img * 128);
+  if constexpr (PLANES == 2) {
+    wgmma_tf32<NT, false>(cross, ahi[0], bl, keep);
+    wgmma_tf32<NT, false>(cross, alo[0], bh);
+  }
+  wgmma_tf32<NT, true>(hh, ahi[0], bh);
+#pragma unroll
+  for (int j = 1; j < KS; ++j) {
+    if constexpr (PLANES == 2) {
+      wgmma_tf32<NT, false>(cross, ahi[j], bl + 2 * j);
+      wgmma_tf32<NT, false>(cross, alo[j], bh + 2 * j);
+    }
+    wgmma_tf32<NT, false>(hh, ahi[j], bh + 2 * j);
+  }
+  wgmma_commit();
+}
+
+// Shared memory (1024-byte aligned): nst stages of (X tile: BNT / BOX_N
+// boxes of TK rows x 128 bytes; u's image stage), then the mbarriers.
+// Warpgroup 2 feeds the ring and gives its registers to the two consumer
+// warpgroups (setmaxnreg).
+template <typename T, int NT, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(__grid_constant__ const CUtensorMap mx, Args p) {
+  using G = Geo<T, NT, SPLIT>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.nst * G::STAGE);
+  uint64_t* empty = full + p.nst;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < p.nst; ++s) {
+      // TMA: the producer's expect_tx; plain: that and the four warps' loads
+      mbar_init(&full[s], p.tma ? 1 : 5);
+      mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    const unsigned char* img = static_cast<const unsigned char*>(p.img);
+    const int pt = tid - CONSUMERS;  // 0 .. 127
+    if (p.tma && pt != 0) return;
+    // plain loads: thread pt fills column pt % BNT of the tile, rows pt / BNT
+    // + STEP q; consecutive threads read consecutive columns of a row
+    constexpr int STEP = 128 / G::BNT, PER = TK / STEP, BATCH = 8;
+    const int col = pt % G::BNT, kk0 = pt / G::BNT;
+    unsigned char* dst0 = nullptr;
+    int it = 0;
+    // column j of the batch laid end to end is column j % nv of item j / nv
+    // (32-bit: a 64-bit division is a called routine, which spills)
+    const unsigned nv = (unsigned)p.nv;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const unsigned j0 = (unsigned)tile * G::BNT;
+      const T* __restrict__ src = nullptr;  // this thread's column of X, or none
+      if (!p.tma) {
+        const unsigned j = j0 + col, a = j / nv, n = j - a * nv;
+        if ((int)a < p.batch && (int)n < p.N)
+          src = static_cast<const T*>(p.x) + a * p.x_batch + n;
+      }
+      const unsigned a0 = j0 / nv, n0 = j0 - a0 * nv;  // the tile's first box
+      for (int s = 0; s < p.n_k; ++s, ++it) {
+        const int slot = it % p.nst;
+        unsigned char* st = smem + slot * G::STAGE;
+        mbar_wait(&empty[slot], (uint32_t)(((it / p.nst) & 1) ^ 1));
+        if (p.tma) {
+          mbar_arrive_tx(&full[slot], G::STAGE);
+          // boxes never straddle two items: nv is a whole number of boxes
+          unsigned a = a0, n = n0;
+#pragma unroll
+          for (int b = 0; b < G::BNT / G::BOX_N; ++b) {
+            tma_load_3d(st + b * TK * 128, &mx, (int)n, s * TK, (int)a, &full[slot]);
+            n += G::BOX_N;
+            if (n == nv) n = 0, ++a;
+          }
+          bulk_copy(st + G::XBYTES, img + (long long)s * G::BBYTES, G::BBYTES, &full[slot]);
+          continue;
+        }
+        if (pt == 0) {
+          mbar_arrive_tx(&full[slot], G::BBYTES);
+          bulk_copy(st + G::XBYTES, img + (long long)s * G::BBYTES, G::BBYTES, &full[slot]);
+        }
+        dst0 = st + (col / G::BOX_N) * TK * 128;
+        for (int q0 = 0; q0 < PER; q0 += BATCH) {
+          T v[BATCH];
+#pragma unroll
+          for (int q = 0; q < BATCH; ++q) {
+            const int k = s * TK + kk0 + STEP * (q0 + q);
+            v[q] = src != nullptr && k < p.K ? src[(long long)k * p.N] : T(0.f);
+          }
+#pragma unroll
+          for (int q = 0; q < BATCH; ++q)
+            *reinterpret_cast<T*>(dst0 + swz(kk0 + STEP * (q0 + q), col % G::BOX_N, G::ES)) =
+                v[q];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[slot]);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+
+  // ---- consumers ----
+  const int nb = SPLIT ? 0 : wg * 64;   // this warpgroup's first column of the tile
+  const int rb = SPLIT ? wg * NT : 0;   // its first output (row of u's image)
+  const int g = lane / 4, t = lane % 4;
+  // A element q of k-step ks: tile column nb + 16 warp + g + 8 (q % 2), X row
+  // 8 ks + 2 t + q / 2 of the stage (image_k's permutation); a k-step is 8
+  // rows, 1024 bytes further on, with the same swizzle
+  int off[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int nn = nb + 16 * warp + g + 8 * (q % 2);
+    off[q] = (nn / G::BOX_N) * TK * 128 + swz(2 * t + q / 2, nn % G::BOX_N, G::ES);
+  }
+  // The stages of this block's tiles in order: it = (tile's index among
+  // them) * n_k + s.  While the products of stage `it` run, the fragments
+  // of stage it + 1 are read and split (nhi/nlo), off the tensor cores'
+  // critical path, and moved into ahi/alo after the wait.  cross is first
+  // written by a wgmma with keep = 0 (a tile's first stage).
+  float hh[NT / 2], cross[NT / 2], sum[NT / 2];
+  uint32_t ahi[KS][4], alo[KS][4], nhi[KS][4], nlo[KS][4];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) sum[i] = 0.f;
+  const long long total = (long long)((p.tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * p.n_k;
+  const unsigned nv = (unsigned)p.nv;
+  mbar_wait(&full[0], 0u);
+  stage_fragments<T, G::PLANES>(ahi, alo, smem, off);
+  int tile = blockIdx.x;
+  int s = 0, slot = 0;
+  uint32_t phase = 0;  // of the ring's pass over `slot`
+  for (long long it = 0; it < total; ++it) {
+    stage_products<NT, G::PLANES>(hh, cross, ahi, alo, smem + slot * G::STAGE + G::XBYTES + rb * 128,
+                                  G::ROWS, s != 0);
+    const int next = slot + 1 == p.nst ? 0 : slot + 1;
+    const uint32_t next_phase = next == 0 ? phase ^ 1u : phase;
+    if (it + 1 < total) {
+      mbar_wait(&full[next], next_phase);
+      stage_fragments<T, G::PLANES>(nhi, nlo, smem + next * G::STAGE, off);
+    }
+    wgmma_wait_all();
+    fence_acc(hh);
+    if constexpr (G::PLANES == 2) fence_acc(cross);
+    fence_frags(ahi);
+    if constexpr (G::PLANES == 2) fence_frags(alo);
+    if (lane == 0) mbar_arrive(&empty[slot]);
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) sum[i] += hh[i];
+    if (s == p.n_k - 1) {
+      if constexpr (G::PLANES == 2) {
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) sum[i] += cross[i];
+      }
+      // sum[4c + 2h + e] is C[rb + 8c + 2t + e] at tile column nb + 16 warp + g + 8h
+      float* cp[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned j = (unsigned)tile * G::BNT + nb + 16 * warp + g + 8 * h, a = j / nv,
+                       n = j - a * nv;
+        cp[h] = (int)a < p.batch && (int)n < p.N ? p.c + a * p.c_batch + n : nullptr;
+      }
+#pragma unroll
+      for (int v = 0; v < NT / 2; ++v) {
+        const int r = rb + 8 * (v / 4) + 2 * t + v % 2;
+        float* q = cp[(v / 2) % 2];
+        if (q != nullptr && r < p.rows) q[(long long)r * p.ldc] = sum[v];
+        sum[v] = 0.f;
+      }
+      tile += gridDim.x;
+    }
+    s = s + 1 == p.n_k ? 0 : s + 1;
+    slot = next;
+    phase = next_phase;
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        ahi[k][q] = nhi[k][q];
+        if constexpr (G::PLANES == 2) alo[k][q] = nlo[k][q];
+      }
+  }
+}
+
+// 3-D map over X as dims (N, K, batch): boxes of 128 bytes x TK rows,
+// 128-byte swizzle, zero fill outside
+template <typename T>
+cudaError_t encode_x(CUtensorMap* map, const void* x, int N, int K, int batch,
+                     long long x_batch) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  constexpr int ES = sizeof(T);
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)N * ES, (cuuint64_t)x_batch * ES};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / ES), (cuuint32_t)TK, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map,
+                         ES == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         3, const_cast<void*>(x), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The operands of one call: u (R, K); X_a (K, N) at x + a * x_batch; C_a
+// (R, N), rows ldc apart, at c + a * c_batch; tma: X by TMA (rows a 16-byte
+// multiple and X aligned, which the caller checks).
+struct Call {
+  const void* u;
+  const void* x;
+  float* c;
+  void* ws;
+  int R, N, K, batch, ldc;
+  long long x_batch, c_batch;
+  bool tma;
+};
+
+// One chunk of at most CHUNK outputs (rows of u from r0).  info != nullptr:
+// report the launch figures (out[0..3] the GEMM, out[4..7] the image
+// kernel, out[12] dynamic shared memory, out[14] TMA loads, out[15] ring
+// stages) instead of launching.
+template <typename T, int NT, bool SPLIT>
+cudaError_t launch_chunk(const Call& q, int r0, int rows, cudaStream_t st, int* info) {
+  using G = Geo<T, NT, SPLIT>;
+  Args p;
+  p.x = q.x;
+  p.img = q.ws;
+  p.c = q.c == nullptr ? nullptr : q.c + (long long)r0 * q.ldc;
+  p.x_batch = q.x_batch;
+  p.c_batch = q.c_batch;
+  p.rows = rows;
+  p.N = q.N;
+  p.K = q.K;
+  p.ldc = q.ldc;
+  p.tma = q.tma;
+  p.nv = q.tma ? (q.N + G::BOX_N - 1) / G::BOX_N * G::BOX_N : q.N;
+  // the kernel indexes the batch's columns in 32 bits: items run in groups
+  // of fewer than 2^31 - BNT columns (one item wider than that is refused)
+  const int per = p.nv > 0 ? (0x7fffffff - G::BNT) / p.nv : 0;
+  if (per < 1) return cudaErrorInvalidValue;
+  p.batch = q.batch < per ? q.batch : per;
+  p.tiles = ceil_div(p.batch * p.nv, G::BNT);
+  p.n_k = ceil_div(q.K, TK);
+  p.nst = (SMEM_LIMIT - 1024 - 2 * MAX_STAGES * (int)sizeof(uint64_t)) / G::STAGE;
+  if (p.nst > MAX_STAGES) p.nst = MAX_STAGES;
+  if (p.nst < 2) return cudaErrorInvalidValue;
+  const size_t smem = 1024 + (size_t)p.nst * G::STAGE + 2 * p.nst * sizeof(uint64_t);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int grid = (int)(p.tiles < sms ? p.tiles : sms);
+  auto gemm = kernel<T, NT, SPLIT>;
+  auto image = image_kernel<T, G::ROWS, G::PLANES>;
+  err = cudaFuncSetAttribute(gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long img_elems = (long long)p.n_k * G::ROWS * TK;
+  if (info != nullptr) {
+    info[12] = (int)smem;
+    info[14] = p.tma;
+    info[15] = p.nst;
+    err = describe(gemm, THREADS, grid, info, smem);
+    if (err != cudaSuccess) return err;
+    return describe(image, 256, ceil_div(img_elems, 256), info + 4);
+  }
+  image<<<ceil_div(img_elems, 256), 256, 0, st>>>(
+      static_cast<const T*>(q.u) + (long long)r0 * q.K, static_cast<unsigned char*>(q.ws), rows,
+      q.K, p.n_k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  float* const c0 = p.c;
+  for (int a0 = 0; a0 < q.batch; a0 += per) {
+    p.batch = q.batch - a0 < per ? q.batch - a0 : per;
+    p.tiles = ceil_div(p.batch * p.nv, G::BNT);
+    p.x = static_cast<const T*>(q.x) + a0 * q.x_batch;
+    p.c = c0 == nullptr ? nullptr : c0 + a0 * q.c_batch;
+    CUtensorMap mx{};
+    if (p.tma && (err = encode_x<T>(&mx, p.x, q.N, q.K, p.batch, q.x_batch)) != cudaSuccess)
+      return err;
+    gemm<<<p.tiles < grid ? p.tiles : grid, THREADS, smem, st>>>(mx, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Rows of u's image for a chunk of `rows` outputs (mirrored in
+// kernels/matmul.py image_rows): the wgmma width, or 2 x 64 when the two
+// warpgroups split R
+inline int image_rows(int rows) { return rows <= 32 ? 32 : rows <= 64 ? 64 : 128; }
+
+// The whole call, chunk by chunk (the image workspace holds one chunk's);
+// with info, the first chunk's figures.
+template <typename T>
+cudaError_t launch(const Call& q, cudaStream_t st, int* info) {
+  for (int r0 = 0; r0 < q.R; r0 += CHUNK) {
+    const int rows = q.R - r0 < CHUNK ? q.R - r0 : CHUNK;
+    cudaError_t err;
+    if (rows <= 32)
+      err = launch_chunk<T, 32, false>(q, r0, rows, st, info);
+    else if (rows <= 64)
+      err = launch_chunk<T, 64, false>(q, r0, rows, st, info);
+    else
+      err = launch_chunk<T, 64, true>(q, r0, rows, st, info);
+    if (err != cudaSuccess || info != nullptr) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace wide
 
 }  // namespace atucker

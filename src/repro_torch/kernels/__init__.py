@@ -51,10 +51,21 @@ def matmul_route_counts() -> dict[str, int]:
     return dict(_module("matmul").ROUTE_LAUNCHES)
 
 
+def ttm_route_counts() -> dict[str, int]:
+    """Launches of the interior TTM since the last
+    :func:`reset_launch_counts`, by route (``"slab"``, ``"plain"``,
+    ``"wide"``)."""
+    return dict(_module("ttm_interior").ROUTE_LAUNCHES)
+
+
+#: the kernels whose wrappers also count their launches by route
+ROUTED = ("ttt", "matmul", "ttm_interior")
+
+
 def reset_launch_counts() -> None:
     for k in KERNEL_MODULES:
         _module(k).LAUNCHES = 0
-    for k in ("ttt", "matmul"):
+    for k in ROUTED:
         _module(k).ROUTE_LAUNCHES.clear()
 
 
@@ -62,7 +73,7 @@ def launch_snapshot() -> dict:
     """Every launch counter at this moment, keyed (kernel, None) for the
     kernels' counts and (kernel, route) for the routes'."""
     out = {(k, None): _module(k).LAUNCHES for k in KERNEL_MODULES}
-    for k in ("ttt", "matmul"):
+    for k in ROUTED:
         out.update(((k, rt), v) for rt, v in _module(k).ROUTE_LAUNCHES.items())
     return out
 
@@ -95,4 +106,5 @@ def add_launches(delta: dict, times: int = 1) -> None:
 __all__ = ["KERNEL_MODULES", "add_launches", "launch_counts",
            "launch_snapshot", "launches_since", "matmul",
            "matmul_route_counts", "ops", "ref", "reset_launch_counts",
-           "s6_scan", "ttm_interior", "ttt3", "ttt_route_counts"]
+           "s6_scan", "ttm_interior", "ttm_route_counts", "ttt3",
+           "ttt_route_counts"]

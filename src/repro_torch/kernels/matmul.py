@@ -14,13 +14,15 @@ Replaces ``repro/kernels/matmul.py::matmul``; the CUDA source is
   mode) or 128 × 16 (last mode) strip of x, so x is read once; a last-mode
   R above 16 takes more 16-wide tiles, each reading x again.
 * ``wide`` -- the first mode at R > 16 (M > 16, N > M).  One pass over x
-  (R ≤ 256; chunks of 256 outputs above) on the tensor cores at fp32
-  accuracy: Cᵀ = xᵀ·uᵀ on ``wgmma`` with x's split-TF32 halves from
-  registers (three products; bf16 one), x arriving by TMA (:func:`loads`),
-  each 32-deep stage summed from zero and added in fp32.  u is split once a
-  call into a pre-split image in a workspace of :func:`workspace_bytes`,
-  which the ``hopper`` plans charge to the step's peak
-  (``core/plan.py``).
+  (R ≤ 128; chunks of 128 outputs above) on the tensor cores at fp32
+  accuracy: the wide route of ``csrc/wgmma.cuh`` with a batch of one, Cᵀ =
+  xᵀ·uᵀ on ``wgmma`` with x's split-TF32 halves from registers (three
+  products; bf16 one), x arriving by TMA (:func:`loads`), hi cut to a grid
+  on which each 32-deep stage's hi·hi sums exactly in the tensor cores'
+  truncating accumulator, added in fp32 (:func:`repro_torch.kernels.ref.
+  matmul_tf32x3_ref` with ``scheme="grid"``).  u is split once a call into
+  a pre-split image in a workspace of :func:`workspace_bytes`, which the
+  ``hopper`` plans charge to the step's peak (``core/plan.py``).
 
 Ragged edges are masked or zero-filled; nothing is padded in memory.  A CPU
 tensor runs the plain version (:func:`repro_torch.kernels.ref.matmul_ref`);
@@ -44,7 +46,7 @@ ROUTE_LAUNCHES: dict[str, int] = {}
 #: the routes of csrc/matmul.cu, by the code its report function gives
 ROUTES = ("slab", "wide")
 #: outputs per pass of the wide route, and k rows per stage
-CHUNK, WIDE_TK = 256, 32
+CHUNK, WIDE_TK = 128, 32
 
 
 def route(m: int, n: int) -> str:
@@ -65,26 +67,24 @@ def loads(n: int, dtype: str = "float32", aligned: bool = True) -> str:
 
 def image_rows(rows: int) -> int:
     """Rows of u's pre-split image for a chunk of ``rows`` outputs: the
-    wgmma width of a consumer warpgroup (32, 64 or 128), or 2 × 128 when
-    the two warpgroups split R (rows > 128)."""
-    for w in (32, 64, 128):
-        if rows <= w:
-            return w
-    return 2 * 128
+    wgmma width of a consumer warpgroup (32 or 64), or 2 × 64 when the two
+    warpgroups split R (rows > 64)."""
+    return 32 if rows <= 32 else 64 if rows <= 64 else 2 * 64
 
 
 def workspace_bytes(m: int, n: int, k: int, dtype: str = "float32") -> int:
     """Bytes that :func:`matmul` allocates beyond C for (M, K) @ (K, N): on
     the wide route u's pre-split image -- ceil(K / 32) stages of (hi, lo)
     fp32 tiles (one tile for bf16) of :func:`image_rows` rows × 128 bytes,
-    sized for the first (largest) chunk of 256 outputs -- else 0."""
+    sized for the first (largest) chunk of 128 outputs -- else 0."""
     if route(m, n) != "wide":
         return 0
     planes = 2 if dtype == "float32" else 1
     return math.ceil(k / WIDE_TK) * planes * image_rows(min(m, CHUNK)) * 128
 
 
-def _dtype_name(t: torch.Tensor) -> str:
+def dtype_name(t: torch.Tensor) -> str:
+    """``"float32"`` / ``"bfloat16"`` of a tensor, as the mirrors take it."""
     return str(t.dtype).replace("torch.", "")
 
 
@@ -102,7 +102,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dev = a.device
     with torch.cuda.device(dev):
         c = torch.empty((m, n), dtype=torch.float32, device=dev)
-        n_ws = workspace_bytes(m, n, k, _dtype_name(a))
+        n_ws = workspace_bytes(m, n, k, dtype_name(a))
         ws = torch.empty(n_ws, dtype=torch.uint8, device=dev) if n_ws else None
         lib = _build.load("matmul")
         err = lib.atucker_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
@@ -135,7 +135,7 @@ def launch_info(a: torch.Tensor, b: torch.Tensor) -> list[dict]:
                            f"kernels/matmul.py mirrors {rt}")
     rows[0]["route"] = got
     if got == "wide":
-        want = loads(n, _dtype_name(b), b.data_ptr() % 16 == 0)
+        want = loads(n, dtype_name(b), b.data_ptr() % 16 == 0)
         got_loads = "tma" if extra[2] else "plain"
         if got_loads != want:
             raise RuntimeError(f"matmul: csrc/matmul.cu loads x by "

@@ -58,12 +58,15 @@ def ttm(x: torch.Tensor, u: torch.Tensor, mode: int) -> torch.Tensor:
     return y.view(out_shape)
 
 
-def ttt(x: torch.Tensor, y: torch.Tensor, mode: int) -> torch.Tensor:
-    """z (I_mode, R_mode) = contraction of x, y over all modes but ``mode``."""
-    return ttt3(_as3(x, mode), _as3(y, mode))
+def ttt(x: torch.Tensor, y: torch.Tensor, mode: int,
+        out: torch.Tensor | None = None) -> torch.Tensor:
+    """z (I_mode, R_mode) = contraction of x, y over all modes but ``mode``
+    (into ``out`` when given, as :func:`ttt3` takes it)."""
+    return ttt3(_as3(x, mode), _as3(y, mode), out)
 
 
-def gram(x: torch.Tensor, mode: int) -> torch.Tensor:
+def gram(x: torch.Tensor, mode: int,
+         out: torch.Tensor | None = None) -> torch.Tensor:
     """S (I_mode, I_mode) = Y_(n) Y_(n)ᵀ without unfolding."""
     x3 = _as3(x, mode)
-    return ttt3(x3, x3)
+    return ttt3(x3, x3, out)

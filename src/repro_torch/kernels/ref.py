@@ -64,27 +64,85 @@ def ttt_tf32x3_ref(x3: torch.Tensor, y3: torch.Tensor, products: int = 3,
     return z
 
 
+def grid_split(v: torch.Tensor, bits: int, dim: int, stage: int = 32):
+    """``v`` (fp32) split as the wide route splits an fp32 operand:
+    ``(hi, lo)`` with hi the value rounded to nearest (ties to even) on the
+    grid 2^(e - bits) of its group -- ``stage`` consecutive entries along
+    ``dim``, whose magnitudes are below 2^e -- and lo = rna_tf32(v - hi)."""
+    v = v.float()
+    k = v.shape[dim]
+    vm = torch.nn.functional.pad(v.movedim(dim, -1), (0, -k % stage))
+    groups = vm.reshape(*vm.shape[:-1], -1, stage).double()
+    _, e = torch.frexp(groups.abs().amax(-1, keepdim=True))
+    unit = torch.exp2((e - bits).double())
+    hi = (torch.round(groups / unit) * unit).reshape(vm.shape)[..., :k]
+    hi = hi.movedim(-1, dim).float()
+    return hi, tf32_rna(v - hi)
+
+
+#: bits of u's and x's hi parts over their group's bound (csrc/wgmma.cuh
+#: U_BITS, X_BITS)
+U_BITS, X_BITS = 11, 10
+
+
 def matmul_tf32x3_ref(a: torch.Tensor, b: torch.Tensor, products: int = 3,
-                      stage: int = 32, truncate: bool = False) -> torch.Tensor:
-    """The arithmetic of the wide route of ``csrc/matmul.cu`` written out in
-    PyTorch, for the tests (the kernels never call it): C = a @ b with every
-    operand v split into hi = rna_tf32(v) and lo = rna_tf32(v - hi), and
-    C = hi_a·hi_b + hi_a·lo_b + lo_a·hi_b (products = 3; products = 1 keeps
-    hi_a·hi_b alone, one TF32 product, which is exact for bf16 operands).
-    Each ``stage`` of k is summed from zero and the stages are added in
-    fp32, as the kernel does.  The kernel sums a stage on the tensor cores,
-    whose fp32 accumulator truncates; here the sums round, unless
-    ``truncate``: then each 8-deep ``wgmma`` step is emulated in the
-    kernel's order (per k-step hi·lo and lo·hi, then every hi·hi), its
-    exact products added to the accumulator and the result rounded toward
-    zero, which is what biases the wide route's sums toward zero."""
+                      stage: int = 32, truncate: bool = False,
+                      scheme: str = "stage") -> torch.Tensor:
+    """The arithmetic of the wide route of ``csrc/wgmma.cuh`` (the boundary
+    GEMM's and the interior TTM's at R > 16) written out in PyTorch, for the
+    tests (the kernels never call it): C = a @ b as hi_a·hi_b + hi_a·lo_b +
+    lo_a·hi_b of a split of every operand (products = 3; products = 1 keeps
+    hi_a·hi_b alone, one TF32 product of the operands as they are, which is
+    exact for bf16 operands).
+
+    The kernel sums on the tensor cores, whose fp32 accumulator truncates;
+    here each 8-deep ``wgmma`` step adds its exact products to the
+    accumulator and rounds the result to fp32 -- to nearest, or toward zero
+    with ``truncate``, as the card does.  The ``scheme`` is the split and
+    how the sums are grouped:
+
+    * ``"grid"`` (the kernels'): hi is each value rounded on its group's
+      grid (:func:`grid_split`: ``U_BITS`` over the bound of a's row in a
+      stage, ``X_BITS`` over b's column), so a stage's hi·hi products are
+      whole units whose sum the accumulator holds exactly (below 2^24
+      units); each stage's hi·hi is summed there from zero and added in
+      fp32, and the cross terms (lo_a·hi_b, then hi_a·lo_b a k-step) run in
+      one accumulator over the whole depth, added last.  Truncated, the
+      energy of C stays within ~5e-9 of itself.
+    * ``"stage"`` (the route before it, and the default): hi =
+      rna_tf32(v); each ``stage``
+      of k is summed from zero in the accumulator, in the old kernel's order
+      (per k-step hi·lo and lo·hi, then every hi·hi), and the stages are
+      added in fp32.  Truncated, that biases the sums toward zero: the
+      energy of C falls by about 2e-7 of itself."""
+    if scheme not in ("stage", "grid"):
+        raise ValueError(f"scheme must be 'stage' or 'grid', got {scheme!r}")
     a, b = a.float(), b.float()
+    add = _round_toward_zero if truncate else (lambda v: v.float())
+    c = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                    device=a.device)
+    if scheme == "grid":
+        if products == 3:
+            ah, al = grid_split(a, U_BITS, 1, stage)
+            bh, bl = grid_split(b, X_BITS, 0, stage)
+        else:
+            ah, bh = a, b
+        cross = torch.zeros_like(c)
+        for k0 in range(0, a.shape[1], stage):
+            part = torch.zeros_like(c)
+            for k in range(k0, min(k0 + stage, a.shape[1]), 8):
+                ks = slice(k, k + 8)
+                if products == 3:
+                    for p, q in ((al, bh), (ah, bl)):
+                        cross = add(cross.double()
+                                    + p[:, ks].double() @ q[ks].double())
+                part = add(part.double() + ah[:, ks].double() @ bh[ks].double())
+            c += part
+        return c + cross if products == 3 else c
     ah, bh = tf32_rna(a), tf32_rna(b)
     terms = [(ah, bh)]
     if products == 3:
         terms = [(ah, tf32_rna(b - bh)), (tf32_rna(a - ah), bh), (ah, bh)]
-    c = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
-                    device=a.device)
     for k0 in range(0, a.shape[1], stage):
         k1 = min(k0 + stage, a.shape[1])
         part = torch.zeros_like(c)
@@ -96,11 +154,27 @@ def matmul_tf32x3_ref(a: torch.Tensor, b: torch.Tensor, products: int = 3,
             order = [(p, q, k) for k in steps for p, q in terms[:-1]] + \
                 [(*terms[-1], k) for k in steps]
             for p, q, k in order:
-                exact = part.double() + p[:, k:min(k + 8, k1)].double() \
-                    @ q[k:min(k + 8, k1)].double()
-                part = _round_toward_zero(exact)
+                part = add(part.double() + p[:, k:min(k + 8, k1)].double()
+                           @ q[k:min(k + 8, k1)].double())
         c += part
     return c
+
+
+def ttm_tf32x3_ref(u: torch.Tensor, x3: torch.Tensor, products: int = 3,
+                   truncate: bool = True, scheme: str = "grid"
+                   ) -> torch.Tensor:
+    """The wide route of ``csrc/ttm.cu`` (R > 16) written out in PyTorch,
+    for the tests: out[a] = u @ x3[a] for every a, each entry by
+    :func:`matmul_tf32x3_ref`'s arithmetic -- by default the kernel's own:
+    the grid split, each stage's hi·hi summed exactly on the truncating
+    accumulator and added in fp32, the cross terms in one accumulator.
+    The contracted axis is the same for every a, so the batch runs as one
+    product over the columns of all values of a."""
+    a, i, b = x3.shape
+    cols = x3.float().transpose(0, 1).reshape(i, a * b)
+    out = matmul_tf32x3_ref(u, cols, products, truncate=truncate,
+                            scheme=scheme)
+    return out.reshape(-1, a, b).transpose(0, 1).contiguous()
 
 
 def _round_toward_zero(v: torch.Tensor) -> torch.Tensor:

@@ -132,21 +132,33 @@ def call_route(x3: torch.Tensor, y3: torch.Tensor) -> str:
     return route(y3.shape[1], x3.shape[2], *_dtype_aligned(x3, y3))
 
 
-def ttt3(x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
+def ttt3(x3: torch.Tensor, y3: torch.Tensor,
+         out: torch.Tensor | None = None) -> torch.Tensor:
     """z (I, R) = einsum('aib,arb->ir', x3, y3), fp32.  Pass ``y3 is x3``
-    for the Gram."""
+    for the Gram.  ``out``, a contiguous fp32 (I, R) tensor on x3's device,
+    receives z (the sharded solvers' partial sums land in the buffer their
+    all-reduce sends)."""
     kind = _build.check_operands("ttt", {"x3": 3, "y3": 3}, x3, y3)
     a, i, b = x3.shape
     a2, r, b2 = y3.shape
     if (a, b) != (a2, b2):
         raise ValueError(f"ttt: views {tuple(x3.shape)} and {tuple(y3.shape)} "
                          "differ outside the contracted axis")
+    if out is not None and (out.shape != (x3.shape[1], y3.shape[1])
+                            or out.dtype != torch.float32
+                            or out.device != x3.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"ttt: out must be a contiguous float32 "
+                         f"{(x3.shape[1], y3.shape[1])} tensor on "
+                         f"{x3.device}")
     if kind == "cpu":
-        return ttt_ref(x3, y3)
+        z = ttt_ref(x3, y3)
+        return z if out is None else out.copy_(z)
     dev = x3.device
     with torch.cuda.device(dev):
         a, i, r, b, sym, splits, k_per_split = _plan(x3, y3)
-        z = torch.empty((i, r), dtype=torch.float32, device=dev)
+        z = torch.empty((i, r), dtype=torch.float32, device=dev) \
+            if out is None else out
         n_ws = _workspace(splits, i, r, sym) // 4
         ws = torch.empty(n_ws, dtype=torch.float32, device=dev) if n_ws else z
         lib = _build.load("ttt")

@@ -52,7 +52,11 @@ run the same waves in the same order, or the collectives of different
 requests pair up and hang.  The synchronous pump forms waves from the
 submission order alone, so with a mesh the service runs synchronously:
 ``start()`` (a worker forming waves by timing) and ``deadline_s`` (each
-rank's own clock) raise.
+rank's own clock) raise.  A failure on one rank inside a lane's sweep
+ends that sweep on every rank with the same classified error
+(:class:`~repro_torch.core.distributed.MeshError`): every rank's plan then
+takes the same fallback rung, or every rank keeps the same lane error, so
+quarantine and bisection split the wave alike on every rank.
 
 Failure isolation:
 

@@ -4,8 +4,9 @@ plans' memory model of the kernels' workspaces, on the CPU.
 ``csrc/matmul.cu`` runs every first-mode GEMM with R > 16 (u (R, K) @ x
 (K, N), N > R) in one pass over x on the tensor cores: fp32 operands split
 into hi = rna_tf32(v) and lo = rna_tf32(v - hi) and three TF32 products
-(hi·hi + hi·lo + lo·hi), bf16 operands one product, each 32-deep stage
-summed from zero and added in fp32.  The kernel runs only on the card
+(hi·hi + hi·lo + lo·hi), bf16 operands one product.  hi is cut to a grid
+on which each 32-deep stage's hi·hi sum is exact in the tensor cores'
+truncating accumulator; the stage sums are added in fp32.  The kernel runs only on the card
 (``chip_smoke.py`` holds it per entry against ``matmul_ref``); here its
 arithmetic, written out as ``ref.matmul_tf32x3_ref``, is held against the
 reference's ``repro.kernels.ref.matmul_ref`` and its Pallas kernel
@@ -143,6 +144,132 @@ class TestSplitTf32Arithmetic:
         assert abs(bias[False]) < 1e-8
         assert -3e-7 < bias[True] < -1.2e-7
 
+    def test_grid_sums_leave_the_energy_unbiased(self):
+        """The kernels' sums: hi cut to each stage's grid, so that a stage's
+        hi·hi sum is exact in the truncating accumulator, added in fp32; the
+        cross terms in one accumulator over the whole depth.  At
+        adapt_wide's mode 0 (K = 1021, R = 64) the energy's bias stays
+        under 3e-8 of itself, against -1.2e-7 ... -3e-7 for the 32-deep
+        stage sums; per entry it stays within the limit."""
+        a, b = rnd((64, 1021), 31), rnd((1021, 4096), 32)
+        exact = a.astype(np.float64) @ b.astype(np.float64)
+        energy = (exact ** 2).sum()
+        at, bt = torch.from_numpy(a), torch.from_numpy(b)
+        bias = {}
+        for scheme in ("grid", "stage"):
+            got = ref.matmul_tf32x3_ref(at, bt, truncate=True,
+                                        scheme=scheme).double()
+            assert entry_err(got, exact, a, b).max() <= LIMIT
+            bias[scheme] = float(((got.numpy() ** 2).sum() - energy)
+                                 / energy)
+        assert abs(bias["grid"]) < 3e-8
+        assert -3e-7 < bias["stage"] < -1.2e-7
+
+    @pytest.mark.parametrize("kind", ["whole_numbers", "positive",
+                                      "both_positive"])
+    def test_grid_sums_on_nonnegative_data(self, kind):
+        """Nonnegative inputs as the paper's tensors hold them: a video's
+        whole-number pixels (0..255), a radiance cube's positive values,
+        and whole numbers against a positive u (a nonnegative tensor's
+        leading direction, where every product has one sign and a stage's
+        sum comes nearest its 2^24 units).  The energy stays within 3e-8,
+        per entry within the limit, with the accumulator truncating."""
+        g = np.random.default_rng(37)
+        u = g.standard_normal((64, 1021))
+        if kind == "both_positive":
+            u = np.abs(u) + 1
+            u /= np.linalg.norm(u, axis=1, keepdims=True)
+        else:
+            u = np.linalg.qr(u.T)[0].T
+        b = (3 * np.abs(g.standard_normal((1021, 1024))) + 1
+             if kind == "positive" else g.integers(0, 256, (1021, 1024)))
+        a, b = u.astype(np.float32), b.astype(np.float32)
+        exact = a.astype(np.float64) @ b.astype(np.float64)
+        got = ref.matmul_tf32x3_ref(torch.from_numpy(a), torch.from_numpy(b),
+                                    truncate=True, scheme="grid").double()
+        assert entry_err(got, exact, a, b).max() <= LIMIT
+        energy = (exact ** 2).sum()
+        assert abs(((got.numpy() ** 2).sum() - energy) / energy) < 3e-8
+
+    def test_bf16_stage_sums_only_lower_the_energy(self):
+        """bf16 operands take one product a k-step, a stage summed in the
+        truncating accumulator and added in fp32: per entry within the
+        limit, and the energy can only fall (up to the rounding of the fp32
+        adds, 2e-9), the certificate's safe side."""
+        a = torch.from_numpy(rnd((64, 1021), 34)).bfloat16()
+        b = torch.from_numpy(rnd((1021, 2048), 35)).bfloat16()
+        af, bf = a.double().numpy(), b.double().numpy()
+        exact = af @ bf
+        got = ref.matmul_tf32x3_ref(a, b, products=1, truncate=True,
+                                    scheme="grid")
+        assert entry_err(got, exact, af, bf).max() <= LIMIT
+        energy = (exact ** 2).sum()
+        assert ((got.double().numpy() ** 2).sum() - energy) / energy < 2e-9
+
+    def test_grid_split(self):
+        """hi sits on its group's grid with at most U_BITS (u) or X_BITS
+        (x) bits over it, lo is what is left to TF32, and a stage's hi·hi
+        products are whole units whose sums fp32 holds exactly."""
+        a, b = rnd((16, 100), 38), rnd((100, 24), 39)
+        ah, al = ref.grid_split(torch.from_numpy(a), ref.U_BITS, 1)
+        bh, bl = ref.grid_split(torch.from_numpy(b), ref.X_BITS, 0)
+        assert torch.equal(ref.tf32_rna(ah), ah)
+        assert torch.equal(ref.tf32_rna(al), al)
+        for k0 in range(0, 100, 32):
+            ks = slice(k0, k0 + 32)
+            _, ea = np.frexp(np.abs(a[:, ks]).max(1, keepdims=True))
+            _, eb = np.frexp(np.abs(b[ks]).max(0, keepdims=True))
+            ua = ah[:, ks].double().numpy() / np.exp2(ea - ref.U_BITS)
+            ub = bh[ks].double().numpy() / np.exp2(eb - ref.X_BITS)
+            assert np.array_equal(ua, np.round(ua))
+            assert np.abs(ua).max() <= 2 ** ref.U_BITS
+            assert np.abs(ub).max() <= 2 ** ref.X_BITS
+            sums = ua @ ub
+            assert np.array_equal(sums.astype(np.float32), sums)
+        err = np.abs((ah + al).double().numpy() - a)
+        _, e = np.frexp(np.abs(a).max())
+        assert err.max() <= 2.0 ** (e - 22)
+
+    @pytest.mark.parametrize("products", [1, 3])
+    def test_grid_sums_change_nothing_that_is_exact(self, products):
+        """Small integers: the grid split keeps them whole (lo is zero), and
+        every product and sum is exact in fp32, so the truncating
+        emulation gives the rounded sums bit for bit."""
+        g = np.random.default_rng(33)
+        a = torch.from_numpy(g.integers(-8, 9, (24, 70)).astype(np.float32))
+        b = torch.from_numpy(g.integers(-8, 9, (70, 50)).astype(np.float32))
+        got = ref.matmul_tf32x3_ref(a, b, products, truncate=True,
+                                    scheme="grid")
+        assert torch.equal(got, ref.matmul_tf32x3_ref(a, b, products,
+                                                      scheme="grid"))
+        assert torch.equal(got, a @ b)
+
+    def test_the_ttt_routes_bias_does_not_reach_the_certificate(self):
+        """csrc/ttt.cu's tensor-core route sums 32-deep stages on the
+        truncating accumulator too, so its Gram reads about 1e-7 low.  The
+        sketch takes only the Gram's eigenvectors from it (the rotation V
+        of b); the captured energy it certifies is the energy of Vᵀ b,
+        exact for whatever V.  A perturbed V changes that energy to second
+        order: far below the kernels' rounding of the energies."""
+        g = np.random.default_rng(36)
+        ell, r = 64, 40
+        s = np.concatenate([np.linspace(10, 3, r), np.full(ell - r, 0.1)])
+        basis = np.linalg.qr(g.standard_normal((ell, ell)))[0]
+        b = ((basis * s) @ g.standard_normal((ell, 4000))).astype(np.float32)
+        b64 = b.astype(np.float64)
+        exact = b64 @ b64.T
+        bt = torch.from_numpy(b)
+        gram = ref.matmul_tf32x3_ref(bt, bt.T.contiguous(), truncate=True,
+                                     scheme="stage").double().numpy()
+        lean = np.mean((np.diag(gram) - np.diag(exact)) / np.diag(exact))
+        assert -3e-7 < lean < -5e-8
+
+        def captured(m):
+            v = np.linalg.eigh(m)[1][:, -r:]
+            return ((v.T @ b64) ** 2).sum()
+        total = (b64 ** 2).sum()
+        assert abs(captured(gram) - captured(exact)) / total < 1e-10
+
     @pytest.mark.parametrize("products", [1, 3])
     def test_truncation_changes_nothing_that_is_exact(self, products):
         """Small integers: every product and sum is exact in fp32, so the
@@ -226,15 +353,15 @@ class TestWorkspace:
         assert workspace_bytes(64, 60, 1021) == 0            # N <= M: slab
 
     @pytest.mark.parametrize("rows,want", [(17, 32), (32, 32), (33, 64),
-                                           (64, 64), (65, 128), (128, 128),
-                                           (129, 256), (256, 256)])
+                                           (64, 64), (65, 128), (96, 128),
+                                           (127, 128), (128, 128)])
     def test_image_rows(self, rows, want):
         assert image_rows(rows) == want
 
     def test_chunks_reuse_the_first_chunks_image(self):
-        assert CHUNK == 256
+        assert CHUNK == 128
         assert workspace_bytes(300, 2056, 1021) == \
-            workspace_bytes(256, 2056, 1021) == 32 * 2 * 256 * 128
+            workspace_bytes(128, 2056, 1021) == 32 * 2 * 128 * 128
 
 
 class TestTttWorkspace:

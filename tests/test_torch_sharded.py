@@ -167,9 +167,10 @@ class TestShardedSchedule:
         """On the card a sharded step is priced as a ``hopper`` step at the
         rank's view: never below the reference's per-device figure, and the
         first step (nothing held yet, no reshard) exactly that figure plus
-        the kernels' workspace at the slab."""
-        from repro_torch.core.plan import (H100_SMS, _hopper_workspace_bytes,
-                                           _slab)
+        the kernels' workspace at the slab and the failure code's element
+        after the Gram, which the all-reduce sums in place."""
+        from repro_torch.core.plan import (H100_SMS, _all_reduce_bytes,
+                                           _hopper_workspace_bytes, _slab)
         shape, ranks, k = (64, 48, 40), (8, 6, 5), 4
         ref = resolve_schedule(shape, ranks, methods="eig",
                                backend="sharded", n_shards=k)
@@ -182,7 +183,8 @@ class TestShardedSchedule:
         view = _slab(shape, s0.shard_mode, k)
         assert s0.peak_bytes == ref[0].peak_bytes + _hopper_workspace_bytes(
             "eig", 1, 64, 8, view[1] * view[2], 4, H100_SMS,
-            first_mode=True)
+            first_mode=True) + _all_reduce_bytes([("eig", 64, 8)], 4)
+        assert _all_reduce_bytes([("eig", 64, 8)], 4) == 4
 
 
 class TestShardedSearch:
@@ -520,10 +522,10 @@ st = eng.stats
 out["engine"] = dict(backends=st["backends"], plans=st["plans_built"],
                      batches=st["batches"],
                      results=[res(r.result) for r in reqs])
-# an OOM planted on rank 0 alone: no rung of the fallback ladder runs on a
-# sharded plan, so rank 0 re-raises the classified error while its peers
-# wait in the sweep's collectives, and its retry of the same plan pairs
-# with them (the cap leaves the ladder's replan_cap rung room to replan)
+# an OOM planted on rank 0 alone at the plan's "sweep" seam, before the
+# sweep's first collective: every rank reads rank 0's code in that
+# collective and takes the ladder's replan_cap rung together (the cap
+# leaves it room to replan); the plan runs clean again afterwards
 from repro_torch import chaos
 from repro_torch.core import fallback_hops, reset_fallback_hops
 p = plan(X.shape, "float32", TuckerConfig(methods="eig",
@@ -534,13 +536,13 @@ reset_fallback_hops()
 err = None
 if rank == 0:
     chaos.install([chaos.Rule(seam="sweep", action="oom", times=1)])
-    try:
-        p.execute(X)
-    except Exception as e:
-        err = type(e).__name__
-    chaos.reset()
+try:
+    hop = res(p.execute(X))
+except Exception as e:
+    err, hop = type(e).__name__, None
+chaos.reset()
 got = res(p.execute(X))
-out["oom"] = dict(err=err, hops=fallback_hops(), want=want, got=got)
+out["oom"] = dict(err=err, hops=fallback_hops(), want=want, got=got, hop=hop)
 '''
 
 
@@ -707,15 +709,21 @@ class TestShardedExecution:
             assert tuple(pm) == tuple(am) and pmodes == amodes
 
     def test_oom_on_one_rank_takes_no_rung(self, ranks_run):
-        _, _, outs = ranks_run
-        for r, o in enumerate(outs):
+        """An OOM on rank 0 alone: no rank takes a rung of its own.  Every
+        rank takes the same agreed rung (replan_cap), no rank raises, the
+        degraded results are bitwise equal across ranks, and the plan then
+        runs as before."""
+        _, data, outs = ranks_run
+        for o in outs:
             f = o["oom"]
-            assert f["err"] == ("ResourceError" if r == 0 else None)
-            assert f["hops"] == {}
+            assert f["err"] is None
+            assert f["hops"] == {("replan_cap", "sharded"): 1}
             for a, b in zip([f["got"]["core"], *f["got"]["factors"]],
                             [f["want"]["core"], *f["want"]["factors"]]):
                 assert np.array_equal(a, b)
+            check(data["x"], f["hop"], reference(data["x"], "eig"))
         same_on_every_rank(outs, "oom", "got")
+        same_on_every_rank(outs, "oom", "hop")
 
     def test_engine_executes_sharded_with_mesh(self, ranks_run):
         _, data, outs = ranks_run
@@ -731,3 +739,210 @@ class TestShardedExecution:
                 assert all(np.array_equal(a, b) for a, b in
                            zip(o["engine"]["results"][i]["factors"],
                                first["factors"]))
+
+
+# ---------------------------------------------------------------------------
+# A rank-local failure after the sweep's first collectives: the agreed rung
+# ---------------------------------------------------------------------------
+
+FAULT_BODY = '''
+from repro_torch import chaos
+from repro_torch.core import (TuckerConfig, fallback_hops, plan,
+                              reset_fallback_hops)
+from repro_torch.core.distributed import (collective_stats,
+                                          planned_collectives,
+                                          reset_collective_stats)
+from repro_torch.serve import TuckerService
+
+def npy(t):
+    return t.detach().cpu().double().numpy()
+
+def res(r):
+    return {"core": npy(r.tucker.core),
+            "factors": [npy(u) for u in r.tucker.factors],
+            "methods": r.methods, "order": [t.mode for t in r.trace]}
+
+X = data["x"]
+cfg = dict(ranks=(4, 5, 6), impl="sharded", mesh=mesh)
+faulty = world - 1
+# a healthy sweep issues exactly the planned collectives
+p = plan(X.shape, "float32", TuckerConfig(methods="als", **cfg), device="cpu")
+reset_collective_stats()
+p.execute(X)
+planned = planned_collectives(X.shape, torch.float32, p.schedule, world,
+                              p.schedule[0].shard_mode, p.config.als_iters,
+                              p.local_backend)
+out["planned"] = dict(
+    n=len(planned), kinds=sorted({k for k, _, _ in planned}),
+    calls=sum(int(v["calls"]) for v in collective_stats().values()),
+    bytes=sum(int(v["bytes"]) for v in collective_stats().values()),
+    want_bytes=sum((n + (world if k == "all_to_all" else 1)) * 4
+                   for k, n, _ in planned))
+cases = {
+    # an OOM at the start of step 1 on the last rank: every rank takes
+    # replan_cap (the cap leaves it room)
+    "oom": (TuckerConfig(methods="eig", memory_cap_bytes=64 << 20, **cfg),
+            chaos.Rule(seam="solve", action="oom", at=1)),
+    # a numerical breakdown there on an ALS plan: every rank takes als_to_eig
+    "numerical": (TuckerConfig(methods="als", **cfg),
+                  chaos.Rule(seam="solve", action="raise", at=1,
+                             message="Cholesky failed: non-finite Gram")),
+}
+for name, (c, rule) in cases.items():
+    p = plan(X.shape, "float32", c, device="cpu")
+    reset_fallback_hops()
+    reset_collective_stats()
+    if rank == faulty:
+        chaos.install([rule])
+    r = p.execute(X)
+    out[name] = dict(res(r), hops=fallback_hops(), fired=chaos.fired(),
+                     collectives=collective_stats())
+    chaos.reset()
+# an OOM after the failing step has allocated (its second partial-sum
+# buffer, step 1's Gram): the rank drops what the step holds before it
+# allocates the buffer with which it joins the next collective
+import weakref
+from repro_torch.core import distributed as D
+late, alive = [], []
+real_sums, real_join = D.partial_sums, D._Link.join
+def sums(shape, dtype, device):
+    buf, t = real_sums(shape, dtype, device)
+    late.append(weakref.ref(buf))
+    if len(late) == 2:
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (planted)")
+    return buf, t
+def join(self, *args):
+    alive.append(late[1]() is not None)
+    return real_join(self, *args)
+if rank == faulty:
+    D.partial_sums, D._Link.join = sums, join
+p = plan(X.shape, "float32", cases["oom"][0], device="cpu")
+reset_fallback_hops()
+try:
+    r = p.execute(X)
+finally:
+    D.partial_sums, D._Link.join = real_sums, real_join
+out["oom_late"] = dict(res(r), hops=fallback_hops(), alive=alive)
+# the mesh service's synchronous waves: a numerical breakdown planted in
+# the first lane's step 1 on one rank quarantines that lane on every rank,
+# whose bisection re-runs it clean; its wave-mates keep their results
+svc = TuckerService(mesh=mesh, device="cpu")
+ecfg = TuckerConfig(ranks=(4, 5, 6), methods="eig")
+reset_fallback_hops()
+if rank == faulty:
+    chaos.install([chaos.Rule(seam="solve", action="raise", at=1,
+                              message="non-finite Gram")])
+tickets = [svc.submit(z, ecfg, rid=i) for i, z in enumerate(data["reqs"])]
+svc.drain()
+chaos.reset()
+st = svc.stats()
+out["service"] = dict(results=[res(svc.poll(t)) for t in tickets],
+                      resilience=st["resilience"], requests=st["requests"],
+                      failed=st["failed"], hops=fallback_hops())
+svc.close()
+'''
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
+def fault_run(request, tmp_path_factory):
+    """One run of FAULT_BODY in ``world`` ranks: (world, data, outs)."""
+    world = request.param
+    data = dict(x=lowrank(SHAPE, RANKS, seed=0, noise=1e-3),
+                reqs=[lowrank(SHAPE, RANKS, seed=20 + i, noise=1e-3)
+                      for i in range(4)])
+    outs = run_ranks(tmp_path_factory.mktemp(f"fault{world}"), world,
+                     FAULT_BODY, timeout=120, **data)
+    return world, data, outs
+
+
+def matfree_of(x, got):
+    """The port's single-device ``matfree`` plan of the degraded config:
+    the methods and mode order the ranks ran."""
+    order = tuple(got["order"])
+    cfg = TuckerConfig(ranks=RANKS, methods=tuple(got["methods"]),
+                       mode_order=order, impl="matfree")
+    r = plan(x.shape, "float32", cfg, device=CPU).execute(x)
+    return r.tucker
+
+
+def hold_to_matfree(x, got):
+    """Factors within PROJ_TOL of the single-device plan's (projectors),
+    rel_error within REL_TOL, the core of the same shape."""
+    want = matfree_of(x, got)
+    gap = max_projector_gap(got["factors"], [u.numpy() for u in want.factors])
+    assert gap <= PROJ_TOL["float32"], gap
+    e_got = rel_error_np(x, got["core"], got["factors"])
+    e_want = rel_error_np(x, want.core.numpy(),
+                          [u.numpy() for u in want.factors])
+    assert abs(e_got - e_want) <= REL_TOL, (e_got, e_want)
+    assert got["core"].shape == tuple(want.core.shape)
+
+
+class TestAgreedFallback:
+    """A failure planted on one rank through the ``solve`` chaos seam at
+    step 1, after step 0's collectives: every rank reads it in the next
+    collective, leaves the sweep there and takes the same rung; nobody
+    waits on a peer that has left (each rank process has a 120 s limit)."""
+
+    def test_healthy_sweep_runs_the_planned_collectives(self, fault_run):
+        """planned_collectives lists every collective a healthy sweep
+        issues, each one flag element larger (k for an all-to-all)."""
+        _, _, outs = fault_run
+        for o in outs:
+            pl = o["planned"]
+            assert pl["n"] == pl["calls"] > 0
+            assert pl["bytes"] == pl["want_bytes"]
+
+    @pytest.mark.parametrize("case,hop", [("oom", "replan_cap"),
+                                          ("numerical", "als_to_eig")])
+    def test_every_rank_takes_the_same_rung(self, fault_run, case, hop):
+        world, _, outs = fault_run
+        for r, o in enumerate(outs):
+            assert o[case]["hops"] == {(hop, "sharded"): 1}
+            assert sum(o[case]["fired"].values()) == (r == world - 1)
+        if case == "numerical":
+            assert all(m == "eig" for m in outs[0][case]["methods"])
+
+    @pytest.mark.parametrize("case", ["oom", "numerical"])
+    def test_results_bitwise_equal_across_ranks(self, fault_run, case):
+        _, _, outs = fault_run
+        same_on_every_rank(outs, case)
+        for o in outs[1:]:
+            assert o[case]["order"] == outs[0][case]["order"]
+
+    @pytest.mark.parametrize("case", ["oom", "numerical"])
+    def test_degraded_result_matches_single_device_matfree(self, fault_run,
+                                                           case):
+        _, data, outs = fault_run
+        for o in outs:
+            hold_to_matfree(data["x"], o[case])
+
+    def test_oom_after_the_steps_allocations(self, fault_run):
+        """An OOM raised once the step has allocated its partial sums: the
+        failing rank releases them before it joins the next collective
+        (its join would otherwise stack its buffer on the step's), and
+        every rank takes replan_cap with results bitwise equal."""
+        world, data, outs = fault_run
+        for r, o in enumerate(outs):
+            assert o["oom_late"]["hops"] == {("replan_cap", "sharded"): 1}
+            assert o["oom_late"]["alive"] == ([False] if r == world - 1
+                                              else [])
+            hold_to_matfree(data["x"], o["oom_late"])
+        same_on_every_rank(outs, "oom_late")
+
+    def test_mesh_service_wave_recovers_on_every_rank(self, fault_run):
+        _, data, outs = fault_run
+        first = outs[0]["service"]
+        for o in outs:
+            sv = o["service"]
+            assert sv["requests"] == 4 and sv["failed"] == 0
+            assert sv["resilience"]["quarantined"] == 1
+            assert sv["resilience"]["recovered"] == 1
+            assert sv["resilience"] == first["resilience"]
+            assert sv["hops"] == {}
+            for z, got, mine in zip(data["reqs"], first["results"],
+                                    sv["results"]):
+                assert all(np.array_equal(a, b) for a, b in
+                           zip(mine["factors"], got["factors"]))
+                assert np.array_equal(mine["core"], got["core"])
+                check(z, mine, reference(z, "eig"))
