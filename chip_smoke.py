@@ -23,13 +23,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
             non-tiling shapes of the reference's kernel tests in fp32 and
             bf16 (for S6 also ragged T, Di and N, T = 1 from a nonzero
             state, strided B/C, y and the final state; for the TTT/Gram
-            every route of its tensor-core kernel -- TMA, plain-load, B = 1,
-            misaligned, fp32 and bf16 -- also per entry, within 2e-4 of
-            sqrt(ttt(x∘x, y∘y)) of the float64 result; for the boundary
-            GEMM's wide route -- the first mode at R > 16 on the tensor
-            cores -- R = 17 to 300 with K = 7 and 1021, ragged N, both of
-            x's loads (TMA, plain) and a misaligned x, per entry within
-            2e-4 of sqrt((u∘u) @ (x∘x))), then on operands of
+            every route of its tensor-core kernel -- TMA, plain-load, a B = 1
+            Gram, the B = 1 TTT on the wide GEMM (wgmma_cols), misaligned,
+            output tiles 32, 64 and 128 wide, fp32 and bf16 -- also per
+            entry, within 2e-4 of sqrt(ttt(x∘x, y∘y)) of the float64
+            result; for the boundary GEMM's wide route -- R > 16 on the
+            tensor cores, the first mode and the last (x read K-major) --
+            R = 17 to 300 with K = 7 and 1021 (and 1024 on the last mode),
+            ragged N or M, both of x's loads (TMA, plain) and a misaligned
+            x, per entry within 2e-4 of sqrt((u∘u) @ (x∘x)), and the sums'
+            energy bias on both sides), then on operands of
             more than 2**31 elements (every kernel path), then at the main
             paths' full-size shapes, where the kernel, its plain version and
             one PyTorch library call (none computes a selective scan) are
@@ -43,19 +46,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
             interior TTM at the sketch's 64 rows; and the boundary GEMM at
             adapt_wide's mode 0, u (R, 1021) @ x (1021, 353760) at R = 64
             and 40 (row 2b), on its wide route beside the slab route it
-            replaced and torch.matmul, per entry in fp32 and bf16.  S6 is
-            also timed at every shape the serve run gives it, on both of
-            its routes.
+            replaced and torch.matmul, per entry in fp32 and bf16; the last
+            mode at R = 64 (row 2c) beside its old slab route, Cavity's
+            last-mode GEMM and TTT at R = 20 (rows 2d, 1d), the main-path
+            Gram in bf16 and MNIST's interior TTM at R = 142 (row 3c).
+            S6 is also timed at every shape the serve run gives it, on both
+            of its routes.
 4. main     ``plan -> execute`` with ``impl="auto"`` on the paper's Table III
-            Boats (320, 240, 7000) and HSI (1021, 1340, 33, 8) tensors at full
-            size: the plan must resolve to the ``hopper`` backend, every
-            kernel must launch, rel_error must be <= 0.02 and the factors
-            must match the same plan on ``matfree``.  Warm executes are
+            Boats (320, 240, 7000), HSI (1021, 1340, 33, 8), Cavity (100,
+            100, 10000) and MNIST (784, 5000, 10) tensors at full size
+            (Cavity and MNIST from a generator of their own): the plan must
+            resolve to the ``hopper`` backend, every kernel must launch
+            (Cavity its last-mode wide GEMM and wgmma_cols TTT, MNIST the
+            interior TTM's wide route and the TTT's wgmma_plain and
+            wgmma_tma), rel_error must be <= 0.02 and the factors must
+            match the same plan on ``matfree``; Cavity's and MNIST's
+            plans also run under the least cap the hopper model admits,
+            step by step, each step's memory held to the cap and to its
+            modeled peak.  Warm executes are
             timed on both backends (host clock around a synchronized
             execute), and one more execute runs under torch.profiler for
             the device's busy time, idle share, top kernels and the
             tensor-core Gram's device time (hsi_eig must run it) and the
-            first-mode GEMM's by route.  These executes replay the plans'
+            GEMMs' by kernel (wide on X (K, N) or x (N, K), slab).  These executes replay the plans'
             captured sweeps (the first one captures them).  Each case also
             prints every mode's solver as the shipped cuda model picks it
             and as the textbook cost model picks it; where they differ,
@@ -276,6 +289,18 @@ SFU_PER_CLOCK_SM = 16
 #: main-path configurations: the paper's Table III tensors at full size
 BOATS = ((320, 240, 7000), (10, 10, 10))
 HSI = ((1021, 1340, 33, 8), (10, 10, 10, 5))
+CAVITY = ((100, 100, 10000), (20, 20, 20))
+MNIST = ((784, 5000, 10), (65, 142, 10))
+#: the Table III cases whose inputs come from a generator of their own (so
+#: that main's seed-0 stream, which the graphs phase replays, is unshifted),
+#: and the routes each must launch: cavity's last mode at R = 20 (its ALS
+#: GEMM on the last-mode wide route, its TTT on wgmma_cols), mnist's mode 1
+#: at R = 142 (the interior TTM's wide route, the TTT on 128-column tiles
+#: with plain loads at B = 10) and mode 0 at R = 65 (the TTT on TMA)
+OWN_SEED = 13
+WANT_ROUTES = {"cavity": {"matmul": ("wide/last",), "ttt": ("wgmma_cols/ttt",)},
+               "mnist": {"ttm_interior": ("wide",),
+                         "ttt": ("wgmma_plain/ttt", "wgmma_tma/ttt")}}
 #: adaptive-path inputs: HSI's shape at its ranks, and at wider ranks that
 #: make two modes double their sketch width twice (16 -> 32 -> 64)
 ADAPT_HSI = HSI
@@ -556,11 +581,15 @@ def phase_ttt_wide_shapes(torch):
     route, fp32 (split TF32, three products) and bf16 (one product): TMA
     (rows of a 16-byte multiple of at least 128 bytes, aligned; B = 40, 48,
     64, 264, 600), and the plain-load route for rows of other lengths (B =
-    19, 33, 70), B = 1 (MN-major operands) and a misaligned base.  Grams of
-    one to several 128-row tiles (diagonal and upper tiles, ragged I, split
-    and unsplit reductions) and TTTs with R = 20 to 200 across tiles.  Each
-    is held per entry against ttt_ref's einsum in float64 (ENTRY_TOL of
-    sqrt(ttt(x∘x, y∘y))).  Fails unless every route ran in both dtypes."""
+    10, 19, 33, 70), a B = 1 Gram (MN-major operands) and a misaligned
+    base; a TTT of B = 1 on wgmma_cols (the wide GEMM, split along A: one
+    to 18 splits; TMA and plain loads, misaligned).  Grams of one to
+    several 128-row tiles (diagonal and upper tiles, ragged I, split and
+    unsplit reductions) and TTTs with R = 20 to 200 across tiles, on
+    output tiles 32, 64 and 128 columns wide (tile_r).  Each is held per
+    entry against ttt_ref's einsum in float64 (ENTRY_TOL of sqrt(ttt(x∘x,
+    y∘y))).  Fails unless every route ran in both dtypes, and each tile
+    width."""
     from repro_torch.kernels import ttt3
     ttt = ttt_module()
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -568,8 +597,13 @@ def phase_ttt_wide_shapes(torch):
     cases = [((7, 300, 40), None), ((5, 200, 264), None), ((9, 100, 64), None),
              ((2, 150, 600), None), ((6, 150, 48), 40), ((4, 70, 264), 200),
              ((3, 150, 70), None), ((40, 260, 33), 30), ((5, 37, 19), None),
-             ((273, 40, 1), None), ((300, 130, 1), 20)]
-    worst, n, routes = 0.0, 0, {}
+             ((273, 40, 1), None), ((300, 130, 1), 20),
+             # the fitted tiles (R = 20 -> 32, 64 -> 64, 142 -> 128) on TMA
+             # and plain loads, and wgmma_cols at R = 20 ... 200, split
+             ((9, 300, 264), 20), ((9, 300, 264), 64), ((9, 300, 10), 20),
+             ((9, 300, 10), 142), ((300, 130, 1), 130), ((2000, 1000, 1), 200),
+             ((5000, 300, 1), 64), ((3000, 257, 1), 20)]
+    worst, n, routes, tiles = 0.0, 0, {}, set()
     for dtype in (torch.float32, torch.bfloat16):
         def rnd(*shape):
             return torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -582,25 +616,38 @@ def phase_ttt_wide_shapes(torch):
         ops += [(xm, xm, False),
                 (xm, flat[1 + 5 * 140 * 264:1 + 5 * 170 * 264].view(5, 30, 264),
                  False)]
+        flat = rnd(300 * 150 + 1)             # B = 1 on wgmma_cols, misaligned
+        ops.append((flat[1:300 * 130 + 1].view(300, 130, 1),
+                    flat[1 + 300 * 130:].view(300, 20, 1), True))
         for x, y, b1 in ops:
             rt = ttt.call_route(x, y)
             require(rt.startswith("wgmma"), f"ttt: {tuple(x.shape)} took {rt}")
             aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
             kind = "b1" if b1 else "misaligned" if not aligned else \
                 "gram" if y is x else "ttt"
+            if rt == "wgmma_cols" and not aligned:
+                kind = "b1_misaligned"
             key = f"{rt}/{kind}/{str(dtype)[6:]}"
             routes[key] = routes.get(key, 0) + 1
+            info = ttt.launch_info(x, y)[0]
+            tiles.add(f"{rt}/{info['tile'][1]}/{str(dtype)[6:]}")
             worst = max(worst, entry_err(torch, ttt3(x, y), x, y))
             n += 1
     torch.cuda.synchronize()
     for want in ("wgmma_tma/gram", "wgmma_tma/ttt", "wgmma_plain/gram",
-                 "wgmma_plain/ttt", "wgmma_plain/b1", "wgmma_plain/misaligned"):
+                 "wgmma_plain/ttt", "wgmma_plain/b1", "wgmma_plain/misaligned",
+                 "wgmma_cols/b1", "wgmma_cols/b1_misaligned"):
         for dt in ("float32", "bfloat16"):
             require(f"{want}/{dt}" in routes,
                     f"ttt: no small case took {want} in {dt}")
+    for want in ("wgmma_tma/32", "wgmma_tma/64", "wgmma_tma/128",
+                 "wgmma_plain/32", "wgmma_plain/128"):
+        for dt in ("float32", "bfloat16"):
+            require(f"{want}/{dt}" in tiles,
+                    f"ttt: no small case ran {want}-column tiles in {dt}")
     emit("kernels_small", name="ttt_wide", cases=n, routes=routes,
-         dtypes=["float32", "bfloat16"], max_entry_err=worst,
-         entry_tol=ENTRY_TOL, ok=True)
+         tiles=sorted(tiles), dtypes=["float32", "bfloat16"],
+         max_entry_err=worst, entry_tol=ENTRY_TOL, ok=True)
 
 
 #: first-mode GEMMs of the wide route in kernels_small: every R with K = 7
@@ -610,6 +657,11 @@ def phase_ttt_wide_shapes(torch):
 MATMUL_WIDE_CASES = [(r, k, (1283, 2052, 2056)[j % 3]) for j, (r, k) in
                      enumerate((r, k) for r in (17, 24, 40, 64, 130, 300)
                                for k in (7, 1021))]
+#: last-mode GEMMs x (M, K) @ uᵀ (K, R) of the wide route in kernels_small:
+#: every R with K = 7 and 1021 (rows of x no 16-byte multiple: plain
+#: loads) and 1024 (TMA), M = 2053 (16 tiles and a ragged one)
+MATMUL_LAST_CASES = [(r, k, 2053) for r in (17, 20, 40, 64, 130, 300)
+                     for k in (7, 1021, 1024)]
 
 
 def gemm_entry_err(torch, got, a, b, check: bool = True) -> float:
@@ -684,6 +736,9 @@ def wide_energy_bias(torch) -> dict:
         u, x = bias_operands(torch, kind, g)
         exact = u.double() @ x.double()
         out[kind] = energy_bias(matmul(u, x), exact)
+        # the last mode on the same data: xᵀ (65536, 1021) @ uᵀ (1021, 64)
+        out[f"last_{kind}"] = energy_bias(
+            matmul(x.T.contiguous(), u.T.contiguous()), exact.T)
         if kind == "normal":
             out["emulated_grid"] = energy_bias(ref.matmul_tf32x3_ref(
                 u, x, truncate=True, scheme="grid"), exact)
@@ -695,10 +750,12 @@ def wide_energy_bias(torch) -> dict:
                 u, x, products=1, truncate=True, scheme="grid"), exact)
         del u, x, exact
     torch.cuda.empty_cache()
-    bad = {k: out[k] for k in ("normal", "uint8", "positive", "both_positive")
-           if not abs(out[k]) < BIAS_TOL}
-    if not out["bf16"] <= BF16_BIAS_TOL:
-        bad["bf16"] = out["bf16"]
+    bad = {p + k: out[p + k] for k in ("normal", "uint8", "positive",
+                                       "both_positive") for p in ("", "last_")
+           if not abs(out[p + k]) < BIAS_TOL}
+    for k in ("bf16", "last_bf16"):
+        if not out[k] <= BF16_BIAS_TOL:
+            bad[k] = out[k]
     require(not bad, f"wide route energy bias out of bounds: {bad} (fp32 "
           f"|bias| < {BIAS_TOL:g}, bf16 <= {BF16_BIAS_TOL:g})")
     return out
@@ -712,14 +769,16 @@ def matmul_module():
 
 
 def phase_matmul_wide_shapes(torch):
-    """The wide route of the boundary GEMM (first mode, R > 16) on
-    MATMUL_WIDE_CASES and on an x whose base is not 16-byte aligned, fp32
-    (split TF32, three products) and bf16 (one product): each held per
+    """The wide route of the boundary GEMM (R > 16) on MATMUL_WIDE_CASES
+    (the first mode) and MATMUL_LAST_CASES (the last mode, x read
+    K-major), each side also on an x whose base is not 16-byte aligned,
+    fp32 (split TF32, three products) and bf16 (one product): each held per
     entry against ``matmul_ref``'s product in float64 (ENTRY_TOL of
     sqrt((a∘a) @ (b∘b))) and against ``matmul_ref`` itself
     (max|kernel - plain| <= TOL max|plain|).  Fails unless every case took
-    the wide route -- the C library's report, checked against route() --
-    and both of x's loads (TMA, plain) ran in both dtypes."""
+    the wide route on its side -- the C library's report, checked against
+    route() and side() -- and both of x's loads (TMA, plain) ran on both
+    sides in both dtypes."""
     from repro_torch.kernels import matmul, ref
     mm = matmul_module()
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -730,19 +789,22 @@ def phase_matmul_wide_shapes(torch):
         ops = [(rnd(r, k), rnd(k, nn)) for r, k, nn in MATMUL_WIDE_CASES]
         flat = rnd(33 * 2056 + 1)            # one element in: misaligned
         ops.append((rnd(40, 33), flat[1:].view(33, 2056)))
+        ops += [(rnd(m, k), rnd(k, r)) for r, k, m in MATMUL_LAST_CASES]
+        flat = rnd(2053 * 1024 + 1)
+        ops.append((flat[1:].view(2053, 1024), rnd(1024, 40)))
         for a, b in ops:
             info = mm.launch_info(a, b)[0]
             require(info["route"] == "wide",
                     f"matmul: {tuple(a.shape)} @ {tuple(b.shape)} took "
                     f"{info['route']}")
-            key = f"{info['loads']}/{str(dtype)[6:]}"
+            key = f"{info['side']}/{info['loads']}/{str(dtype)[6:]}"
             seen[key] = seen.get(key, 0) + 1
             got = matmul(a, b)
             worst_plain = max(worst_plain, close(got, ref.matmul_ref(a, b)))
             worst = max(worst, gemm_entry_err(torch, got, a, b))
             n += 1
     torch.cuda.synchronize()
-    for want in ("tma", "plain"):
+    for want in ("first/tma", "first/plain", "last/tma", "last/plain"):
         for dt in ("float32", "bfloat16"):
             require(f"{want}/{dt}" in seen,
                     f"matmul: no small case loaded x by {want} in {dt}")
@@ -841,7 +903,9 @@ def phase_kernels_large(torch):
     xc = x.view(2048 * 1100, 1000, 1)          # the last-mode (B = 1) view
     u0, u1, u2 = rnd(10, 2048), rnd(10, 1100), rnd(1000, 10)
     uw = rnd(40, 2048)          # the boundary GEMM's wide route
+    uw2 = rnd(1000, 40)         # ... on the last mode
     y, yc = rnd(2048, 10, 1000), rnd(2048 * 1100, 10, 1)
+    yw = rnd(2048 * 1100, 20, 1)    # the B = 1 TTT on wgmma_cols
     cases = {
         "ttt": (lambda: ttt3(x, y), lambda: ref.ttt_ref(x, y)),
         "ttt_cols": (lambda: ttt3(xc, yc), lambda: ref.ttt_ref(xc, yc)),
@@ -851,6 +915,9 @@ def phase_kernels_large(torch):
                               lambda: ref.matmul_ref(uw, x.view(2048, -1))),
         "matmul_last": (lambda: matmul(x.view(-1, 1000), u2),
                         lambda: ref.matmul_ref(x.view(-1, 1000), u2)),
+        "matmul_last_wide": (lambda: matmul(x.view(-1, 1000), uw2),
+                             lambda: ref.matmul_ref(x.view(-1, 1000), uw2)),
+        "ttt_cols_wide": (lambda: ttt3(xc, yw), lambda: ref.ttt_ref(xc, yw)),
         "ttm_interior": (lambda: ttm_interior(u1, x),
                          lambda: ref.ttm_interior_ref(u1, x)),
     }
@@ -858,7 +925,7 @@ def phase_kernels_large(torch):
     for name, (kernel, plain) in cases.items():
         errs[name] = close(kernel(), plain())
         torch.cuda.empty_cache()
-    del xc, y, yc
+    del xc, y, yc, yw
     # the Gram of I = 1100 on the TMA route: 9 GB of boxes behind one map.
     # At a 2.05e6-deep reduction every fp32 rounding of an entry near 2e6 is
     # already 5e-5 of its scale, so the kernel is held per entry to the
@@ -1002,22 +1069,36 @@ def phase_kernels_full(torch, peaks):
             4 * (a.numel() + b.numel() + 76800 * 10), 2.0 * 76800 * 7000 * 10,
             matmul_mod.launch_info(a, b))
     # row 2c: Boats' last mode at R = 64, x2 (76800, 7000) @ u^T (7000, 64),
-    # on the slab route's 128 x 16 tiles (4 of them re-reading x); its flop
-    # priced by tf32x3_bound, as the wide route would run them
+    # on the wide route (one pass over x, read K-major), its flop priced by
+    # tf32x3_bound; beside it the slab route it replaced (128 x 16 tiles,
+    # run as four R = 16 calls on the same x, each reading x), per-entry
+    # errors in units of sqrt((x∘x) @ (u∘u)) on the first 8,192 rows
     b = rnd(7000, 64)
     c_bytes, c_flops = 4 * (a.numel() + b.numel() + 76800 * 64), \
         2.0 * 76800 * 7000 * 64
     bnd, terms = tf32x3_bound(c_bytes, c_flops)
+    require(matmul_mod.route(76800, 64) == "wide", "row 2c: not the wide route")
     measure("matmul_last_r64", "(76800, 7000) @ (7000, 64) fp32",
             lambda: matmul(a, b), lambda: ref.matmul_ref(a, b),
             lambda: torch.matmul(a, b), c_bytes, c_flops,
             matmul_mod.launch_info(a, b), b=bnd)
-    out["matmul_last_r64"].update(route=matmul_mod.route(76800, 64),
-                                  bound_terms_ms=terms)
-    emit("kernel_full", name="matmul_last_r64",
-         route=out["matmul_last_r64"]["route"], bound_terms_ms=terms)
-    del x, y, a, b
+    bs = [b[:, i:i + 16].contiguous() for i in range(0, 64, 16)]
+
+    def slab():
+        return [matmul(a, q) for q in bs]
+    row = out["matmul_last_r64"]
+    row.update(route="wide", side="last", bound_terms_ms=terms,
+               max_entry_err=gemm_entry_err(torch, matmul(a[:8192], b),
+                                            a[:8192], b),
+               slab_ms=time_ms(torch, slab), slab_device_ms=device_ms(torch, slab),
+               slab_launch=matmul_mod.launch_info(a, bs[0]))
+    row["bytes_per_s"] = c_bytes / (row["device_ms"] * 1e-3)
+    emit("kernel_full", name="matmul_last_r64", **{k: row[k] for k in (
+        "route", "side", "bound_terms_ms", "max_entry_err", "slab_ms",
+        "slab_device_ms", "slab_launch", "bytes_per_s")})
+    del x, y, a, b, bs
     torch.cuda.empty_cache()
+    phase_cavity_full(torch, rnd, tf32x3_bound, measure, out)
     # gram: the HSI mode-1 EIG Gram; ttm_interior: the HSI mode-1 TTM.  The
     # Gram is symmetric: the function needs only its I(I+1)/2 distinct
     # entries, 2·A·B·I(I+1)/2 flop, priced by tf32x3_bound
@@ -1104,9 +1185,100 @@ def phase_kernels_full(torch, peaks):
     del u
     phase_matmul_wide_full(torch, x.view(1021, -1), rnd, tf32x3_bound,
                            measure, out)
+    # the Gram's bf16 row: the same x rounded to bf16 (one product a
+    # k-step), its I(I+1)/2 entries' flop at the dense bf16 rate (twice
+    # TF32's), per entry against float64
+    xb = x.bfloat16()
     del x
     torch.cuda.empty_cache()
+    gb_bytes = 2 * xb.numel() + 4 * 1340 * 1340
+    t_b, t_f = gb_bytes / bw * 1e3, g_flops / (2 * tf32) * 1e3
+    measure("gram_bf16", "x (1021, 1340, 264) bf16 -> (1340, 1340)",
+            lambda: ttt3(xb, xb), lambda: ref.gram_ref(xb),
+            lambda: torch.tensordot(xb, xb, dims=([0, 2], [0, 2])),
+            gb_bytes, g_flops, ttt_mod.launch_info(xb, xb),
+            b=(t_b, "bytes") if t_b >= t_f else (t_f, "operations"))
+    out["gram_bf16"].update(
+        route=ttt_mod.call_route(xb, xb),
+        bound_terms_ms={"bytes": t_b, "bf16": t_f},
+        max_entry_err=entry_err(torch, ttt3(xb, xb), xb, xb),
+        entry_tol=ENTRY_TOL)
+    emit("kernel_full", name="gram_bf16", route=out["gram_bf16"]["route"],
+         max_entry_err=out["gram_bf16"]["max_entry_err"])
+    del xb
+    torch.cuda.empty_cache()
+    phase_mnist_ttm_full(torch, rnd, tf32x3_bound, measure, out)
     return out
+
+
+def phase_cavity_full(torch, rnd, tf32x3_bound, measure, out):
+    """Rows 2d and 1d: Cavity's last mode (the paper's Table III, (100, 100,
+    10000) at ranks (20, 20, 20)) as its ALS iterations run it, the GEMM x
+    (10000, 10000) @ uᵀ (10000, 20) on the wide route and the TTT of x
+    (10000, 10000, 1) with y (10000, 20, 1) on wgmma_cols, each beside
+    torch.matmul / tensordot, the plain version and its bound (400 MB of
+    x: bytes), per entry against the float64 product."""
+    from repro_torch.kernels import matmul, ref, ttt3
+    mm, tt = matmul_module(), ttt_module()
+    x, u = rnd(10000, 10000), rnd(10000, 20)
+    nbytes = 4 * (x.numel() + u.numel() + 10000 * 20)
+    flops = 2.0 * 10000 * 10000 * 20
+    b, terms = tf32x3_bound(nbytes, flops)
+    require(mm.route(10000, 20) == "wide", "row 2d: not the wide route")
+    measure("matmul_cavity", "(10000, 10000) @ (10000, 20) fp32",
+            lambda: matmul(x, u), lambda: ref.matmul_ref(x, u),
+            lambda: torch.matmul(x, u), nbytes, flops, mm.launch_info(x, u),
+            b=b)
+    out["matmul_cavity"].update(
+        route="wide", side="last", bound_terms_ms=terms,
+        max_entry_err=gemm_entry_err(torch, matmul(x, u), x, u))
+    emit("kernel_full", name="matmul_cavity", bound_terms_ms=terms,
+         max_entry_err=out["matmul_cavity"]["max_entry_err"])
+    x3, y3 = x.view(10000, 10000, 1), u.view(10000, 20, 1)
+    require(tt.call_route(x3, y3) == "wgmma_cols",
+            f"row 1d: took {tt.call_route(x3, y3)}, not wgmma_cols")
+    measure("ttt_cavity", "x (10000, 10000, 1), y (10000, 20, 1) fp32 -> "
+            "(10000, 20)", lambda: ttt3(x3, y3), lambda: ref.ttt_ref(x3, y3),
+            lambda: torch.tensordot(x3, y3, dims=([0, 2], [0, 2])),
+            nbytes, flops, tt.launch_info(x3, y3), b=b)
+    out["ttt_cavity"].update(
+        route="wgmma_cols", bound_terms_ms=terms,
+        max_entry_err=entry_err(torch, ttt3(x3, y3), x3, y3),
+        entry_tol=ENTRY_TOL)
+    emit("kernel_full", name="ttt_cavity", bound_terms_ms=terms,
+         max_entry_err=out["ttt_cavity"]["max_entry_err"])
+    del x, u, x3, y3
+    torch.cuda.empty_cache()
+
+
+def phase_mnist_ttm_full(torch, rnd, tf32x3_bound, measure, out):
+    """Row 3c: MNIST's mode-1 TTM (the paper's Table III, (784, 5000, 10)
+    at ranks (65, 142, 10)), u (142, 5000) against x (784, 5000, 10) on the
+    interior TTM's wide route: a chunk of 128 outputs, the two warpgroups
+    splitting it (the SPLIT instantiation), then one of 14; rows of x of
+    40 bytes take the plain loads.  Beside torch.matmul, the plain version,
+    its bound and per-entry errors."""
+    from repro_torch.kernels import ref, ttm_interior
+    tm = ttm_module()
+    x, u = rnd(784, 5000, 10), rnd(142, 5000)
+    nbytes = 4 * (x.numel() + u.numel() + 784 * 142 * 10)
+    flops = 2.0 * 784 * 10 * 5000 * 142
+    b, terms = tf32x3_bound(nbytes, flops)
+    require(tm.route(142, 10) == "wide", "row 3c: not the wide route")
+    measure("ttm_interior_r142", "u (142, 5000), x (784, 5000, 10) fp32",
+            lambda: ttm_interior(u, x), lambda: ref.ttm_interior_ref(u, x),
+            lambda: torch.matmul(u, x), nbytes, flops, tm.launch_info(u, x),
+            b=b)
+    got = ttm_interior(u, x)
+    cols = x.transpose(0, 1).reshape(5000, -1)
+    out["ttm_interior_r142"].update(
+        route="wide", bound_terms_ms=terms,
+        max_entry_err=gemm_entry_err(
+            torch, got.transpose(0, 1).reshape(142, -1), u, cols))
+    emit("kernel_full", name="ttm_interior_r142", bound_terms_ms=terms,
+         max_entry_err=out["ttm_interior_r142"]["max_entry_err"])
+    del x, u, got, cols
+    torch.cuda.empty_cache()
 
 
 def ttm_exactness(torch, got, slab, u, x) -> dict:
@@ -1321,18 +1493,23 @@ def profile_call(torch, fn, wall_ms: float) -> dict:
                 top_device_ms=[[name[:80], us / 1e3] for name, us in top],
                 ttt_wide_device_ms=sum(us for name, us in by_name.items()
                                        if "ttt_wide_kernel" in name) / 1e3,
-                gemm_first_mode_device_ms=gemm_by_route(by_name))
+                gemm_device_ms=gemm_by_route(by_name))
 
 
 def gemm_by_route(by_name: dict) -> dict:
-    """Device ms of the first-mode boundary GEMM by route, from profiler
-    kernel names: ``wide`` (gemm_wide_kernel and the kernel that splits u)
-    and ``slab`` (contract_kernel's 16 x 128 tile; its 128 x 16 tile is the
-    last mode's and the TTT's)."""
-    out = {"wide": 0.0, "slab": 0.0}
+    """Device ms of the tensor-core GEMMs of csrc/wgmma.cuh and of the
+    first-mode slab GEMM, from profiler kernel names: ``wide_kn`` (the wide
+    kernel on X (K, N): the first mode, the interior TTM, the TTT's
+    wgmma_cols), ``wide_nk`` (x (N, K): the last mode), ``wide_image`` (the
+    kernel that splits u) and ``slab`` (contract_kernel's 16 x 128 tile;
+    its 128 x 16 tile is the last mode's at R <= 16 and the TTT's)."""
+    out = {"wide_kn": 0.0, "wide_nk": 0.0, "wide_image": 0.0, "slab": 0.0}
     for name, us in by_name.items():
-        if "gemm_wide_kernel" in name or "gemm_image_kernel" in name:
-            out["wide"] += us / 1e3
+        if "wide::image_kernel<" in name:
+            out["wide_image"] += us / 1e3
+        elif "wide::kernel<" in name:
+            args = name.split("wide::kernel<", 1)[1].split(">", 1)[0]
+            out["wide_nk" if args.endswith("true") else "wide_kn"] += us / 1e3
         elif "contract_kernel" in name and ", 16, 128, " in name:
             out["slab"] += us / 1e3
     return out
@@ -1346,18 +1523,24 @@ def phase_main(torch):
     from repro_torch import kernels
     from repro_torch.core import TuckerConfig, plan
     cases = [("boats", *BOATS, "auto"), ("hsi", *HSI, "auto"),
-             ("hsi_eig", *HSI, "eig")]
+             ("hsi_eig", *HSI, "eig"), ("cavity", *CAVITY, "auto"),
+             ("mnist", *MNIST, "auto")]
     gen = torch.Generator(device="cuda").manual_seed(0)
+    own = torch.Generator(device="cuda").manual_seed(OWN_SEED)
     data = {}
     launched = {k: 0 for k in KERNELS}
     launched["matmul_routes"], launched["ttm_routes"] = {}, {}
+    launched["ttt_routes"] = {}
     results = []
     for name, shape, ranks, methods in cases:
-        if shape not in data:
-            data.clear()
-            torch.cuda.empty_cache()
-            data[shape] = lowrank(torch, shape, ranks, gen)
-        x = data[shape]
+        if name in WANT_ROUTES:     # data keeps hsi's input
+            x = lowrank(torch, shape, ranks, own)
+        else:
+            if shape not in data:
+                data.clear()
+                torch.cuda.empty_cache()
+                data[shape] = lowrank(torch, shape, ranks, gen)
+            x = data[shape]
         cfg = TuckerConfig(ranks=ranks, methods=methods, mode_order="shrink",
                            impl="auto")
         p = plan(shape, "float32", cfg)
@@ -1369,10 +1552,18 @@ def phase_main(torch):
         res = p.execute(x)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        for key, by in (("matmul_routes", kernels.matmul_route_counts()),
-                        ("ttm_routes", kernels.ttm_route_counts())):
-            for rt, v in by.items():
+        by_route = {"matmul": kernels.matmul_route_counts(),
+                    "ttm_interior": kernels.ttm_route_counts(),
+                    "ttt": kernels.ttt_route_counts()}
+        for key, k in (("matmul_routes", "matmul"),
+                       ("ttm_routes", "ttm_interior"), ("ttt_routes", "ttt")):
+            for rt, v in by_route[k].items():
                 launched[key][rt] = launched[key].get(rt, 0) + v
+        for k, want in WANT_ROUTES.get(name, {}).items():
+            for rt in want:
+                require(by_route[k].get(rt, 0) > 0,
+                        f"{name}: {k} never launched on route {rt} "
+                        f"(routes {by_route[k]})")
         peak = torch.cuda.max_memory_allocated()
         for k, v in counts.items():
             launched[k] += v
@@ -1415,6 +1606,7 @@ def phase_main(torch):
                    execute_ms_matfree=statistics.median(tm) * 1e3,
                    execute_ms_matfree_all=[t * 1e3 for t in tm],
                    peak_bytes=peak, launches=counts,
+                   launches_by_route=by_route,
                    profile=profile_call(torch, lambda: p.execute(x), wall))
         if name == "hsi_eig":   # its 1340^2 Gram runs on the tensor cores
             require(row["profile"]["ttt_wide_device_ms"] > 0,
@@ -1423,10 +1615,37 @@ def phase_main(torch):
         results.append(row)
         del res, ref_res
         picks_vs_textbook(torch, name, p, x)
+        if name in WANT_ROUTES:
+            main_capped(torch, name, p, x)
+        del x
     for k in ("ttt", "matmul", "ttm_interior"):
         require(launched[k] > 0, f"kernel {k} never launched on the main path")
     # the graphs phase reuses the last input (hsi) and the rows' peaks
     return launched, data, {r["case"]: r for r in results}
+
+
+def main_capped(torch, name, p, x) -> dict:
+    """The plan of a Table III case under the least memory cap the hopper
+    model admits, its steps run one by one on ``x`` (``capped_steps``): the
+    input plus what every step allocates stays within the cap and within
+    that step's modeled peak, which prices the last mode's GEMM image and
+    the B = 1 TTT's workspace."""
+    from repro_torch.core import TuckerConfig, plan
+
+    def capped(cap):
+        return plan(p.shape, p.dtype, TuckerConfig(
+            ranks=p.config.ranks, methods=p.methods, mode_order="shrink",
+            impl="hopper", memory_cap_bytes=cap))
+    cap = least_cap(capped)
+    pc = capped(cap)
+    _, _, boundary, inside, _ = capped_steps(torch, name, pc, x, cap)
+    x_bytes = x.numel() * x.element_size()
+    row = dict(case=name, cap=cap,
+               step_peaks=[s.peak_bytes for s in pc.schedule],
+               input_plus_inside=[x_bytes + b for b in inside],
+               input_plus_boundary=[x_bytes + b for b in boundary])
+    emit("main_capped", **row)
+    return row
 
 
 def picks_vs_textbook(torch, name, p, x) -> dict:
@@ -2202,13 +2421,18 @@ def phase_adaptive(torch):
                 f"kernel {k} never launched on the adaptive path")
     launched["ttt_sketch"] = sum(r["ttt_routes"].get("wgmma_tma/ttt", 0)
                                  for r in rows if "ttt_routes" in r)
-    launched["matmul_routes"] = {
-        rt: sum(r.get("matmul_routes", {}).get(rt, 0) for r in rows)
-        for rt in ("slab", "wide")}
-    launched["ttm_routes"] = {
-        rt: sum(r.get("ttm_routes", {}).get(rt, 0) for r in rows)
-        for rt in ("slab", "plain", "wide")}
+    for key in ("ttt_routes", "matmul_routes", "ttm_routes"):
+        launched[key] = add_routes(r.get(key, {}) for r in rows)
     return launched
+
+
+def add_routes(counts) -> dict:
+    """Route counts (dicts of route -> launches) added up."""
+    out = {}
+    for c in counts:
+        for rt, v in c.items():
+            out[rt] = out.get(rt, 0) + v
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3000,10 +3224,13 @@ def phase_tucker_serve(torch) -> dict:
         ref = serve_stream_ref(torch)
         for k in launched:
             launched[k] += kernels.launch_counts()[k]
+        routes = [kernels.ttt_route_counts()]
         emit("tucker_serve", part="stream_ref", **ref)
         clear_sweep_cache()
         torch.cuda.empty_cache()
         tiles = hsi_tiles(torch, launched)
+        routes.append(kernels.ttt_route_counts())
+        launched["ttt_routes"] = add_routes(routes)
         emit("tucker_serve", part="hsi_tiles", **tiles)
         clear_sweep_cache()
         torch.cuda.empty_cache()
@@ -3637,6 +3864,7 @@ def phase_sharded(torch) -> dict:
     launches summed over ranks and cases."""
     t_phase = time.perf_counter()
     launched = {k: 0 for k in ("ttt", "matmul", "ttm_interior")}
+    ttt_routes = []
     for world, backend, limit, cases in SHARD_SPAWNS:
         t0 = time.perf_counter()
         per_rank = spawn_ranks(world, backend, limit, cases)
@@ -3648,6 +3876,7 @@ def phase_sharded(torch) -> dict:
             for r in rows:
                 for k in launched:
                     launched[k] += r["launches"][k]
+                ttt_routes.append(r["launches"]["ttt_routes"])
                 if spec[0] in ("main", "cap"):
                     missing = [k for k in launched if r["launches"][k] == 0]
                     require(not missing, f"sharded {r['case']} (world "
@@ -3665,6 +3894,7 @@ def phase_sharded(torch) -> dict:
             emit("sharded", **head)
         emit("sharded", part="spawn", world=world, backend=backend,
              seconds=time.perf_counter() - t0)
+    launched["ttt_routes"] = add_routes(ttt_routes)
     emit("sharded", part="summary", launches=launched,
          phase_s=time.perf_counter() - t_phase)
     return launched
@@ -4026,6 +4256,21 @@ def main(argv=None) -> int:
                   "bound_by", "bound_terms_ms", "library_ms", "device_ms",
                   "library_device_ms", "tile_fill", "launch")},
                 launches=adaptive["ttt_sketch"])
+            # rows 1d (Cavity's B = 1 TTT on wgmma_cols) and the Gram in bf16
+            row["cavity"] = {k: full["ttt_cavity"][k] for k in (
+                "shapes", "route", "max_abs_err", "max_entry_err", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_terms_ms", "library_ms", "library_device_ms", "launch")}
+            row["cavity"]["launches"] = launched["ttt_routes"].get(
+                "wgmma_cols/ttt", 0)
+            row["gram_bf16"] = {k: full["gram_bf16"][k] for k in (
+                "shapes", "route", "max_abs_err", "max_entry_err", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_terms_ms", "library_ms", "library_device_ms", "launch")}
+            row["launches_by_route"] = launched["ttt_routes"]
+            row["launches_adaptive_by_route"] = adaptive["ttt_routes"]
+            row["launches_tucker_serve_by_route"] = tucker_serve["ttt_routes"]
+            row["launches_sharded_by_route"] = sharded["ttt_routes"]
         if name == "matmul":
             # row 2b: the first-mode GEMM at R > 16 on its wide route (R =
             # 64 and 40 at adapt_wide's mode 0), with the slab route it
@@ -4041,11 +4286,20 @@ def main(argv=None) -> int:
                 adaptive["matmul_routes"].get("wide", 0)
             row["launches_by_route"] = launched["matmul_routes"]
             row["launches_adaptive_by_route"] = adaptive["matmul_routes"]
-            # row 2c: the last mode at R = 64 on the slab route
+            # rows 2c (the last mode at R = 64) and 2d (Cavity's last mode
+            # at R = 20) on the wide route; launches: the last mode's wide
+            # GEMMs on the main path
             row["last_r64"] = {k: full["matmul_last_r64"][k] for k in (
-                "shapes", "route", "max_abs_err", "ms", "device_ms",
-                "plain_ms", "bound_ms", "bound_by", "bound_terms_ms",
-                "library_ms", "library_device_ms", "launch")}
+                "shapes", "route", "side", "max_abs_err", "max_entry_err",
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_terms_ms", "library_ms", "library_device_ms",
+                "slab_ms", "slab_device_ms", "bytes_per_s", "launch")}
+            row["cavity"] = {k: full["matmul_cavity"][k] for k in (
+                "shapes", "route", "side", "max_abs_err", "max_entry_err",
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_terms_ms", "library_ms", "library_device_ms", "launch")}
+            row["last_r64"]["launches"] = row["cavity"]["launches"] = \
+                launched["matmul_routes"].get("wide/last", 0)
         if name == "ttm_interior":
             # row 3b: the sketch's projection at ℓ = 64 on the wide route,
             # with the 16-row slabs it replaced; launches by route
@@ -4055,6 +4309,12 @@ def main(argv=None) -> int:
                            "bound_terms_ms", "library_ms", "device_ms",
                            "library_device_ms", "slab_ms", "slab_device_ms",
                            "tile_fill", "energy_bias", "launch")}
+            # row 3c: MNIST's mode 1 at R = 142 (the SPLIT instantiation)
+            row["r142"] = {k: full["ttm_interior_r142"][k] for k in
+                           ("shapes", "route", "max_abs_err", "max_entry_err",
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "bound_terms_ms", "library_ms", "device_ms",
+                            "library_device_ms", "launch")}
             row["launches_by_route"] = launched["ttm_routes"]
             row["launches_adaptive_by_route"] = adaptive["ttm_routes"]
         rows.append(row)

@@ -264,8 +264,10 @@ def _hopper_workspace_bytes(method: str, a: int, i_n: int, r_n: int, b: int,
     workspace (:func:`repro_torch.kernels.ttt.workspace_bytes`): EIG the
     I_n² Gram (in the accumulation dtype); ALS the (I_n, R_n) TTT and the
     R-tensor's (R_n, R_n) Gram; RAND the (I_n, ℓ) range samples and the (ℓ,
-    ℓ) Gram (fp32, as those solvers iterate).  On the first mode the TTMs
-    are GEMMs, whose wide route holds u's pre-split image
+    ℓ) Gram (fp32, as those solvers iterate); a TTT of B = 1 (the last
+    mode) holds y's image beside them.  On the first mode (``first_mode``)
+    and on the last (neither flag) the TTMs are GEMMs -- u (R, I_n) @ x (I_n,
+    B), x (A, I_n) @ uᵀ -- whose wide route holds u's pre-split image
     (:func:`repro_torch.kernels.matmul.workspace_bytes`): EIG u (R_n, I_n);
     ALS L (R_n, I_n) and R̂ (R_n, R_n); RAND Q (ℓ, I_n) and V (R_n, ℓ).  On
     an ``interior`` mode the same u's go to the interior TTM, whose wide
@@ -306,7 +308,7 @@ def _hopper_workspace_bytes(method: str, a: int, i_n: int, r_n: int, b: int,
     elif interior:
         image = max(ttm_workspace_bytes(m, k, dtype) for m, k in gemms)
     else:
-        image = 0
+        image = max(gemm_workspace_bytes(a, m, k, dtype) for m, k in gemms)
     if method == "eig":
         need += [_eigh_bytes(i_n, accum), i_n * i_n * accum + image]
     elif method == "als":

@@ -1,8 +1,9 @@
 // Asynchronous copies into shared memory and the mbarriers they complete on,
 // shared by the kernels that stage operands through a producer warp (ttm.cu,
-// ttt.cu).  PTX for sm_90a: cp.async.bulk (a contiguous run of bytes),
-// cp.async.bulk.tensor (a box of a tensor map, TMA), and the mbarrier phase
-// protocol.  Every wait traps after ~8 s instead of spinning forever, so a
+// ttt.cu, wgmma.cuh).  PTX for sm_90a: cp.async.bulk (a contiguous run of
+// bytes), cp.async.bulk.tensor (a box of a tensor map, TMA), cp.async (4
+// bytes a thread, arriving on an mbarrier when landed), and the mbarrier
+// phase protocol.  Every wait traps after ~8 s instead of spinning forever, so a
 // lost arrival fails the launch with an error rather than hanging the card.
 #pragma once
 
@@ -77,6 +78,31 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int c0, 
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
         "r"(smem_addr(bar))
       : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (cp.async); zeros
+// when `valid` is false (no byte of src is read then)
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// cp.async groups: close this thread's group of copies issued since the
+// last commit; wait until at most N of its groups are still in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// An arrival on bar once every cp.async this thread issued before has
+// landed; it counts against the count bar was initialised with (noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar))
+               : "memory");
 }
 
 // Orders this thread's generic-proxy writes to shared memory before later

@@ -369,8 +369,8 @@ cudaError_t dispatch(const void* u, const void* x, float* o, void* ws, int A, in
   if (info != nullptr) info[13] = route;
   if (route == ROUTE_WIDE) {
     // out[a] (R, B) = u (R, I) @ x[a] (I, B); x by TMA on the FFMA ring's rule
-    const wide::Call q{u, x, o, ws, R, B, I, A, B, (long long)I * B, (long long)R * B,
-                       use_bulk(x, B, sizeof(T))};
+    const wide::Call q{u, x, o, ws, R, B, I, A, (long long)I * B, (long long)R * B,
+                       B, 1, I, 1, 0, use_bulk(x, B, sizeof(T)), false};
     return wide::launch<T>(q, st, info);
   }
   const int tr = width_template(R);

@@ -5,8 +5,8 @@
 // last mode of a (320, 240, 7000) tensor -- so the reduction is split across
 // blocks into fp32 partial sums, which a second small kernel adds in split
 // order: deterministic, no atomics.  x and y are read in place: no padding,
-// no unfold.  Four routes, a pure function of R, B, dtype and alignment
-// (mirrored in repro_torch/kernels/ttt.py, route()):
+// no unfold.  Five routes, a pure function of R, B, the symmetry, dtype and
+// alignment (mirrored in repro_torch/kernels/ttt.py, route()):
 //
 //   * cols (B == 1, R <= 16: the last mode's ALS TTT).  Bound by the bytes
 //     of x.  One thread per column i: row k of x is contiguous along i, so
@@ -14,36 +14,48 @@
 //     as a broadcast; the R sums stay in registers.
 //   * tile16 (R <= 16 otherwise).  Bound by the bytes of x.  The FFMA tile
 //     kernel of contract.cuh with a 128 x 16 tile.
-//   * wgmma_tma and wgmma_plain (R > 16: the EIG Gram of a wide mode, I = R
-//     = 1340 on the HSI tensor, and any wide TTT).  Bound by arithmetic, so
-//     it runs on the tensor cores.  TF32 alone keeps 10 mantissa bits and
-//     misses the fp32 tolerance by 5x, so fp32 operands are split into
-//     hi = rna_tf32(v) and lo = rna_tf32(v - hi) and every tile product is
-//     hi*hi + hi*lo + lo*hi (split TF32, "3xTF32"): fp32-class accuracy at
-//     a third of the TF32 rate, 495 / 3 = 165 TFLOP/s of fp32 work against
-//     67 for FFMA.  bf16 operands take one bf16 product (exact products,
-//     fp32 sums).  A block owns a 128 x 128 output tile and one split of
-//     the reduction; for the Gram (y is x) only the upper tiles run, a
-//     diagonal tile loads one operand, and the finish kernel mirrors the
-//     rest.  Two consumer warpgroups run wgmma.m64n128k8 (tf32) or
-//     m64n128k16 (bf16) on K-major tiles of 128 rows x 128 bytes in
-//     128-byte-swizzled shared memory.  For fp32 each warpgroup reads its
-//     64 rows of the x tile into registers and splits them there (wgmma's
-//     A operand from registers); the B operand -- the y tile, or the x tile
-//     itself on a diagonal Gram tile -- is split once into hi and lo tiles
-//     that both read.  The tensor cores' own fp32 sum truncates, so each
-//     stage's products are summed there from zero and then added in fp32.
+//   * wgmma_cols (B == 1, R > 16, y is not x: Cavity's last-mode ALS TTT,
+//     x (10000, 10000) against y (10000, 20)).  Bound by the bytes of x.
+//     z^T (R, I) = y^T @ x runs on wgmma.cuh's wide GEMM: x (A, I) is its X
+//     (K, N), MN-major, by TMA boxes (or plain loads) from which each thread
+//     reads and splits its A fragment; y^T is its u, split once a call into
+//     the K-major pre-split image (hi cut to each stage's grid); one pass
+//     over x, split along A into items whose partial sums the finish kernel
+//     adds.  The tiled routes below would load these MN-major tiles without
+//     TMA and run 128-wide output tiles at R = 20.
+//   * wgmma_tma and wgmma_plain (R > 16 otherwise: the EIG Gram of a wide
+//     mode, I = R = 1340 on the HSI tensor, and any wide TTT).  Bound by
+//     arithmetic, so it runs on the tensor cores.  TF32 alone keeps 10
+//     mantissa bits and misses the fp32 tolerance by 5x, so fp32 operands
+//     are split into hi = rna_tf32(v) and lo = rna_tf32(v - hi) and every
+//     tile product is hi*hi + hi*lo + lo*hi (split TF32, "3xTF32"):
+//     fp32-class accuracy at a third of the TF32 rate, 495 / 3 = 165 TFLOP/s
+//     of fp32 work against 67 for FFMA.  bf16 operands take one bf16 product
+//     (exact products, fp32 sums).  A block owns an output tile of 128 rows
+//     of x by TR columns of y and one split of the reduction.  TR fits R
+//     (tile_r: 32, 64 or 128, the wgmma widths), so that R = 20 or 64 does
+//     not run the tensor cores on 108 or 64 columns of zeros; a Gram's tiles
+//     are 128 square: only the upper tiles run, a diagonal tile loads one
+//     operand, and the finish kernel mirrors the rest.  Two consumer
+//     warpgroups run wgmma.m64nTRk8 (tf32) or m64nTRk16 (bf16) on K-major
+//     tiles of 128-byte rows in 128-byte-swizzled shared memory.  For fp32
+//     each warpgroup reads its 64 rows of the x tile into registers and
+//     splits them there (wgmma's A operand from registers); the B operand --
+//     the y tile, or the x tile itself on a diagonal Gram tile -- is split
+//     once into hi and lo tiles that both read.  The tensor cores' own fp32
+//     sum truncates, so each stage's products are summed there from zero
+//     and then added in fp32.
 //       - wgmma_tma: the rows of x and y (B elements) are 16-byte multiples
 //         of at least 128 bytes, and both are 16-byte aligned.  A producer
-//         warp copies each (a, 128-row, 128-byte b-run) box by TMA from a
-//         3-D tensor map over (B, W, A) into a 4-stage mbarrier ring, and
-//         three more warps split the B operands, beside the consumers; the
-//         box's ragged edges (I = 1340 = 10*128 + 60, B = 264 = 8*32 + 8)
-//         are zero-filled by the copy, and the zeros are multiplied like
+//         warp copies each (a, 128- or TR-row, 128-byte b-run) box by TMA
+//         from a 3-D tensor map over (B, W, A) into a 4-stage mbarrier ring,
+//         and three more warps split the B operands, beside the consumers;
+//         the box's ragged edges (I = 1340 = 10*128 + 60, B = 264 = 8*32 +
+//         8) are zero-filled by the copy, and the zeros are multiplied like
 //         data: 8.3% of the products at B = 264.  Skipping those k-steps
 //         costs more than it saves: ptxas serializes a wgmma that sits
 //         behind a branch.
-//       - wgmma_plain: any other shape (B == 1 and the operand MN-major, a
+//       - wgmma_plain: any other shape (a Gram of B == 1 and so MN-major, a
 //         row that is not a 16-byte multiple, a misaligned base).  The
 //         consumers load the tiles from memory themselves over the flat
 //         k = a*B + b into the same swizzled layout, double-buffered.
@@ -116,12 +128,19 @@ __global__ void ttt_finish_kernel(const float* __restrict__ ws, float* __restric
 // The wide route (R > 16): split-TF32 / bf16 products on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int TILE = 128;                  // output tile: TILE x TILE
+constexpr int TILE = 128;                  // output tile: TILE rows x TR columns
 constexpr int TILE_BYTES = TILE * 128;     // one operand tile: TILE rows of 128 bytes
 constexpr int CONSUMERS = 256;             // two consumer warpgroups, 64 rows each
 constexpr int RING = 4;                    // TMA stages
 constexpr int BSPLIT = 3;                  // buffers of the split B operand (fp32)
-constexpr int ROUTE_COLS = 0, ROUTE_TILE16 = 1, ROUTE_TMA = 2, ROUTE_PLAIN = 3;
+constexpr int ROUTE_COLS = 0, ROUTE_TILE16 = 1, ROUTE_TMA = 2, ROUTE_PLAIN = 3,
+              ROUTE_WCOLS = 4;
+
+// The output tile's R side (mirrored in kernels/ttt.py, tile_r()): the
+// Gram's square tiles are TILE wide; a TTT's fit R -- 32, 64 or 128
+// columns, the wgmma widths -- so that at R = 20 or 64 the tensor cores do
+// not run on 108 or 64 columns of zeros
+inline int tile_r(int R, bool sym) { return sym || R > 64 ? TILE : R > 32 ? 64 : 32; }
 
 // TK: elements of k per stage (128 bytes a row); KSTEP: k per wgmma;
 // PRODUCTS: wgmma per k-step (hi*hi + hi*lo + lo*hi, or one bf16 product)
@@ -160,43 +179,47 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
                : "memory");
 }
 
-// d (64 x 128, fp32) = A (64 x 16, bf16) * B (128 x 16, bf16)^T + (INIT ? 0 :
-// d), both operands K-major in shared memory.  INIT writes d without
-// reading it: the accumulator is never set by other instructions, which
-// would make ptxas fence (and, behind a branch, serialize) the wgmma.
-template <bool INIT>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db) {
-  if constexpr (INIT)
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D64
-        ", %64, %65, p, 1, 1, 0, 0;\n}"
-        : WGMMA_D64_OUTPUTS
-        : "l"(da), "l"(db), "r"(0)
-        : "memory");
-  else
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D64
-        ", %64, %65, p, 1, 1, 0, 0;\n}"
-        : WGMMA_D64_OPERANDS
-        : "l"(da), "l"(db), "r"(1)
-        : "memory");
+// d (64 x N, fp32) = A (64 x 16, bf16) * B (N x 16, bf16)^T + (INIT ? 0 :
+// d), both operands K-major in shared memory, N = 32, 64 or 128.  INIT
+// writes d without reading it: the accumulator is never set by other
+// instructions, which would make ptxas fence (and, behind a branch,
+// serialize) the wgmma.
+#define WGMMA_BF16(NSTR, DREGS, DA, DB, PRED, OUTS)                               \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, " PRED ", 0;\n"                  \
+               " wgmma.mma_async.sync.aligned.m64n" NSTR "k16.f32.bf16.bf16 " DREGS \
+               ", " DA ", " DB ", p, 1, 1, 0, 0;\n}"                                \
+               : OUTS                                                              \
+               : "l"(da), "l"(db), "r"(INIT ? 0 : 1)                               \
+               : "memory")
+template <int N, bool INIT>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_bf16: N is 32, 64 or 128");
+  if constexpr (N == 128) {
+    if constexpr (INIT) WGMMA_BF16("128", WGMMA_D64, "%64", "%65", "%66", WGMMA_D64_OUTPUTS);
+    else WGMMA_BF16("128", WGMMA_D64, "%64", "%65", "%66", WGMMA_D64_OPERANDS);
+  } else if constexpr (N == 64) {
+    if constexpr (INIT) WGMMA_BF16("64", WGMMA_D32, "%32", "%33", "%34", WGMMA_D32_OUTPUTS);
+    else WGMMA_BF16("64", WGMMA_D32, "%32", "%33", "%34", WGMMA_D32_OPERANDS);
+  } else {
+    if constexpr (INIT) WGMMA_BF16("32", WGMMA_D16, "%16", "%17", "%18", WGMMA_D16_OUTPUTS);
+    else WGMMA_BF16("32", WGMMA_D16, "%16", "%17", "%18", WGMMA_D16_OPERANDS);
+  }
 }
+#undef WGMMA_BF16
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"r"(CONSUMERS) : "memory");
 }
 
-// fp32 tile (TILE_BYTES) -> hi and lo tiles, same layout, by `threads`
+// fp32 tile of `bytes` -> hi and lo tiles, same layout, by `threads`
 // threads (t = 0 .. threads - 1).  Elementwise, so the swizzle does not
 // matter.
 __device__ __forceinline__ void split_tile(const unsigned char* src, unsigned char* hi,
-                                           unsigned char* lo, int t, int threads) {
+                                           unsigned char* lo, int t, int threads, int bytes) {
   const float4* x = reinterpret_cast<const float4*>(src);
   float4* h = reinterpret_cast<float4*>(hi);
   float4* l = reinterpret_cast<float4*>(lo);
-  for (int q = t; q < TILE_BYTES / 16; q += threads) {
+  for (int q = t; q < bytes / 16; q += threads) {
     const float4 v = x[q];
     float4 a, b;
     a.x = tf32_rna(v.x); b.x = tf32_rna(v.x - a.x);
@@ -208,17 +231,19 @@ __device__ __forceinline__ void split_tile(const unsigned char* src, unsigned ch
   }
 }
 
-// Plain route: rows w0 .. w0 + TILE of the (A, W, B) operand p over the flat
+// Plain route: rows w0 .. w0 + ROWS of the (A, W, B) operand p over the flat
 // k range [k0, k0 + TK) (k < ke), zeros outside, into the swizzled tile
 // `tile` -- the layout a TMA box lands in.  B > 1: consecutive threads take
-// consecutive k of a row (contiguous along b); B == 1: the operand is
-// MN-major, consecutive threads take consecutive rows (contiguous along w).
-template <typename T>
+// consecutive k of a row (contiguous along b); B == 1 (a Gram): the operand
+// is MN-major, consecutive threads take consecutive rows (contiguous along
+// w).  ASYNC (fp32): by cp.async, which the caller commits and waits for;
+// else by loads and stores.
+template <typename T, int ROWS, bool ASYNC>
 __device__ __forceinline__ void load_tile(const T* __restrict__ p, int W, int B, int w0,
                                           long long k0, long long ke, unsigned char* tile,
                                           int tid) {
   constexpr int TK = Wide<T>::TK, ES = sizeof(T);
-  constexpr int PER = TILE * TK / CONSUMERS;  // elements per thread
+  constexpr int PER = ROWS * TK / CONSUMERS;  // elements per thread
   // element j of this thread: row r0 + j * dr, column c0 + j * dc
   int r0, dr, c0, dc;
   long long base, step;  // its offset in p: base + j * step, valid when k < ke
@@ -229,9 +254,18 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ p, int W, int B,
     base = a * W * (long long)B + (k - a * B) + (long long)(w0 + r0) * B;
     step = (long long)dr * B;
   } else {
-    r0 = tid % TILE, dr = 0, c0 = tid / TILE, dc = CONSUMERS / TILE;
+    r0 = tid % ROWS, dr = 0, c0 = tid / ROWS, dc = CONSUMERS / ROWS;
     base = (k0 + c0) * W + w0 + r0;
     step = (long long)dc * W;
+  }
+  if constexpr (ASYNC) {
+    static_assert(ES == 4, "load_tile: cp.async copies 4-byte elements");
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const bool ok = k0 + c0 + j * dc < ke && w0 + r0 + j * dr < W;
+      cp_async_4(tile + swz(r0 + j * dr, c0 + j * dc, ES), ok ? p + base + j * step : p, ok);
+    }
+    return;
   }
   T v[PER];
 #pragma unroll
@@ -244,7 +278,7 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ p, int W, int B,
     *reinterpret_cast<T*>(tile + swz(r0 + j * dr, c0 + j * dc, ES)) = v[j];
 }
 
-// Adds (add) or stores this warpgroup's fp32 sums into its 64 x 128 block
+// Adds (add) or stores this warpgroup's fp32 sums into its 64 x TR block
 // of the partial sums `o` (row-major, I x R; the block's own region, so no
 // other thread touches it) and zeroes them.  sum[4c + 2h + e] is (row
 // i + 8 h, column r + 8 c + e) with i = 16 warp + lane / 4 and r = 2 (lane
@@ -252,10 +286,11 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ p, int W, int B,
 // their stores; no register that a wgmma uses is touched here (ptxas
 // serializes every wgmma of a kernel that writes such a register behind a
 // branch).
-__device__ __forceinline__ void flush_sums(float (&sum)[64], float* __restrict__ o, int I,
+template <int TR>
+__device__ __forceinline__ void flush_sums(float (&sum)[TR / 2], float* __restrict__ o, int I,
                                            int R, int i, int r, bool add) {
 #pragma unroll
-  for (int v0 = 0; v0 < 64; v0 += 16) {
+  for (int v0 = 0; v0 < TR / 2; v0 += 16) {
     float old[16];
 #pragma unroll
     for (int v = v0; v < v0 + 16; ++v) {
@@ -278,8 +313,8 @@ __device__ __forceinline__ void flush_sums(float (&sum)[64], float* __restrict__
 // pair `bs` (hi, lo), and the products are hi*lo + lo*hi, then hi*hi -- the
 // small ones first, while the accumulator is small.  bf16: A and B straight
 // from the stage (B at `st + yoff`).  `arow` is the lane's ldmatrix row.
-template <typename T, int KS>
-__device__ __forceinline__ void stage_products(float (&acc)[64], uint32_t (&ahi)[KS][4],
+template <typename T, int KS, int TR>
+__device__ __forceinline__ void stage_products(float (&acc)[TR / 2], uint32_t (&ahi)[KS][4],
                                                uint32_t (&alo)[KS][4], const unsigned char* st,
                                                const unsigned char* bs, int yoff, int wg,
                                                int arow, int lane) {
@@ -296,34 +331,36 @@ __device__ __forceinline__ void stage_products(float (&acc)[64], uint32_t (&ahi)
       }
     }
     wgmma_fence();
-    const uint64_t bh = sw128_desc(bs), bl = sw128_desc(bs + TILE_BYTES);
+    const uint64_t bh = sw128_desc(bs), bl = sw128_desc(bs + TR * 128);
     // 32-byte k-steps advance the descriptors' 16-byte address field by 2
-    wgmma_tf32<TILE, true>(acc, ahi[0], bl);
-    wgmma_tf32<TILE, false>(acc, alo[0], bh);
+    wgmma_tf32<TR, true>(acc, ahi[0], bl);
+    wgmma_tf32<TR, false>(acc, alo[0], bh);
 #pragma unroll
     for (int ks = 1; ks < KS; ++ks) {
-      wgmma_tf32<TILE, false>(acc, ahi[ks], bl + 2 * ks);
-      wgmma_tf32<TILE, false>(acc, alo[ks], bh + 2 * ks);
+      wgmma_tf32<TR, false>(acc, ahi[ks], bl + 2 * ks);
+      wgmma_tf32<TR, false>(acc, alo[ks], bh + 2 * ks);
     }
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) wgmma_tf32<TILE, false>(acc, ahi[ks], bh + 2 * ks);
+    for (int ks = 0; ks < KS; ++ks) wgmma_tf32<TR, false>(acc, ahi[ks], bh + 2 * ks);
   } else {
     const uint64_t ah = sw128_desc(st + wg * 64 * 128), bh = sw128_desc(st + yoff);
     wgmma_fence();
-    wgmma_bf16<true>(acc, ah, bh);
+    wgmma_bf16<TR, true>(acc, ah, bh);
 #pragma unroll
-    for (int ks = 1; ks < KS; ++ks) wgmma_bf16<false>(acc, ah + 2 * ks, bh + 2 * ks);
+    for (int ks = 1; ks < KS; ++ks) wgmma_bf16<TR, false>(acc, ah + 2 * ks, bh + 2 * ks);
   }
   wgmma_commit();
 }
 
-// One block: output tile (b1, b2) and split blockIdx.y of the reduction.
-// Two consumer warpgroups of 64 rows each run the products; on the TMA
-// route a third warpgroup feeds them.
+// One block: output tile (b1, b2) -- TILE rows of x by TR of y -- and split
+// blockIdx.y of the reduction.  Two consumer warpgroups of 64 rows each run
+// the products; on the TMA route a third warpgroup feeds them.
 //
 // Shared memory (1024-byte aligned): the operand tiles as loaded -- RING
-// stages of (x, y) for TMA, two for the plain route -- then (fp32) BSPLIT
-// buffers of the split B operand (hi, lo), then the mbarriers.
+// stages of (x: TILE rows, y: TR rows) for TMA, three for the plain route
+// (two for bf16) --
+// then (fp32) BSPLIT buffers of the split B operand (hi, lo: TR rows each),
+// then the mbarriers.
 //
 // fp32: each consumer warpgroup reads its A rows (64 of x) from the loaded
 // tile into registers and splits them there; the B operand (the y tile, or
@@ -338,19 +375,23 @@ __device__ __forceinline__ void stage_products(float (&acc)[64], uint32_t (&ahi)
 // the ring slot (empty) and the B buffer (bfree) back.  So the copies and
 // the split run beside the consumers' chain -- A split, wgmma launch, the
 // fp32 adds -- instead of in it.  Plain route (256 threads): the consumers
-// load each stage themselves, split B, and meet at barriers.
-template <typename T, bool TMA>
+// copy each stage themselves (fp32 by cp.async into three stages, two
+// ahead), split B, and meet at barriers.
+template <typename T, bool TMA, int TR>
 __global__ void __launch_bounds__(TMA ? CONSUMERS + 128 : CONSUMERS, 1)
 ttt_wide_kernel(__grid_constant__ const CUtensorMap mx, __grid_constant__ const CUtensorMap my,
                 WideArgs p, float* __restrict__ out) {
   constexpr int TK = Wide<T>::TK, KSTEP = Wide<T>::KSTEP, KS = TK / KSTEP;
   constexpr bool SPLIT = Wide<T>::PRODUCTS == 3;
-  constexpr int NST = TMA ? RING : 2;
+  // the plain route's stages: fp32 by cp.async, two stages ahead; bf16 by
+  // loads, one ahead
+  constexpr int NST = TMA ? RING : SPLIT ? 3 : 2;
+  constexpr int YB = TR * 128, STB = TILE_BYTES + YB;   // a y tile; a stage (x, y)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* ring = smem;                           // NST x (x, y)
-  unsigned char* bsplit = ring + NST * 2 * TILE_BYTES;  // BSPLIT x (hi, lo), fp32 only
-  uint64_t* full = reinterpret_cast<uint64_t*>(bsplit + (SPLIT ? BSPLIT * 2 * TILE_BYTES : 0));
+  unsigned char* bsplit = ring + NST * STB;             // BSPLIT x (hi, lo), fp32 only
+  uint64_t* full = reinterpret_cast<uint64_t*>(bsplit + (SPLIT ? BSPLIT * 2 * YB : 0));
   uint64_t* empty = full + NST;   // ring slot free: the 8 consumer warps
   uint64_t* ready = empty + NST;  // B buffer split: the 3 split warps
   uint64_t* bfree = ready + BSPLIT;  // B buffer free: the 8 consumer warps
@@ -364,7 +405,7 @@ ttt_wide_kernel(__grid_constant__ const CUtensorMap mx, __grid_constant__ const 
     b1 = blockIdx.x / p.tiles_r;
     b2 = blockIdx.x % p.tiles_r;
   }
-  const int i0 = b1 * TILE, r0 = b2 * TILE;
+  const int i0 = b1 * TILE, r0 = b2 * TR;
   const bool diag = p.sym && b1 == b2;  // the y tile is the x tile
   const int yoff = diag ? 0 : TILE_BYTES;  // the B operand's tile within a stage
   const long long kb = (long long)blockIdx.y * p.k_per_split;
@@ -394,8 +435,8 @@ ttt_wide_kernel(__grid_constant__ const CUtensorMap mx, __grid_constant__ const 
           for (int j = 0; j < n; ++j) {
             const int s = j % NST;
             mbar_wait(&empty[s], (uint32_t)(((j / NST) & 1) ^ 1));
-            unsigned char* st = ring + s * 2 * TILE_BYTES;
-            mbar_arrive_tx(&full[s], diag ? TILE_BYTES : 2 * TILE_BYTES);
+            unsigned char* st = ring + s * STB;
+            mbar_arrive_tx(&full[s], diag ? TILE_BYTES : STB);
             tma_load_3d(st, &mx, lb * TK, i0, la, &full[s]);
             if (!diag) tma_load_3d(st + TILE_BYTES, &my, lb * TK, r0, la, &full[s]);
             if (++lb == p.nb) {
@@ -408,11 +449,11 @@ ttt_wide_kernel(__grid_constant__ const CUtensorMap mx, __grid_constant__ const 
         // ---- three warps split each stage's B operand ----
         const int t = tid - 128 * 2 - 32;  // 0 .. 95
         for (int j = 0; j < n; ++j) {
-          const unsigned char* src = ring + (j % NST) * 2 * TILE_BYTES + yoff;
-          unsigned char* bs = bsplit + (j % BSPLIT) * 2 * TILE_BYTES;
+          const unsigned char* src = ring + (j % NST) * STB + yoff;
+          unsigned char* bs = bsplit + (j % BSPLIT) * 2 * YB;
           mbar_wait(&full[j % NST], (uint32_t)((j / NST) & 1));
           mbar_wait(&bfree[j % BSPLIT], (uint32_t)(((j / BSPLIT) & 1) ^ 1));
-          split_tile(src, bs, bs + TILE_BYTES, t, 96);
+          split_tile(src, bs, bs + YB, t, 96, YB);
           fence_proxy_async();
           __syncwarp();
           if (lane == 0) mbar_arrive(&ready[j % BSPLIT]);
@@ -431,10 +472,10 @@ ttt_wide_kernel(__grid_constant__ const CUtensorMap mx, __grid_constant__ const 
   // to nearest, and `sum` to the block's own partial sums in `out` every
   // `fold` ~ 4 sqrt(n) stages: a two-level fp32 sum, whose rounding grows
   // with n far slower than one running sum's over a split.
-  float acc[64], sum[64];
+  float acc[TR / 2], sum[TR / 2];
   uint32_t ahi[KS][4], alo[KS][4];  // fp32: this warpgroup's A fragments
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+  for (int i = 0; i < TR / 2; ++i) sum[i] = 0.f;
   const int fold = max(1, (int)ceilf(4.f * sqrtf((float)n)));
   int left = fold;  // stages until the next flush
   float* o = out + (long long)blockIdx.y * p.I * p.R;
@@ -448,9 +489,9 @@ ttt_wide_kernel(__grid_constant__ const CUtensorMap mx, __grid_constant__ const 
       fence_frags(ahi);                                     \
       fence_frags(alo);                                     \
     }                                                       \
-    _Pragma("unroll") for (int i = 0; i < 64; ++i) sum[i] += acc[i]; \
+    _Pragma("unroll") for (int i = 0; i < TR / 2; ++i) sum[i] += acc[i]; \
     if (--left == 0 || (it) + 1 == n) {                     \
-      flush_sums(sum, o, p.I, p.R, oi, orr, (it) + 1 > fold); \
+      flush_sums<TR>(sum, o, p.I, p.R, oi, orr, (it) + 1 > fold); \
       left = fold;                                          \
     }                                                       \
   } while (0)
@@ -458,11 +499,10 @@ ttt_wide_kernel(__grid_constant__ const CUtensorMap mx, __grid_constant__ const 
   if constexpr (TMA) {
     for (int it = 0; it < n; ++it) {
       const int s = it % NST, b = it % BSPLIT;
-      const unsigned char* st = ring + s * 2 * TILE_BYTES;
+      const unsigned char* st = ring + s * STB;
       mbar_wait(&full[s], (uint32_t)((it / NST) & 1));
       if (SPLIT) mbar_wait(&ready[b], (uint32_t)((it / BSPLIT) & 1));
-      stage_products<T, KS>(acc, ahi, alo, st, bsplit + b * 2 * TILE_BYTES, yoff, wg, arow,
-                            lane);
+      stage_products<T, KS, TR>(acc, ahi, alo, st, bsplit + b * 2 * YB, yoff, wg, arow, lane);
       wgmma_wait_all();
       if (lane == 0) {
         mbar_arrive(&empty[s]);
@@ -471,45 +511,72 @@ ttt_wide_kernel(__grid_constant__ const CUtensorMap mx, __grid_constant__ const 
       FINISH_STAGE(it);
     }
   } else {
-    // plain route: load stage it + 1 (and split its B) while the tensor
-    // cores run stage it
-    auto prepare = [&](int it) {
-      unsigned char* st = ring + (it % NST) * 2 * TILE_BYTES;
+    // plain route.  fp32: the copies of stage it + 2 and the B split of
+    // stage it + 1 go on while the tensor cores run stage it.  bf16: the
+    // loads of stage it + 1.
+    auto issue = [&](int it) {
+      unsigned char* st = ring + (it % NST) * STB;
       const long long k0 = kb + (long long)it * TK;
-      load_tile<T>(static_cast<const T*>(p.x), p.I, p.B, i0, k0, ke, st, tid);
+      load_tile<T, TILE, SPLIT>(static_cast<const T*>(p.x), p.I, p.B, i0, k0, ke, st, tid);
       if (!diag)
-        load_tile<T>(static_cast<const T*>(p.y), p.R, p.B, r0, k0, ke, st + TILE_BYTES, tid);
+        load_tile<T, TR, SPLIT>(static_cast<const T*>(p.y), p.R, p.B, r0, k0, ke,
+                                st + TILE_BYTES, tid);
+      if constexpr (SPLIT) cp_async_commit();
+    };
+    // stage it has landed in this thread's copies: split its B for all
+    auto split = [&](int it) {
       if constexpr (SPLIT) {
         consumers_sync();  // the whole B tile is loaded
-        unsigned char* bs = bsplit + (it % BSPLIT) * 2 * TILE_BYTES;
-        split_tile(st + yoff, bs, bs + TILE_BYTES, tid, CONSUMERS);
+        unsigned char* bs = bsplit + (it % BSPLIT) * 2 * YB;
+        split_tile(ring + (it % NST) * STB + yoff, bs, bs + YB, tid, CONSUMERS, YB);
       }
       fence_proxy_async();
     };
-    prepare(0);
+    issue(0);
+    if constexpr (SPLIT) {
+      if (n > 1) {
+        issue(1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    }
+    split(0);
     consumers_sync();
     for (int it = 0; it < n; ++it) {
-      stage_products<T, KS>(acc, ahi, alo, ring + (it % NST) * 2 * TILE_BYTES,
-                            bsplit + (it % BSPLIT) * 2 * TILE_BYTES, yoff, wg, arow, lane);
-      if (it + 1 < n) prepare(it + 1);
+      stage_products<T, KS, TR>(acc, ahi, alo, ring + (it % NST) * STB,
+                                bsplit + (it % BSPLIT) * 2 * YB, yoff, wg, arow, lane);
+      if constexpr (SPLIT) {
+        // stage it + 2 takes the slot of stage it - 1, done with at the
+        // last barrier
+        if (it + 2 < n) issue(it + 2);
+        if (it + 1 < n) {
+          if (it + 2 < n) cp_async_wait<1>();
+          else cp_async_wait<0>();
+          split(it + 1);
+        }
+      } else if (it + 1 < n) {
+        issue(it + 1);
+        split(it + 1);
+      }
       wgmma_wait_all();
       FINISH_STAGE(it);
-      consumers_sync();  // the next loads overwrite this stage
+      consumers_sync();  // the next copies overwrite an earlier stage
     }
   }
 #undef FINISH_STAGE
 }
 
-// 3-D map over an (A, W, B) operand: dims (B, W, A), boxes of (TK, TILE, 1)
-// -- 128 bytes by 128 rows -- with the 128-byte swizzle and zero fill
+// 3-D map over an (A, W, B) operand: dims (B, W, A), boxes of (TK, rows, 1)
+// -- 128 bytes by `rows` rows -- with the 128-byte swizzle and zero fill
 template <typename T>
-cudaError_t encode(CUtensorMap* map, const void* base, int A, int W, int B) {
+cudaError_t encode(CUtensorMap* map, const void* base, int A, int W, int B, int rows) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   constexpr int ES = sizeof(T);
   const cuuint64_t dims[3] = {(cuuint64_t)B, (cuuint64_t)W, (cuuint64_t)A};
   const cuuint64_t strides[2] = {(cuuint64_t)B * ES, (cuuint64_t)W * B * ES};
-  const cuuint32_t box[3] = {(cuuint32_t)Wide<T>::TK, (cuuint32_t)TILE, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)Wide<T>::TK, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = enc(map,
                          ES == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -519,15 +586,15 @@ cudaError_t encode(CUtensorMap* map, const void* base, int A, int W, int B) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T, bool TMA>
+template <typename T, bool TMA, int TR>
 size_t wide_smem() {
-  const int nst = TMA ? RING : 2;
-  return 1024 + (size_t)nst * 2 * TILE_BYTES +
-         (Wide<T>::PRODUCTS == 3 ? BSPLIT * 2 * TILE_BYTES : 0) +
+  const int nst = TMA ? RING : Wide<T>::PRODUCTS == 3 ? 3 : 2;
+  return 1024 + (size_t)nst * (TILE_BYTES + TR * 128) +
+         (Wide<T>::PRODUCTS == 3 ? BSPLIT * 2 * TR * 128 : 0) +
          (2 * nst + 2 * BSPLIT) * sizeof(uint64_t);
 }
 
-template <typename T, bool TMA>
+template <typename T, bool TMA, int TR>
 cudaError_t launch_wide(const void* x, const void* y, float* part, int A, int I, int R, int B,
                         int splits, long long k_per_split, bool sym, cudaStream_t st,
                         int* info) {
@@ -541,18 +608,18 @@ cudaError_t launch_wide(const void* x, const void* y, float* part, int A, int I,
   p.nb = (B + TK - 1) / TK;
   p.kspace = TMA ? (long long)A * p.nb * TK : (long long)A * B;
   p.k_per_split = k_per_split;
-  const long long n1 = (I + TILE - 1) / TILE, n2 = (R + TILE - 1) / TILE;
+  const long long n1 = (I + TILE - 1) / TILE, n2 = (R + TR - 1) / TR;
   p.tiles_r = (int)n2;
   p.sym = sym ? 1 : 0;
   if (k_per_split % TK != 0 || splits > 65535 ||
       (long long)(splits - 1) * k_per_split >= p.kspace || (long long)splits * k_per_split < p.kspace)
     return cudaErrorInvalidValue;
-  if (sym && I != R) return cudaErrorInvalidValue;
+  if (sym && (I != R || TR != TILE)) return cudaErrorInvalidValue;
   const long long tiles = sym ? n1 * (n1 + 1) / 2 : n1 * n2;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = wide_smem<T, TMA>();
+  const size_t smem = wide_smem<T, TMA, TR>();
   const int threads = TMA ? CONSUMERS + 128 : CONSUMERS;
-  auto kernel = ttt_wide_kernel<T, TMA>;
+  auto kernel = ttt_wide_kernel<T, TMA, TR>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -562,9 +629,9 @@ cudaError_t launch_wide(const void* x, const void* y, float* part, int A, int I,
   }
   CUtensorMap mx{}, my{};
   if (TMA) {
-    if ((err = encode<T>(&mx, x, A, I, B)) != cudaSuccess) return err;
+    if ((err = encode<T>(&mx, x, A, I, B, TILE)) != cudaSuccess) return err;
     if (sym) my = mx;
-    else if ((err = encode<T>(&my, y, A, R, B)) != cudaSuccess) return err;
+    else if ((err = encode<T>(&my, y, A, R, B, TR)) != cudaSuccess) return err;
   }
   dim3 grid((unsigned)tiles, splits);
   kernel<<<grid, threads, smem, st>>>(mx, my, p, part);
@@ -572,21 +639,49 @@ cudaError_t launch_wide(const void* x, const void* y, float* part, int A, int I,
 }
 
 // The route a call takes (mirrored in repro_torch/kernels/ttt.py, route()).
-int route_of(const void* x, const void* y, int R, int B, int esize) {
+int route_of(const void* x, const void* y, int R, int B, int esize, bool sym) {
   if (R <= 16) return B == 1 ? ROUTE_COLS : ROUTE_TILE16;
+  if (B == 1 && !sym) return ROUTE_WCOLS;
   const long long row = (long long)B * esize;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(y) % 16 == 0;
   return row % 16 == 0 && row >= 128 && aligned ? ROUTE_TMA : ROUTE_PLAIN;
 }
 
+// Where the wgmma_cols route keeps u's image in the workspace: after the
+// partial sums (256-byte aligned) when the reduction is split, else at its
+// start (mirrored in kernels/ttt.py, _workspace)
+long long image_offset(int I, int R, int splits) {
+  return splits > 1 ? ((long long)splits * I * R * 4 + 255) / 256 * 256 : 0;
+}
+
+// wgmma_cols (B = 1, y is not x, R > 16): z^T (R, I) = y^T (R, A) @ x (A,
+// I) on wgmma.cuh's wide GEMM -- x (A, I) row-major is its X (K, N), MN-major
+// tiles by TMA (rows a 16-byte multiple, x aligned) or plain loads, and y^T
+// its u, read through strides and split once into the K-major image; z is
+// written through strides.  Split along K = A: item p covers a in [p
+// k_per_split, (p + 1) k_per_split) and writes its partial sums.
+template <typename T>
+cudaError_t launch_cols(const void* x, const void* y, float* part, unsigned char* ws, int A,
+                        int I, int R, int splits, long long k_per_split, cudaStream_t st,
+                        int* info) {
+  if (k_per_split % wide::TK != 0 || k_per_split > 0x7fffffffLL ||
+      (long long)(splits - 1) * k_per_split >= A || (long long)splits * k_per_split < A)
+    return cudaErrorInvalidValue;
+  const bool tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (long long)I * sizeof(T) % 16 == 0;
+  const wide::Call q{y, x, part, ws == nullptr ? nullptr : ws + image_offset(I, R, splits), R, I, A,
+                     splits, (long long)A * I, (long long)I * R, 1, R, 1, R, (int)k_per_split,
+                     tma, false};
+  return wide::launch<T>(q, st, info);
+}
+
 // info != nullptr: report the launch figures (describe()) instead of launching
 template <typename T>
-cudaError_t dispatch(const void* x, const void* y, float* part, int A, int I, int R,
+cudaError_t dispatch(const void* x, const void* y, float* part, void* ws, int A, int I, int R,
                      int B, int splits, long long k_per_split, bool sym,
                      cudaStream_t st, int* info = nullptr) {
   const long long K = (long long)A * B;
-  const int route = route_of(x, y, R, B, sizeof(T));
+  const int route = route_of(x, y, R, B, sizeof(T), sym);
   if (info != nullptr) info[13] = route;
   if (route == ROUTE_COLS) {
     constexpr int TJ = 128, TK = 64;
@@ -603,14 +698,28 @@ cudaError_t dispatch(const void* x, const void* y, float* part, int A, int I, in
     const Operand P{x, B, (long long)I * B, I}, Q{y, B, (long long)R * B, R};
     return launch_contract<T, 128, 16, 32, 4, 2>(P, Q, part, K, splits, k_per_split, st, info);
   }
-  if (route == ROUTE_TMA)
-    return launch_wide<T, true>(x, y, part, A, I, R, B, splits, k_per_split, sym, st, info);
-  return launch_wide<T, false>(x, y, part, A, I, R, B, splits, k_per_split, sym, st, info);
+  if (route == ROUTE_WCOLS)
+    return launch_cols<T>(x, y, part, static_cast<unsigned char*>(ws), A, I, R, splits,
+                          k_per_split, st, info);
+  const int tr = tile_r(R, sym);
+#define TTT_WIDE(TMA)                                                                     \
+  return tr == 32    ? launch_wide<T, TMA, 32>(x, y, part, A, I, R, B, splits, k_per_split, \
+                                               sym, st, info)                            \
+         : tr == 64  ? launch_wide<T, TMA, 64>(x, y, part, A, I, R, B, splits, k_per_split, \
+                                               sym, st, info)                            \
+                     : launch_wide<T, TMA, TILE>(x, y, part, A, I, R, B, splits,         \
+                                                 k_per_split, sym, st, info)
+  if (route == ROUTE_TMA) TTT_WIDE(true);
+  TTT_WIDE(false);
+#undef TTT_WIDE
 }
 
 }  // namespace
 
 // sym = 1 promises y == x (a Gram); it takes effect on the R > 16 routes.
+// ws: the split-K partial sums (splits x I x R fp32) when the reduction is
+// split or the Gram mirrored, and on wgmma_cols u's image after them
+// (kernels/ttt.py workspace_bytes).
 extern "C" int atucker_ttt(const void* x, const void* y, void* ws, void* z, int A, int I,
                            int R, int B, int dtype, int splits, long long k_per_split, int sym,
                            void* stream) {
@@ -619,12 +728,13 @@ extern "C" int atucker_ttt(const void* x, const void* y, void* ws, void* z, int 
   if (mirror && (R != I || x != y)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool finish = splits > 1 || mirror;
+  if ((finish || (R > 16 && B == 1 && !mirror)) && ws == nullptr) return cudaErrorInvalidValue;
   float* part = finish ? static_cast<float*>(ws) : static_cast<float*>(z);
   cudaError_t err;
   if (dtype == kFloat32)
-    err = dispatch<float>(x, y, part, A, I, R, B, splits, k_per_split, mirror, st);
+    err = dispatch<float>(x, y, part, ws, A, I, R, B, splits, k_per_split, mirror, st);
   else if (dtype == kBFloat16)
-    err = dispatch<__nv_bfloat16>(x, y, part, A, I, R, B, splits, k_per_split, mirror, st);
+    err = dispatch<__nv_bfloat16>(x, y, part, ws, A, I, R, B, splits, k_per_split, mirror, st);
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess || !finish) return (int)err;
@@ -635,11 +745,12 @@ extern "C" int atucker_ttt(const void* x, const void* y, void* ws, void* z, int 
 }
 
 // Launch figures of a call of these operands and shape, for reports:
-// out[0..3] for the contraction kernel, out[4..7] for the finish kernel
-// when it runs (registers per thread, threads, resident blocks per SM, grid
-// blocks), out[12] the contraction kernel's dynamic shared memory in bytes
-// (wide routes) and out[13] the route (0 cols, 1 tile16, 2 wgmma_tma,
-// 3 wgmma_plain).  x and y are only inspected for alignment.
+// out[0..3] for the contraction kernel, then the finish kernel when it runs
+// (registers per thread, threads, resident blocks per SM, grid blocks) --
+// at out[4..7], or on wgmma_cols at out[8..11] after the kernel that splits
+// y (out[4..7]) -- out[12] the contraction kernel's dynamic shared memory in
+// bytes (wide routes) and out[13] the route (0 cols, 1 tile16, 2 wgmma_tma,
+// 3 wgmma_plain, 4 wgmma_cols).  x and y are only inspected for alignment.
 extern "C" int atucker_ttt_info(const void* x, const void* y, int A, int I, int R, int B,
                                 int dtype, int splits, long long k_per_split, int sym,
                                 int* out) {
@@ -648,12 +759,14 @@ extern "C" int atucker_ttt_info(const void* x, const void* y, int A, int I, int 
   const bool mirror = sym && R > 16;
   cudaError_t err;
   if (dtype == kFloat32)
-    err = dispatch<float>(x, y, nullptr, A, I, R, B, splits, k_per_split, mirror, 0, out);
+    err = dispatch<float>(x, y, nullptr, nullptr, A, I, R, B, splits, k_per_split, mirror, 0,
+                          out);
   else if (dtype == kBFloat16)
-    err = dispatch<__nv_bfloat16>(x, y, nullptr, A, I, R, B, splits, k_per_split, mirror, 0,
-                                  out);
+    err = dispatch<__nv_bfloat16>(x, y, nullptr, nullptr, A, I, R, B, splits, k_per_split,
+                                  mirror, 0, out);
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess || !(splits > 1 || mirror)) return (int)err;
-  return (int)describe(ttt_finish_kernel, 256, ceil_div((long long)I * R, 256), out + 4);
+  return (int)describe(ttt_finish_kernel, 256, ceil_div((long long)I * R, 256),
+                       out + (out[13] == ROUTE_WCOLS ? 8 : 4));
 }

@@ -6,8 +6,8 @@
 // registers, B from shared memory) at widths 32, 64 and 128, the register
 // pins that keep ptxas from serializing every wgmma of a kernel (C7520),
 // the tensor-map encoder -- and, in namespace wide, the whole batched
-// GEMM C_a = u @ X_a that matmul.cu's first mode and ttm.cu's interior
-// mode run at R > 16.
+// GEMM C_a = u @ X_a that matmul.cu's boundary modes, ttm.cu's interior
+// mode and ttt.cu's B = 1 TTT run at R > 16.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -227,17 +227,28 @@ inline EncodeTiled encoder() {
 
 // ---------------------------------------------------------------------------
 // The wide route: C_a (R, N) = u (R, K) @ X_a (K, N), fp32 out, for a batch
-// of X_a that share u.  matmul.cu runs it with one X (the first mode, u @ X);
-// ttm.cu with X_a = x[a, :, :] of the (A, I, B) view (the interior mode).
-// Bound by the bytes of X at the R of the sketch (a few dozen): one pass
-// over X for R <= CHUNK (R above runs in chunks of CHUNK outputs), on the
-// tensor cores at fp32 accuracy.
+// of X_a that share u (or, split along K, share X).  matmul.cu runs it with
+// one X on the first mode (u @ X) and on the last mode (x @ u^T, X = x^T);
+// ttm.cu with X_a = x[a, :, :] of the (A, I, B) view (the interior mode);
+// ttt.cu for a TTT of B = 1 (z^T = y^T @ x, split along K).  Bound by the
+// bytes of X at the R of the sketch (a few dozen): one pass over X for R <=
+// CHUNK (R above runs in chunks of CHUNK outputs), on the tensor cores at
+// fp32 accuracy.
 //
 //   * C_a^T = X_a^T u^T: X_a^T is wgmma's A operand from registers (m64, 64
 //     columns of X per consumer warpgroup), u^T its B operand from shared
 //     memory.  fp32 operands are split into hi and lo = rna_tf32(v - hi),
 //     and every k-step is hi*lo + lo*hi + hi*hi (split TF32); bf16
 //     operands are exact in TF32 and take one product.
+//   * X comes in one of two layouts.  KN: X_a (K, N) row-major, N
+//     contiguous (the first and the interior mode): a stage of X is TK rows
+//     of k, each 128-byte box holding 128 / sizeof(T) columns.  NK: x (N,
+//     K) row-major, K contiguous (the last mode, X = x^T): a stage is BNT
+//     rows of n, each TK values of k long (128 bytes fp32 with the 128-byte
+//     swizzle, 64 bytes bf16 with the 64-byte swizzle), one box a stage.
+//     Either way a thread reads its fragment from the landed tile; the
+//     k-order within a k-step (image_k, or none on NK) keeps the 32 lanes'
+//     reads in distinct banks.
 //   * The sums.  The tensor cores' fp32 accumulator rounds toward zero, so
 //     a sum kept there drifts low whenever it is inexact: summing each
 //     32-deep stage of split-TF32 products in it biased the energy of C by
@@ -261,29 +272,31 @@ inline EncodeTiled encoder() {
 //     signed, non-negative and integer data where the stage sums read
 //     -2e-7.  bf16 operands take one product a k-step, summed a stage at a
 //     time; those sums may truncate, which only lowers the energy.  A
-//     at most 64 outputs: R <= 64 has the two warpgroups take 64 columns
-//     of a 128-column tile each; 64 < R <= 128 has them share a 64-column
-//     tile and take half of R each.
-//   * X arrives by TMA (a 3-D map over (N, K, batch), 128-byte boxes of 32
-//     k rows, 128-byte swizzle, zero fill for a ragged K or N) into a ring
-//     of stages kept full by one producer thread, when the caller asks for
-//     it (rows of X a 16-byte multiple, X aligned); otherwise the producer
-//     warpgroup loads X with plain loads into the same layout.
+//     warpgroup computes at most 64 outputs: R <= 64 has the two
+//     warpgroups take 64 columns of a 128-column tile each; 64 < R <= 128
+//     has them share a 64-column tile and take half of R each.
+//   * X arrives by TMA (a 3-D map, 128-byte swizzle -- 64-byte for bf16 on
+//     NK -- zero fill for a ragged K or N) into a ring of stages kept full
+//     by one producer thread, when the caller asks for it (rows of X a
+//     16-byte multiple, X aligned); otherwise the producer warpgroup loads X
+//     with plain loads into the same layout.
 //   * u is split once per call by a small kernel into a pre-split image in
 //     the caller's workspace: per stage, the hi and lo tiles in the swizzled
 //     K-major layout wgmma reads, zero beyond R and K, copied into the ring
-//     stage by one bulk copy beside X's boxes.
-//   * Each thread reads its A fragment from the landed X tile and splits it
-//     there.  Within a k-step, fragment column t + 4h takes X row 2t + h
-//     (u's image is permuted the same way), so the 32 lanes' reads of 4
-//     rows x 8 columns fall in 32 distinct banks of the swizzle.
+//     stage by one bulk copy beside X's boxes.  u is read through strides:
+//     (K, 1) for u (R, K), (1, R) for u^T (K, R) as the last mode and the
+//     TTT hold it.
 //   * The tiles run over the batch's columns laid end to end, nv columns an
-//     item: with TMA nv is N rounded up to whole 128-byte boxes, so that no
-//     box straddles two items (B = 264 fp32 fills 264 of 288 columns); with
-//     plain loads nv = N, so a small N packs densely.  A persistent block
-//     per SM walks the tiles, so the ring runs ahead across tiles; the sums
-//     go straight from registers to C, each warp writing whole 32-byte
-//     sectors.
+//     item: on KN with TMA nv is N rounded up to whole 128-byte boxes, so
+//     that no box straddles two items (B = 264 fp32 fills 264 of 288
+//     columns); with plain loads nv = N, so a small N packs densely; on NK,
+//     and whenever the items split K, nv is N rounded up to whole tiles.
+//     A persistent block per SM walks the tiles, so the ring runs ahead
+//     across tiles; the sums go straight from registers to C (element (r,
+//     n) of C_a at c + a c_batch + r ldr + n ldn).
+//   * Split along K (k_item > 0): item a is the same X over k in [a k_item,
+//     (a + 1) k_item) and the same columns, with u's image stages from a
+//     k_item / TK on; C_a holds its partial sums, which the caller adds.
 namespace wide {
 
 // Bits of u's and X's hi parts over their group's bound (see above): a
@@ -310,54 +323,71 @@ constexpr int MAX_STAGES = 8;
 constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a block can use
 
 // Geometry of a launch: NT outputs per consumer warpgroup (the wgmma width,
-// 32 or 64), SPLIT when the two warpgroups share a tile and split R.
-template <typename T, int NT, bool SPLIT>
+// 32 or 64), SPLIT when the two warpgroups share a tile and split R, NK for
+// x (N, K) K-major (else X (K, N)).
+template <typename T, int NT, bool SPLIT, bool NK>
 struct Geo {
   static constexpr int ES = sizeof(T);
-  static constexpr int BOX_N = 128 / ES;               // X columns per box
+  static constexpr int BOX_N = 128 / ES;               // KN: X columns per box
   static constexpr int PLANES = ES == 4 ? 2 : 1;       // hi, lo (fp32)
   static constexpr int BNT = SPLIT ? 64 : 128;         // X columns per tile
   static constexpr int ROWS = SPLIT ? 2 * NT : NT;     // rows of u's image
-  static constexpr int XBYTES = BNT * TK * ES;         // BNT / BOX_N boxes
+  static constexpr int XBYTES = BNT * TK * ES;         // one X tile
   static constexpr int BBYTES = PLANES * ROWS * 128;   // one image stage
   static constexpr int STAGE = XBYTES + BBYTES;
 };
 
+// byte offset of x (n, kk) in an NK tile: rows of TK values, 128-byte
+// swizzle for fp32 (chunk c of row n at c ^ (n % 8)), 64-byte for bf16
+// (chunk c of row n at c ^ (n / 2 % 4)): the address functions TMA writes
+template <int ES>
+__device__ __forceinline__ int nk_off(int n, int kk) {
+  if constexpr (ES == 4) return swz(n, kk, 4);
+  const int byte = kk * 2;
+  return n * 64 + ((((byte >> 4) ^ (n >> 1)) & 3) << 4) + (byte & 15);
+}
+
 struct Args {
-  const void* x;       // X_0 (K, N) row-major; X_a starts x_batch elements on
-  const void* img;     // u's pre-split image: n_k stages of BBYTES
-  float* c;            // C_0 (rows, N), rows ldc apart; C_a starts c_batch on
+  const void* x;       // X_0 (KN) or x (NK); X_a starts x_batch elements on
+  const void* img;     // u's pre-split image: n_k stages of BBYTES (an item's)
+  float* c;            // C_0: element (r, n) at r * ldr + n * ldn
   long long x_batch, c_batch;
   int tiles;           // ceil(batch * nv / BNT); batch * nv < 2^31 (launch_chunk)
-  int rows, N, K, ldc, batch;
+  int rows, N, K, ldr, ldn, batch;
   int nv;              // columns of the tiles per batch item
-  int n_k;             // stages: ceil(K / TK)
+  int n_k;             // stages an item: ceil(K / TK), or k_item / TK
+  int k_item;          // split along K: the depth of an item (0: items are X_a)
   int tma;             // X by TMA, else plain loads
   int nst;             // ring stages
 };
 
-// Physical k (within a stage) of column `col` of u's image: the 8 columns of
-// k-step j hold rows 8j + 2t + h at column 8j + t + 4h.
+// Physical k (within a stage) of column `col` of u's image: on KN the 8
+// columns of k-step j hold rows 8j + 2t + h at column 8j + t + 4h; on NK
+// column col holds k = col.
+template <bool NK>
 __device__ __forceinline__ int image_k(int col) {
+  if constexpr (NK) return col;
   const int cc = col % 8;
   return col - cc + 2 * (cc % 4) + cc / 4;
 }
 
-// u (rows, K) -> its image: stage s, plane p (hi, lo), row r, column col at
-// s * BBYTES + p * ROWS * 128 + swz(r, col, 4), zero beyond rows and K.
-// A warp takes one row of one stage (TK = 32 columns), whose largest
-// magnitude sets the grid of the row's hi there.
-template <typename T, int ROWS, int PLANES>
+// u (rows, K), element (r, k) at u[r * su_r + k * su_k] -> its image: stage
+// s, plane p (hi, lo), row r, column col at s * BBYTES + p * ROWS * 128 +
+// swz(r, col, 4), zero beyond rows and K.  A warp takes one row of one
+// stage (TK = 32 columns), whose largest magnitude sets the grid of the
+// row's hi there.
+template <typename T, int ROWS, int PLANES, bool NK>
 __global__ void __launch_bounds__(256)
-image_kernel(const T* __restrict__ u, unsigned char* __restrict__ img, int rows, int K, int n_k) {
+image_kernel(const T* __restrict__ u, unsigned char* __restrict__ img, int rows, int K, int n_k,
+             long long su_r, long long su_k) {
   static_assert(TK == 32, "image_kernel: a warp is one stage of a row");
   const long long n = (long long)n_k * ROWS * TK;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;  // n is whole warps
   const int s = (int)(idx / (ROWS * TK));
   const int r = (int)(idx / TK % ROWS), col = (int)(idx % TK);
-  const int k = s * TK + image_k(col);
-  const float v = r < rows && k < K ? to_f32(u[(long long)r * K + k]) : 0.f;
+  const long long k = (long long)s * TK + image_k<NK>(col);
+  const float v = r < rows && k < K ? to_f32(u[r * su_r + k * su_k]) : 0.f;
   unsigned char* st = img + (long long)s * PLANES * ROWS * 128;
   if constexpr (PLANES == 2) {
     float m = fabsf(v);
@@ -371,19 +401,33 @@ image_kernel(const T* __restrict__ u, unsigned char* __restrict__ img, int rows,
   }
 }
 
+// Byte offset (from the lane's off[q]) of element q of k-step ks of the A
+// fragment: KN a k-step is 8 rows of k, 1024 bytes further on; NK it is the
+// next 8 values of the row, whose 16-byte chunk the swizzle moves (xo: the
+// lane's row bits of the swizzle, << 4)
+template <int ES, bool NK>
+__device__ __forceinline__ int frag_step(int ks, int q, int xo) {
+  if constexpr (!NK) return 1024 * ks;
+  if constexpr (ES == 4) return ((2 * ks + q / 2) << 4) ^ xo;
+  return (ks << 4) ^ xo;
+}
+
 // This warpgroup's A fragments of one stage: element q of k-step ks of its
-// 64 columns of the X tile at `st`, read at byte off[q] + 1024 ks and split
-// in registers (the caller keeps `ahi`/`alo` until the wgmma that read them
-// are waited for).  A column's 32 values of the stage lie with the four
-// lanes of a quad (two a k-step each), which agree on its grid.
-template <typename T, int PLANES>
+// 64 columns of the X tile at `st`, read at off[q] + frag_step(ks, q) and
+// split in registers (the caller keeps `ahi`/`alo` until the wgmma that
+// read them are waited for).  A column's 32 values of the stage lie with
+// the four lanes of a quad (two a k-step each), which agree on its grid.
+template <typename T, int PLANES, bool NK>
 __device__ __forceinline__ void stage_fragments(uint32_t (&ahi)[KS][4], uint32_t (&alo)[KS][4],
-                                                const unsigned char* st, const int (&off)[4]) {
+                                                const unsigned char* st, const int (&off)[4],
+                                                int xo) {
   float v[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) v[ks][q] = to_f32(*reinterpret_cast<const T*>(st + off[q] + 1024 * ks));
+    for (int q = 0; q < 4; ++q)
+      v[ks][q] = to_f32(
+          *reinterpret_cast<const T*>(st + off[q] + frag_step<(int)sizeof(T), NK>(ks, q, xo)));
   if constexpr (PLANES == 2) {
     float m[2] = {0.f, 0.f};  // this lane's two columns: q % 2
 #pragma unroll
@@ -441,25 +485,30 @@ __device__ __forceinline__ void stage_products(float (&hh)[NT / 2], float (&cros
   wgmma_commit();
 }
 
-// Shared memory (1024-byte aligned): nst stages of (X tile: BNT / BOX_N
-// boxes of TK rows x 128 bytes; u's image stage), then the mbarriers.
-// Warpgroup 2 feeds the ring and gives its registers to the two consumer
-// warpgroups (setmaxnreg).
-template <typename T, int NT, bool SPLIT>
+// Shared memory (1024-byte aligned): nst stages of (X tile; u's image
+// stage), then the mbarriers.  Warpgroup 2 feeds the ring and gives its
+// registers to the two consumer warpgroups (setmaxnreg).
+template <typename T, int NT, bool SPLIT, bool NK>
 __global__ void __launch_bounds__(THREADS, 1)
 kernel(__grid_constant__ const CUtensorMap mx, Args p) {
-  using G = Geo<T, NT, SPLIT>;
+  using G = Geo<T, NT, SPLIT, NK>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.nst * G::STAGE);
   uint64_t* empty = full + p.nst;
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int img_item = p.k_item / TK;  // image stages an item moves on
 
+  // plain loads of fp32 go by cp.async, each of the 128 producer threads
+  // arriving when its copies of a stage have landed; bf16 (2-byte
+  // elements, which cp.async does not copy) by loads and stores, each warp
+  // arriving after its stores
+  constexpr bool ASYNC = sizeof(T) == 4;
   if (tid == 0) {
     for (int s = 0; s < p.nst; ++s) {
-      // TMA: the producer's expect_tx; plain: that and the four warps' loads
-      mbar_init(&full[s], p.tma ? 1 : 5);
+      // TMA: the producer's expect_tx; plain: that and the loads' arrivals
+      mbar_init(&full[s], p.tma ? 1 : ASYNC ? 129 : 5);
       mbar_init(&empty[s], CONSUMERS / 32);
     }
     mbar_init_fence();
@@ -467,61 +516,109 @@ kernel(__grid_constant__ const CUtensorMap mx, Args p) {
   __syncthreads();
 
   if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    // 56 registers: the producer's tile and stage bookkeeping fits without
+    // spilling (at 40 it spilled 24-32 bytes); the consumers keep 224
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;" ::: "memory");
     const unsigned char* img = static_cast<const unsigned char*>(p.img);
     const int pt = tid - CONSUMERS;  // 0 .. 127
     if (p.tma && pt != 0) return;
-    // plain loads: thread pt fills column pt % BNT of the tile, rows pt / BNT
-    // + STEP q; consecutive threads read consecutive columns of a row
-    constexpr int STEP = 128 / G::BNT, PER = TK / STEP, BATCH = 8;
-    const int col = pt % G::BNT, kk0 = pt / G::BNT;
-    unsigned char* dst0 = nullptr;
+    // plain loads, KN: thread pt fills column pt % BNT of the tile, rows pt /
+    // BNT + STEP q; consecutive threads read consecutive columns of a row.
+    // NK: lane l of warp w fills k = l of tile rows w + 4 q; consecutive
+    // threads read consecutive k of a row.
+    constexpr int STEP = NK ? 4 : 128 / G::BNT;
+    constexpr int PER = NK ? G::BNT / STEP : TK / STEP, BATCH = 8;
+    const int col = NK ? pt / 32 : pt % G::BNT;
+    const int kk0 = NK ? pt % 32 : pt / G::BNT;
     int it = 0;
     // column j of the batch laid end to end is column j % nv of item j / nv
     // (32-bit: a 64-bit division is a called routine, which spills)
     const unsigned nv = (unsigned)p.nv;
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
       const unsigned j0 = (unsigned)tile * G::BNT;
-      const T* __restrict__ src = nullptr;  // this thread's column of X, or none
+      const unsigned a0 = j0 / nv, n0 = j0 - a0 * nv;  // the tile's first column
+      const int kb = (int)a0 * p.k_item;               // its item's first k (split K)
+      const int ta = p.k_item ? 0 : (int)a0;           // its item in the map
+      const unsigned char* img0 = img + (long long)a0 * img_item * G::BBYTES;
+      const T* __restrict__ src = nullptr;  // this thread's column (KN) or rows (NK) of X
       if (!p.tma) {
-        const unsigned j = j0 + col, a = j / nv, n = j - a * nv;
-        if ((int)a < p.batch && (int)n < p.N)
-          src = static_cast<const T*>(p.x) + a * p.x_batch + n;
+        if constexpr (NK) {
+          src = static_cast<const T*>(p.x) + a0 * p.x_batch + (long long)(n0 + col) * p.K + kb;
+        } else {
+          const unsigned j = j0 + col, a = j / nv, n = j - a * nv;
+          if ((int)a < p.batch && (int)n < p.N)
+            src = static_cast<const T*>(p.x) + a * p.x_batch + (long long)(a * p.k_item) * p.N + n;
+        }
       }
-      const unsigned a0 = j0 / nv, n0 = j0 - a0 * nv;  // the tile's first box
       for (int s = 0; s < p.n_k; ++s, ++it) {
         const int slot = it % p.nst;
         unsigned char* st = smem + slot * G::STAGE;
         mbar_wait(&empty[slot], (uint32_t)(((it / p.nst) & 1) ^ 1));
         if (p.tma) {
           mbar_arrive_tx(&full[slot], G::STAGE);
-          // boxes never straddle two items: nv is a whole number of boxes
-          unsigned a = a0, n = n0;
+          if constexpr (NK) {
+            tma_load_3d(st, &mx, kb + s * TK, (int)n0, ta, &full[slot]);
+          } else {
+            // boxes never straddle two items: nv is a whole number of boxes
+            unsigned a = a0, n = n0;
 #pragma unroll
-          for (int b = 0; b < G::BNT / G::BOX_N; ++b) {
-            tma_load_3d(st + b * TK * 128, &mx, (int)n, s * TK, (int)a, &full[slot]);
-            n += G::BOX_N;
-            if (n == nv) n = 0, ++a;
+            for (int b = 0; b < G::BNT / G::BOX_N; ++b) {
+              tma_load_3d(st + b * TK * 128, &mx, (int)n, kb + s * TK, p.k_item ? 0 : (int)a,
+                          &full[slot]);
+              n += G::BOX_N;
+              if (n == nv) n = 0, ++a;
+            }
           }
-          bulk_copy(st + G::XBYTES, img + (long long)s * G::BBYTES, G::BBYTES, &full[slot]);
+          bulk_copy(st + G::XBYTES, img0 + (long long)s * G::BBYTES, G::BBYTES, &full[slot]);
           continue;
         }
         if (pt == 0) {
           mbar_arrive_tx(&full[slot], G::BBYTES);
-          bulk_copy(st + G::XBYTES, img + (long long)s * G::BBYTES, G::BBYTES, &full[slot]);
+          bulk_copy(st + G::XBYTES, img0 + (long long)s * G::BBYTES, G::BBYTES, &full[slot]);
         }
-        dst0 = st + (col / G::BOX_N) * TK * 128;
+        if constexpr (ASYNC) {
+          // nothing waits here: the ring's stages stay in flight
+#pragma unroll 8
+          for (int q = 0; q < PER; ++q) {
+            if constexpr (NK) {
+              const int n = (int)n0 + col + STEP * q, k = kb + s * TK + kk0;
+              const bool ok = n < p.N && k < p.K;
+              cp_async_4(st + nk_off<G::ES>(col + STEP * q, kk0),
+                         ok ? static_cast<const void*>(src + (long long)STEP * q * p.K + s * TK + kk0)
+                            : p.x,
+                         ok);
+            } else {
+              const int k = kb + s * TK + kk0 + STEP * q;
+              const bool ok = src != nullptr && k < p.K;
+              cp_async_4(st + (col / G::BOX_N) * TK * 128 + swz(kk0 + STEP * q, col % G::BOX_N, 4),
+                         ok ? static_cast<const void*>(src + (long long)(k - kb) * p.N) : p.x,
+                         ok);
+            }
+          }
+          cp_async_arrive(&full[slot]);
+          continue;
+        }
         for (int q0 = 0; q0 < PER; q0 += BATCH) {
           T v[BATCH];
 #pragma unroll
           for (int q = 0; q < BATCH; ++q) {
-            const int k = s * TK + kk0 + STEP * (q0 + q);
-            v[q] = src != nullptr && k < p.K ? src[(long long)k * p.N] : T(0.f);
+            if constexpr (NK) {
+              const int n = (int)n0 + col + STEP * (q0 + q), k = kb + s * TK + kk0;
+              v[q] = n < p.N && k < p.K ? src[(long long)STEP * (q0 + q) * p.K + s * TK + kk0]
+                                        : T(0.f);
+            } else {
+              const int k = kb + s * TK + kk0 + STEP * (q0 + q);
+              v[q] = src != nullptr && k < p.K ? src[(long long)(k - kb) * p.N] : T(0.f);
+            }
           }
 #pragma unroll
-          for (int q = 0; q < BATCH; ++q)
-            *reinterpret_cast<T*>(dst0 + swz(kk0 + STEP * (q0 + q), col % G::BOX_N, G::ES)) =
-                v[q];
+          for (int q = 0; q < BATCH; ++q) {
+            if constexpr (NK)
+              *reinterpret_cast<T*>(st + nk_off<G::ES>(col + STEP * (q0 + q), kk0)) = v[q];
+            else
+              *reinterpret_cast<T*>(st + (col / G::BOX_N) * TK * 128 +
+                                    swz(kk0 + STEP * (q0 + q), col % G::BOX_N, G::ES)) = v[q];
+          }
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&full[slot]);
@@ -529,21 +626,25 @@ kernel(__grid_constant__ const CUtensorMap mx, Args p) {
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;" ::: "memory");
 
   // ---- consumers ----
   const int nb = SPLIT ? 0 : wg * 64;   // this warpgroup's first column of the tile
   const int rb = SPLIT ? wg * NT : 0;   // its first output (row of u's image)
   const int g = lane / 4, t = lane % 4;
-  // A element q of k-step ks: tile column nb + 16 warp + g + 8 (q % 2), X row
-  // 8 ks + 2 t + q / 2 of the stage (image_k's permutation); a k-step is 8
-  // rows, 1024 bytes further on, with the same swizzle
+  // A element q of k-step ks: tile column nn = nb + 16 warp + g + 8 (q % 2).
+  // KN: X row 8 ks + 2 t + q / 2 of the stage (image_k's permutation).  NK:
+  // k 8 ks + t + 4 (q / 2) of row nn, its chunk moved by the swizzle (xo).
   int off[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int nn = nb + 16 * warp + g + 8 * (q % 2);
-    off[q] = (nn / G::BOX_N) * TK * 128 + swz(2 * t + q / 2, nn % G::BOX_N, G::ES);
+    if constexpr (NK)
+      off[q] = G::ES == 4 ? nn * 128 + 4 * t : nn * 64 + 2 * t + 8 * (q / 2);
+    else
+      off[q] = (nn / G::BOX_N) * TK * 128 + swz(2 * t + q / 2, nn % G::BOX_N, G::ES);
   }
+  const int xo = NK ? (G::ES == 4 ? g : g >> 1) << 4 : 0;
   // The stages of this block's tiles in order: it = (tile's index among
   // them) * n_k + s.  While the products of stage `it` run, the fragments
   // of stage it + 1 are read and split (nhi/nlo), off the tensor cores'
@@ -556,7 +657,7 @@ kernel(__grid_constant__ const CUtensorMap mx, Args p) {
   const long long total = (long long)((p.tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * p.n_k;
   const unsigned nv = (unsigned)p.nv;
   mbar_wait(&full[0], 0u);
-  stage_fragments<T, G::PLANES>(ahi, alo, smem, off);
+  stage_fragments<T, G::PLANES, NK>(ahi, alo, smem, off, xo);
   int tile = blockIdx.x;
   int s = 0, slot = 0;
   uint32_t phase = 0;  // of the ring's pass over `slot`
@@ -567,7 +668,7 @@ kernel(__grid_constant__ const CUtensorMap mx, Args p) {
     const uint32_t next_phase = next == 0 ? phase ^ 1u : phase;
     if (it + 1 < total) {
       mbar_wait(&full[next], next_phase);
-      stage_fragments<T, G::PLANES>(nhi, nlo, smem + next * G::STAGE, off);
+      stage_fragments<T, G::PLANES, NK>(nhi, nlo, smem + next * G::STAGE, off, xo);
     }
     wgmma_wait_all();
     fence_acc(hh);
@@ -588,13 +689,14 @@ kernel(__grid_constant__ const CUtensorMap mx, Args p) {
       for (int h = 0; h < 2; ++h) {
         const unsigned j = (unsigned)tile * G::BNT + nb + 16 * warp + g + 8 * h, a = j / nv,
                        n = j - a * nv;
-        cp[h] = (int)a < p.batch && (int)n < p.N ? p.c + a * p.c_batch + n : nullptr;
+        cp[h] = (int)a < p.batch && (int)n < p.N ? p.c + a * p.c_batch + (long long)n * p.ldn
+                                                 : nullptr;
       }
 #pragma unroll
       for (int v = 0; v < NT / 2; ++v) {
         const int r = rb + 8 * (v / 4) + 2 * t + v % 2;
         float* q = cp[(v / 2) % 2];
-        if (q != nullptr && r < p.rows) q[(long long)r * p.ldc] = sum[v];
+        if (q != nullptr && r < p.rows) q[(long long)r * p.ldr] = sum[v];
         sum[v] = 0.f;
       }
       tile += gridDim.x;
@@ -612,65 +714,84 @@ kernel(__grid_constant__ const CUtensorMap mx, Args p) {
   }
 }
 
-// 3-D map over X as dims (N, K, batch): boxes of 128 bytes x TK rows,
-// 128-byte swizzle, zero fill outside
-template <typename T>
+// 3-D map over X: KN dims (N, K, batch), boxes of 128 bytes x TK rows;
+// NK dims (K, N, batch), boxes of TK values x BNT rows.  128-byte swizzle
+// (64-byte for bf16 on NK: its rows are 64 bytes), zero fill outside.
+template <typename T, bool NK>
 cudaError_t encode_x(CUtensorMap* map, const void* x, int N, int K, int batch,
-                     long long x_batch) {
+                     long long x_batch, int bnt) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   constexpr int ES = sizeof(T);
-  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)N * ES, (cuuint64_t)x_batch * ES};
-  const cuuint32_t box[3] = {(cuuint32_t)(128 / ES), (cuuint32_t)TK, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)(NK ? K : N), (cuuint64_t)(NK ? N : K),
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)(NK ? K : N) * ES, (cuuint64_t)x_batch * ES};
+  const cuuint32_t box[3] = {(cuuint32_t)(NK ? TK : 128 / ES), (cuuint32_t)(NK ? bnt : TK), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      NK && ES == 2 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   const CUresult r = enc(map,
                          ES == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                          3, const_cast<void*>(x), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The operands of one call: u (R, K); X_a (K, N) at x + a * x_batch; C_a
-// (R, N), rows ldc apart, at c + a * c_batch; tma: X by TMA (rows a 16-byte
-// multiple and X aligned, which the caller checks).
+// The operands of one call: u (R, K), element (r, k) at u + r su_r + k su_k;
+// X_a at x + a x_batch: (K, N) row-major, or (N, K) with nk; C_a at c + a
+// c_batch, element (r, n) at r ldr + n ldn; k_item > 0 (a multiple of TK):
+// split along K, item a covering k in [a k_item, (a + 1) k_item) of the one
+// X (x_batch unused); tma: X by TMA (rows a 16-byte multiple and X aligned,
+// which the caller checks).
 struct Call {
   const void* u;
   const void* x;
   float* c;
   void* ws;
-  int R, N, K, batch, ldc;
-  long long x_batch, c_batch;
-  bool tma;
+  int R, N, K, batch;
+  long long x_batch, c_batch, ldr, ldn, su_r, su_k;
+  int k_item;
+  bool tma, nk;
 };
+
+// Stages of u's image the call needs (an item's, or all items' when split
+// along K)
+inline long long image_stages(const Call& q) {
+  return q.k_item ? (long long)q.batch * (q.k_item / TK) : ceil_div(q.K, TK);
+}
 
 // One chunk of at most CHUNK outputs (rows of u from r0).  info != nullptr:
 // report the launch figures (out[0..3] the GEMM, out[4..7] the image
-// kernel, out[12] dynamic shared memory, out[14] TMA loads, out[15] ring
-// stages) instead of launching.
-template <typename T, int NT, bool SPLIT>
+// kernel, out[12] dynamic shared memory, out[14] 1 for TMA loads plus 2 for
+// the NK layout, out[15] ring stages) instead of launching.
+template <typename T, int NT, bool SPLIT, bool NK>
 cudaError_t launch_chunk(const Call& q, int r0, int rows, cudaStream_t st, int* info) {
-  using G = Geo<T, NT, SPLIT>;
+  using G = Geo<T, NT, SPLIT, NK>;
   Args p;
   p.x = q.x;
   p.img = q.ws;
-  p.c = q.c == nullptr ? nullptr : q.c + (long long)r0 * q.ldc;
-  p.x_batch = q.x_batch;
+  p.c = q.c == nullptr ? nullptr : q.c + r0 * q.ldr;
+  p.x_batch = q.k_item ? 0 : q.x_batch;  // split along K: one X
   p.c_batch = q.c_batch;
   p.rows = rows;
   p.N = q.N;
   p.K = q.K;
-  p.ldc = q.ldc;
+  p.ldr = (int)q.ldr;
+  p.ldn = (int)q.ldn;
   p.tma = q.tma;
-  p.nv = q.tma ? (q.N + G::BOX_N - 1) / G::BOX_N * G::BOX_N : q.N;
+  p.k_item = q.k_item;
+  if (q.ldr != p.ldr || q.ldn != p.ldn || (q.k_item % TK) != 0) return cudaErrorInvalidValue;
+  p.nv = NK || q.k_item ? ceil_div(q.N, G::BNT) * G::BNT
+                        : q.tma ? ceil_div(q.N, G::BOX_N) * G::BOX_N : q.N;
   // the kernel indexes the batch's columns in 32 bits: items run in groups
-  // of fewer than 2^31 - BNT columns (one item wider than that is refused)
+  // of fewer than 2^31 - BNT columns (one item wider than that is refused;
+  // so is a split along K that does not fit one group)
   const int per = p.nv > 0 ? (0x7fffffff - G::BNT) / p.nv : 0;
-  if (per < 1) return cudaErrorInvalidValue;
+  if (per < 1 || (q.k_item && q.batch > per)) return cudaErrorInvalidValue;
   p.batch = q.batch < per ? q.batch : per;
   p.tiles = ceil_div(p.batch * p.nv, G::BNT);
-  p.n_k = ceil_div(q.K, TK);
+  p.n_k = q.k_item ? q.k_item / TK : ceil_div(q.K, TK);
   p.nst = (SMEM_LIMIT - 1024 - 2 * MAX_STAGES * (int)sizeof(uint64_t)) / G::STAGE;
   if (p.nst > MAX_STAGES) p.nst = MAX_STAGES;
   if (p.nst < 2) return cudaErrorInvalidValue;
@@ -680,22 +801,22 @@ cudaError_t launch_chunk(const Call& q, int r0, int rows, cudaStream_t st, int* 
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int grid = (int)(p.tiles < sms ? p.tiles : sms);
-  auto gemm = kernel<T, NT, SPLIT>;
-  auto image = image_kernel<T, G::ROWS, G::PLANES>;
+  auto gemm = kernel<T, NT, SPLIT, NK>;
+  auto image = image_kernel<T, G::ROWS, G::PLANES, NK>;
   err = cudaFuncSetAttribute(gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const long long img_elems = (long long)p.n_k * G::ROWS * TK;
+  const long long img_elems = image_stages(q) * G::ROWS * TK;
   if (info != nullptr) {
     info[12] = (int)smem;
-    info[14] = p.tma;
+    info[14] = p.tma | (NK ? 2 : 0);
     info[15] = p.nst;
     err = describe(gemm, THREADS, grid, info, smem);
     if (err != cudaSuccess) return err;
     return describe(image, 256, ceil_div(img_elems, 256), info + 4);
   }
   image<<<ceil_div(img_elems, 256), 256, 0, st>>>(
-      static_cast<const T*>(q.u) + (long long)r0 * q.K, static_cast<unsigned char*>(q.ws), rows,
-      q.K, p.n_k);
+      static_cast<const T*>(q.u) + r0 * q.su_r, static_cast<unsigned char*>(q.ws), rows, q.K,
+      (int)image_stages(q), q.su_r, q.su_k);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   float* const c0 = p.c;
   for (int a0 = 0; a0 < q.batch; a0 += per) {
@@ -704,7 +825,8 @@ cudaError_t launch_chunk(const Call& q, int r0, int rows, cudaStream_t st, int* 
     p.x = static_cast<const T*>(q.x) + a0 * q.x_batch;
     p.c = c0 == nullptr ? nullptr : c0 + a0 * q.c_batch;
     CUtensorMap mx{};
-    if (p.tma && (err = encode_x<T>(&mx, p.x, q.N, q.K, p.batch, q.x_batch)) != cudaSuccess)
+    if (p.tma && (err = encode_x<T, NK>(&mx, p.x, q.N, q.K, q.k_item ? 1 : p.batch, q.x_batch,
+                                        G::BNT)) != cudaSuccess)
       return err;
     gemm<<<p.tiles < grid ? p.tiles : grid, THREADS, smem, st>>>(mx, p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -717,22 +839,33 @@ cudaError_t launch_chunk(const Call& q, int r0, int rows, cudaStream_t st, int* 
 // warpgroups split R
 inline int image_rows(int rows) { return rows <= 32 ? 32 : rows <= 64 ? 64 : 128; }
 
+// Bytes of u's image for a call (the first, largest chunk's)
+template <typename T>
+long long image_bytes(const Call& q) {
+  return image_stages(q) * (sizeof(T) == 4 ? 2 : 1) * image_rows(q.R < CHUNK ? q.R : CHUNK) * 128;
+}
+
 // The whole call, chunk by chunk (the image workspace holds one chunk's);
 // with info, the first chunk's figures.
-template <typename T>
-cudaError_t launch(const Call& q, cudaStream_t st, int* info) {
+template <typename T, bool NK>
+cudaError_t launch_layout(const Call& q, cudaStream_t st, int* info) {
   for (int r0 = 0; r0 < q.R; r0 += CHUNK) {
     const int rows = q.R - r0 < CHUNK ? q.R - r0 : CHUNK;
     cudaError_t err;
     if (rows <= 32)
-      err = launch_chunk<T, 32, false>(q, r0, rows, st, info);
+      err = launch_chunk<T, 32, false, NK>(q, r0, rows, st, info);
     else if (rows <= 64)
-      err = launch_chunk<T, 64, false>(q, r0, rows, st, info);
+      err = launch_chunk<T, 64, false, NK>(q, r0, rows, st, info);
     else
-      err = launch_chunk<T, 64, true>(q, r0, rows, st, info);
+      err = launch_chunk<T, 64, true, NK>(q, r0, rows, st, info);
     if (err != cudaSuccess || info != nullptr) return err;
   }
   return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch(const Call& q, cudaStream_t st, int* info) {
+  return q.nk ? launch_layout<T, true>(q, st, info) : launch_layout<T, false>(q, st, info);
 }
 
 }  // namespace wide

@@ -40,7 +40,7 @@ SIGNATURES = {
             "atucker_ttt_info": (_P, _P, _I, _I, _I, _I, _I, _I, _L, _I,
                                  _P)},
     "matmul": {"atucker_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-               "atucker_matmul_info": (_P, _I, _I, _I, _I, _P)},
+               "atucker_matmul_info": (_P, _P, _I, _I, _I, _I, _P)},
     "ttm": {"atucker_ttm_interior": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
             "atucker_ttm_interior_info": (_P, _I, _I, _I, _I, _I, _P)},
     "s6_scan": {"atucker_s6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -87,7 +87,8 @@ U_BITS, X_BITS = 11, 10
 
 def matmul_tf32x3_ref(a: torch.Tensor, b: torch.Tensor, products: int = 3,
                       stage: int = 32, truncate: bool = False,
-                      scheme: str = "stage") -> torch.Tensor:
+                      scheme: str = "stage", side: str = "first"
+                      ) -> torch.Tensor:
     """The arithmetic of the wide route of ``csrc/wgmma.cuh`` (the boundary
     GEMM's and the interior TTM's at R > 16) written out in PyTorch, for the
     tests (the kernels never call it): C = a @ b as hi_a·hi_b + hi_a·lo_b +
@@ -114,7 +115,17 @@ def matmul_tf32x3_ref(a: torch.Tensor, b: torch.Tensor, products: int = 3,
       of k is summed from zero in the accumulator, in the old kernel's order
       (per k-step hi·lo and lo·hi, then every hi·hi), and the stages are
       added in fp32.  Truncated, that biases the sums toward zero: the
-      energy of C falls by about 2e-7 of itself."""
+      energy of C falls by about 2e-7 of itself.
+
+    ``side`` says which operand is u: ``"first"`` (the first mode, a = u
+    (R, K), b = x (K, N)) or ``"last"`` (the last mode, a = x (M, K), b =
+    uᵀ (K, R)), which the kernel runs as Cᵀ = u @ xᵀ: the same sums,
+    transposed."""
+    if side not in ("first", "last"):
+        raise ValueError(f"side must be 'first' or 'last', got {side!r}")
+    if side == "last":
+        return matmul_tf32x3_ref(b.T, a.T, products, stage, truncate,
+                                 scheme).T.contiguous()
     if scheme not in ("stage", "grid"):
         raise ValueError(f"scheme must be 'stage' or 'grid', got {scheme!r}")
     a, b = a.float(), b.float()

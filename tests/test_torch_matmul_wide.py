@@ -1,8 +1,9 @@
 """The wide (tensor-core) route of the boundary GEMM, and the ``hopper``
 plans' memory model of the kernels' workspaces, on the CPU.
 
-``csrc/matmul.cu`` runs every first-mode GEMM with R > 16 (u (R, K) @ x
-(K, N), N > R) in one pass over x on the tensor cores: fp32 operands split
+``csrc/matmul.cu`` runs every boundary GEMM with R > 16 (the first mode, u
+(R, K) @ x (K, N), N > R, and the last, x (M, K) @ uᵀ (K, R), R <= M) in
+one pass over x on the tensor cores: fp32 operands split
 into hi = rna_tf32(v) and lo = rna_tf32(v - hi) and three TF32 products
 (hi·hi + hi·lo + lo·hi), bf16 operands one product.  hi is cut to a grid
 on which each 32-deep stage's hi·hi sum is exact in the tensor cores'
@@ -42,7 +43,7 @@ from repro_torch.core.plan import (H100_SMS, _eigh_bytes,
                                    _step_peak_bytes)
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.matmul import (CHUNK, ROUTES, image_rows, loads,
-                                        route, workspace_bytes)
+                                        route, side, workspace_bytes)
 from repro_torch.kernels.ttt import split_plan
 from repro_torch.kernels.ttt import workspace_bytes as ttt_workspace_bytes
 
@@ -292,6 +293,50 @@ class TestSplitTf32Arithmetic:
             assert entry_err(got, want, a, b).max() <= LIMIT
 
 
+#: the last-mode cases: x (2053, 1021) @ uᵀ (1021, R) -- a ragged M of 16
+#: tiles and a ragged last stage -- at every R the wide route's widths take
+LAST_RS = (17, 20, 40, 64, 130, 300)
+
+
+class TestLastModeSums:
+    """The last mode, x (M, K) @ uᵀ (K, R), runs as Cᵀ = u @ xᵀ on the same
+    sums: u's hi cut to U_BITS over its row's bound in a stage, x's to
+    X_BITS over its row's (``matmul_tf32x3_ref(..., side="last")``)."""
+
+    @pytest.mark.parametrize("r", LAST_RS)
+    def test_grid_emulation_against_float64(self, r):
+        """Per entry within the limit, and the energy within 3e-8 of
+        itself, with the accumulator truncating; the reference's
+        ``matmul_ref`` on the same inputs within the limit too."""
+        x, ut = rnd((2053, 1021), 40 + r), rnd((1021, r), 41 + r)
+        assert route(2053, r) == "wide" and side(2053, r) == "last"
+        got = ref.matmul_tf32x3_ref(torch.from_numpy(x), torch.from_numpy(ut),
+                                    truncate=True, scheme="grid",
+                                    side="last").double().numpy()
+        exact = x.astype(np.float64) @ ut.astype(np.float64)
+        assert entry_err(got, exact, x, ut).max() <= LIMIT
+        energy = (exact ** 2).sum()
+        assert abs(((got ** 2).sum() - energy) / energy) < 3e-8
+        want = np.asarray(R_ref.matmul_ref(jnp.asarray(x), jnp.asarray(ut)))
+        assert entry_err(got, want, x, ut).max() <= LIMIT
+
+    def test_is_the_first_modes_sums_transposed(self):
+        """side="last" of (x, uᵀ) is side="first" of (u, xᵀ), transposed,
+        bit for bit: the kernel runs the same sums either way."""
+        x, ut = rnd((300, 100), 42), rnd((100, 40), 43)
+        xt, utt = torch.from_numpy(x), torch.from_numpy(ut)
+        last = ref.matmul_tf32x3_ref(xt, utt, truncate=True, scheme="grid",
+                                     side="last")
+        first = ref.matmul_tf32x3_ref(utt.T.contiguous(), xt.T.contiguous(),
+                                      truncate=True, scheme="grid")
+        assert torch.equal(last, first.T)
+
+    def test_side_is_checked(self):
+        a = torch.zeros((4, 4))
+        with pytest.raises(ValueError, match="side"):
+            ref.matmul_tf32x3_ref(a, a, side="middle")
+
+
 class TestRouteMirror:
     @pytest.mark.parametrize("m,n,want", [
         (10, 353760, "slab"),       # the first mode at R <= 16
@@ -303,13 +348,32 @@ class TestRouteMirror:
         (257, 353760, "wide"),      # two chunks
         (300, 2056, "wide"),
         (76800, 10, "slab"),        # the last mode: x (J, I) @ u^T
-        (76800, 17, "slab"),        # the last mode above R = 16 stays on slabs
-        (353760, 300, "slab"),
-        (64, 64, "slab"),           # N <= M takes the last-mode tiles
+        (76800, 17, "wide"),        # the last mode above R = 16: one pass
+        (353760, 300, "wide"),
+        (64, 64, "wide"),           # N <= M: the last mode's wide route
         (64, 65, "wide"),
     ])
     def test_routes(self, m, n, want):
         assert route(m, n) == want
+
+    @pytest.mark.parametrize("m,n,want", [
+        (64, 353760, "first"), (76800, 64, "last"), (10000, 20, "last"),
+        (64, 64, "last"), (64, 65, "first"), (16, 10, "last")])
+    def test_sides(self, m, n, want):
+        """N > M: u (R, K) @ x (K, N); N <= M: x (M, K) @ uᵀ (K, R), which
+        the kernel reads K-major."""
+        assert side(m, n) == want
+
+    @pytest.mark.parametrize("j,i,r", [(76800, 7000, 10), (76800, 7000, 16),
+                                       (76800, 7000, 17), (10000, 10000, 20),
+                                       (76800, 7000, 64), (4000, 500, 300)])
+    def test_the_last_mode_of_ops_takes_the_wide_route_above_r16(self, j, i,
+                                                                 r):
+        """ops.ttm on the last mode calls matmul(x (J, I), uᵀ (I, R)): the
+        wide route from R = 17 on (Boats' row 2c at R = 64, Cavity's R =
+        20), the slab route at and below 16."""
+        assert route(j, r) == ("wide" if r > 16 else "slab")
+        assert side(j, r) == "last"
 
     @pytest.mark.parametrize("n,dtype,aligned,want", [
         (353760, "float32", True, "tma"), (2052, "float32", True, "tma"),
@@ -327,8 +391,8 @@ class TestRouteMirror:
         sig = _build.SIGNATURES["matmul"]
         assert sig["atucker_matmul"] == (_build._P,) * 4 + (_build._I,) * 4 \
             + (_build._P,)
-        assert sig["atucker_matmul_info"] == (_build._P,) + (_build._I,) * 4 \
-            + (_build._P,)
+        assert sig["atucker_matmul_info"] == (_build._P,) * 2 \
+            + (_build._I,) * 4 + (_build._P,)
 
     @pytest.mark.parametrize("m,n", [(20, 30), (10, 30), (30, 20)])
     def test_cpu_runs_the_plain_version_on_every_route(self, m, n):
@@ -350,7 +414,9 @@ class TestWorkspace:
         assert workspace_bytes(40, 353760, 1021) == 524288   # 40 -> 64 rows
         assert workspace_bytes(64, 353760, 1021, "bfloat16") == 262144
         assert workspace_bytes(10, 353760, 1021) == 0        # slab
-        assert workspace_bytes(64, 60, 1021) == 0            # N <= M: slab
+        # N <= M: the last mode's wide route holds the image of uᵀ's 60
+        # columns (-> 64 rows)
+        assert workspace_bytes(64, 60, 1021) == 524288
 
     @pytest.mark.parametrize("rows,want", [(17, 32), (32, 32), (33, 64),
                                            (64, 64), (65, 128), (96, 128),
@@ -362,6 +428,18 @@ class TestWorkspace:
         assert CHUNK == 128
         assert workspace_bytes(300, 2056, 1021) == \
             workspace_bytes(128, 2056, 1021) == 32 * 2 * 128 * 128
+
+    @pytest.mark.parametrize("m,n,k,dtype,want", [
+        (76800, 64, 7000, "float32", 219 * 2 * 64 * 128),   # row 2c
+        (10000, 20, 10000, "float32", 313 * 2 * 32 * 128),  # Cavity's ALS
+        (10000, 20, 10000, "bfloat16", 313 * 32 * 128),
+        (76800, 10, 7000, "float32", 0),                    # slab
+        (4000, 300, 500, "float32", 16 * 2 * 128 * 128),    # chunks of 128
+    ])
+    def test_image_of_the_last_mode(self, m, n, k, dtype, want):
+        """x (M, K) @ uᵀ (K, R): the image of u's R = N rows, the first
+        chunk's, over ceil(K / 32) stages."""
+        assert workspace_bytes(m, n, k, dtype) == want
 
 
 class TestTttWorkspace:
@@ -544,6 +622,53 @@ class TestHopperStepPeaks:
                 ranks=ranks, methods=methods))
             assert [s.peak_bytes for s in p.schedule] == \
                 [s.peak_bytes for s in r.schedule]
+
+
+class TestLastModePlans:
+    def test_last_mode_gemm_image_is_charged(self, monkeypatch):
+        """ALS at R = 40 on a last mode of I = 100,000 with A = 64: the wide
+        GEMM's image of L (40 -> 64 rows, 3,125 stages) is 51.2 MB, charged
+        on the last mode (neither flag) and on the first (the same u on the
+        other side), outweighing the TTT's workspace once QR's is left
+        out; at R = 16 the slab route holds none."""
+        monkeypatch.setattr(P, "_qr_bytes", lambda *a: 0)
+        image = workspace_bytes(64, 40, 100_000)
+        assert image == 3125 * 2 * 64 * 128 == 51_200_000
+        assert _hopper_workspace_bytes("als", 64, 100_000, 40, 1, 4,
+                                       132) == image
+        assert _hopper_workspace_bytes("als", 1, 100_000, 40, 64, 4, 132,
+                                       first_mode=True) == image
+        assert _hopper_workspace_bytes("als", 64, 100_000, 16, 1, 4,
+                                       132) < image
+
+    @pytest.mark.parametrize("methods", ["eig", "als"])
+    def test_capped_plan_with_a_wide_last_mode(self, methods):
+        """Cavity's shape cut to (24, 24, 600) at ranks (20, 20, 20): the
+        last mode runs its GEMM (and on ALS its TTT) at R = 20 on the wide
+        routes.  Its hopper step adds the last mode's workspace at its
+        view; the largest step peak is a cap the plan admits, one byte
+        less it refuses."""
+        shape, ranks = (24, 24, 600), (20, 20, 20)
+        hs = steps(shape, ranks, "hopper", methods=methods)
+        ms = steps(shape, ranks, "matfree", methods=methods)
+        cur, held = list(shape), 0
+        for h, m in zip(hs, ms):
+            a, b = math.prod(cur[:h.mode]), math.prod(cur[h.mode + 1:])
+            extra = _hopper_workspace_bytes(
+                h.method, a, h.i_n, h.r_n, b, 4, H100_SMS,
+                first_mode=h.mode == 0, interior=0 < h.mode < 2)
+            assert h.peak_bytes == m.peak_bytes + extra + held
+            if h.mode == 2:
+                assert route(a, h.r_n) == "wide" and extra > 0
+            cur[h.mode] = h.r_n
+            held = (held or 4 * math.prod(shape)) + 4 * h.i_n * h.r_n
+        cap = max(s.peak_bytes for s in hs)
+        capped = steps(shape, ranks, "hopper", methods=methods,
+                       memory_cap_bytes=cap)
+        assert max(s.peak_bytes for s in capped) <= cap
+        with pytest.raises(MemoryCapError):
+            steps(shape, ranks, "hopper", methods=methods,
+                  memory_cap_bytes=cap - 1)
 
 
 def test_wide_route_matches_the_plain_version_on_the_card():

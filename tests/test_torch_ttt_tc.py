@@ -26,7 +26,8 @@ import torch
 
 from repro.kernels import ref as R_ref
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.ttt import ROUTES, WIDE_TK, _path, route, split_plan
+from repro_torch.kernels.ttt import (ROUTES, _path, route, split_plan,
+                                     tile_r, workspace_bytes)
 
 LIMIT = 2e-4
 #: the Gram and TTT cases of chip_smoke.py's kernels_small phase:
@@ -132,7 +133,7 @@ class TestRouteMirror:
         (40, 32, "float32", True, "wgmma_tma"),         # 128-byte rows
         (40, 28, "float32", True, "wgmma_plain"),       # 112 bytes: short
         (40, 70, "float32", True, "wgmma_plain"),       # 280: not 16-byte
-        (40, 1, "float32", True, "wgmma_plain"),        # B == 1: MN-major
+        (40, 1, "float32", True, "wgmma_cols"),         # B == 1: the wide GEMM
         (40, 264, "float32", False, "wgmma_plain"),     # misaligned base
         (40, 40, "bfloat16", True, "wgmma_plain"),      # 80 bytes: short
         (40, 64, "bfloat16", True, "wgmma_tma"),
@@ -141,6 +142,22 @@ class TestRouteMirror:
     ])
     def test_wide_routes(self, r, b, dtype, aligned, want):
         assert route(r, b, dtype, aligned) == want
+
+    @pytest.mark.parametrize("r,b,sym,dtype,want", [
+        (20, 1, False, "float32", "wgmma_cols"),   # Cavity's last-mode ALS TTT
+        (20, 1, False, "bfloat16", "wgmma_cols"),
+        (40, 1, True, "float32", "wgmma_plain"),   # a B = 1 Gram keeps its tiles
+        (273, 1, True, "bfloat16", "wgmma_plain"),
+        (142, 10, False, "float32", "wgmma_plain"),  # MNIST's mode-1 ALS TTT
+        (65, 1420, False, "float32", "wgmma_tma"),   # MNIST's mode-0 TTT
+        (65, 1420, False, "bfloat16", "wgmma_plain")])  # 2,840 B rows
+    def test_b1_ttt_takes_the_wide_gemm(self, r, b, sym, dtype, want):
+        """A TTT of B = 1 (y ≠ x) runs on the wide GEMM whatever its
+        alignment (which picks that route's loads); a Gram of B = 1 and
+        every B > 1 keep the tiled routes."""
+        assert route(r, b, dtype, True, sym) == want
+        if b == 1:
+            assert route(r, b, dtype, False, sym) == want
 
     @pytest.mark.parametrize("r,b,aligned,want", [
         (10, 1, True, "cols"), (16, 1, False, "cols"), (10, 264, True, "tile16"),
@@ -152,7 +169,8 @@ class TestRouteMirror:
     def test_route_codes_follow_the_c_library(self):
         """atucker_ttt_info reports the route as its index in ROUTES, after
         the two operand pointers it inspects for alignment."""
-        assert ROUTES == ("cols", "tile16", "wgmma_tma", "wgmma_plain")
+        assert ROUTES == ("cols", "tile16", "wgmma_tma", "wgmma_plain",
+                          "wgmma_cols")
         argtypes = _build.SIGNATURES["ttt"]["atucker_ttt_info"]
         assert argtypes[:2] == (_build._P, _build._P) and len(argtypes) == 11
 
@@ -193,6 +211,8 @@ class TestTiling:
         (150, 150, 3, 70, True, "float32", True),
         (40, 40, 273, 1, True, "float32", True),
         (130, 20, 300, 1, False, "bfloat16", True),
+        (10000, 20, 10000, 1, False, "float32", True),   # Cavity: wgmma_cols
+        (5000, 142, 784, 10, False, "float32", True),    # MNIST mode 1
         (7, 300, 5, 37, False, "float32", True),
     ])
     def test_splits_cover_k_exactly(self, i, r, a, b, sym, dtype, aligned):
@@ -200,14 +220,89 @@ class TestTiling:
         reduction, in whole TK-deep stages; the grid is one wave of 132
         SMs, short of it only where longer splits could not be halved
         without dropping below eight stages."""
-        rt = route(r, b, dtype, aligned)
+        rt = route(r, b, dtype, aligned, sym)
         assert rt.startswith("wgmma")
         splits, per = split_plan(i, r, a * b, b, sym, 132, dtype, aligned)
-        tk = WIDE_TK[dtype]
-        tiles, _, _, n_k = _path(i, r, a, b, sym, rt, dtype)
+        tiles, tk, _, n_k = _path(i, r, a, b, sym, rt, dtype)
         extent = n_k * tk    # whole stages: A·ceil(B/TK)·TK on TMA, ≥ A·B
         assert extent >= a * b
         assert per % tk == 0
         assert (splits - 1) * per < extent <= splits * per
+        if rt == "wgmma_cols":   # persistent blocks: the busiest one's stages
+            busiest = math.ceil(splits * tiles / 132) * (per // tk)
+            assert busiest <= 1.05 * min(
+                math.ceil(s * tiles / 132) * math.ceil(n_k / s)
+                for s in range(1, max(1, min(n_k // 8, 64)) + 1))
+            return
         assert tiles * splits < 132 + tiles
         assert tiles * splits >= 132 or per <= 16 * tk
+
+
+class TestFittedTiles:
+    """The wide routes' tiling at the R of the paper's Table III: Cavity's
+    last mode (I = 10,000, R = 20, B = 1: wgmma_cols), MNIST's mode 1 (I =
+    5,000, R = 142, B = 10) and the sketch's R = 64, against the reduction
+    of A = 10,000 (B = 1) or 784 (B = 10)."""
+
+    @pytest.mark.parametrize("r,want", [(17, 32), (20, 32), (32, 32),
+                                        (33, 64), (64, 64), (65, 128),
+                                        (142, 128), (1340, 128)])
+    def test_tile_r_fits_r(self, r, want):
+        assert tile_r(r, False) == want
+        assert tile_r(r, True) == 128        # a Gram's tiles stay square
+
+    @pytest.mark.parametrize("r,b,a,want", [
+        # (R, B, A): (output tiles, TK, blocks per SM, stages)
+        (20, 1, 10000, (79, 32, 1, 313)),     # 128 x 32 outputs a tile
+        (64, 1, 10000, (79, 32, 1, 313)),
+        (142, 1, 10000, (157, 32, 1, 313)),   # the warpgroups split R: 64 x
+        (20, 10, 784, (40, 32, 1, 245)),      # 40 row tiles x 1 of 32
+        (64, 10, 784, (40, 32, 1, 245)),      # x 1 of 64
+        (142, 10, 784, (80, 32, 1, 245)),     # x 2 of 128
+    ])
+    def test_path(self, r, b, a, want):
+        i = 10000 if b == 1 else 5000
+        rt = route(r, b, "float32", True)
+        assert rt == ("wgmma_cols" if b == 1 else "wgmma_plain")
+        assert _path(i, r, a, b, False, rt, "float32") == want
+
+    def test_the_tiles_at_r64_are_full(self):
+        """The sketch's range sample at R = 64 (y ≠ x, B = 264): one 64-wide
+        column tile a row tile, where the 128-wide tile was half zeros."""
+        assert _path(1340, 64, 1021, 264, False, "wgmma_tma",
+                     "float32")[0] == 11
+
+    @pytest.mark.parametrize("r,b,a,want", [
+        (20, 1, 10000, (5, 63 * 32)),        # 5 x 79 tiles: 3 a block
+        (64, 1, 10000, (5, 63 * 32)),
+        (142, 1, 10000, (5, 63 * 32)),
+        (20, 10, 784, (4, 62 * 32)),          # 40 tiles: 4 splits fill 132
+        (64, 10, 784, (4, 62 * 32)),
+        (142, 10, 784, (2, 123 * 32)),        # 80 tiles: 2 splits
+    ])
+    def test_split_plan(self, r, b, a, want):
+        i = 10000 if b == 1 else 5000
+        for dtype in ("float32", "bfloat16") if b == 1 else ("float32",):
+            assert split_plan(i, r, a * b, b, False, 132, dtype) == want
+
+    @pytest.mark.parametrize("r,b,a,dtype,want", [
+        # splits x I x R fp32 partial sums; B = 1 also y's image after them:
+        # splits x 63 stages of (hi, lo) tiles of 32/64/128 rows x 128 bytes
+        (20, 1, 10000, "float32", 4_000_000 + 5 * 63 * 2 * 32 * 128),
+        (20, 1, 10000, "bfloat16", 4_000_000 + 5 * 63 * 32 * 128),
+        (64, 1, 10000, "float32", 5 * 10000 * 64 * 4 + 5 * 63 * 2 * 64 * 128),
+        (142, 1, 10000, "float32",                 # 256-byte aligned
+         28_400_128 + 5 * 63 * 2 * 128 * 128),
+        (20, 10, 784, "float32", 4 * 5000 * 20 * 4),
+        (142, 10, 784, "float32", 2 * 5000 * 142 * 4),
+    ])
+    def test_workspace(self, r, b, a, dtype, want):
+        i = 10000 if b == 1 else 5000
+        assert workspace_bytes(a, i, r, b, False, 132, dtype) == want
+
+    def test_an_unsplit_b1_ttt_holds_only_the_image(self):
+        """A reduction too short to split writes z directly: the workspace
+        is y's image alone (2 stages of 64-row tiles)."""
+        assert split_plan(1021, 40, 64, 1, False, 132) == (1, 64)
+        assert workspace_bytes(64, 1021, 40, 1, False, 132) == \
+            2 * 2 * 64 * 128
