@@ -5,12 +5,13 @@
 
 It drives the port's paths -- fixed-rank Tucker ``plan -> execute``, the
 adaptive Tucker path (error targets, the fallback ladder's rand->eig hop,
-the schedule search under a memory cap) and serving falcon-mamba-7b --
-through four hand-written Hopper kernels: TTT/Gram, boundary GEMM,
-interior TTM and the Mamba-1 selective scan (S6); then the streaming
-Tucker service (``repro_torch.serve.TuckerService``) over those kernels,
-and the tune flywheel that trains the solver selector ``methods="auto"``
-loads on the card.
+the schedule search under a memory cap), serving falcon-mamba-7b and
+training it -- through five hand-written Hopper kernels: TTT/Gram,
+boundary GEMM, interior TTM, the Mamba-1 selective scan (S6) and its
+backward; then the streaming Tucker service
+(``repro_torch.serve.TuckerService``) over those kernels, and the tune
+flywheel that trains the solver selector ``methods="auto"`` loads on the
+card.
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
@@ -51,7 +52,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
             last-mode GEMM and TTT at R = 20 (rows 2d, 1d), the main-path
             Gram in bf16 and MNIST's interior TTM at R = 142 (row 3c).
             S6 is also timed at every shape the serve run gives it, on both
-            of its routes.
+            of its routes.  The S6 backward (``csrc/s6_scan_bwd.cu``) is
+            held against ``s6_scan_bwd_ref`` (the reverse recurrence) on the
+            S6 test shapes, ragged T/Di/N (N = 4 ... 64), T = 1, a nonzero
+            h0 and dh_final, strided B/C, fp32 and bf16, from the states of
+            both forward routes: every gradient within 1e-4 of its
+            max|plain| (a bf16 output also within 2**-7 of the entry: each
+            side rounds its own fp32 sum once); then at the training shape
+            (2, 2048, 8192, 16), bitwise equal on a second run, timed
+            beside its bound (the larger of its bytes and the
+            exponentials the gradient needs, one per (b, t, d, n)).
 4. main     ``plan -> execute`` with ``impl="auto"`` on the paper's Table III
             Boats (320, 240, 7000), HSI (1021, 1340, 33, 8), Cavity (100,
             100, 10000) and MNIST (784, 5000, 10) tensors at full size
@@ -188,6 +198,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
             first capture of a new bucket while this thread admits 32 CUDA
             inputs with ``validate="finite"``; nothing fails and every
             result is bitwise a serial run's.
+6d. train  falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
+            N 16, vocab 65,024, bf16, remat) cut to 16 layers (the training
+            state of 64 layers, 114 GB, does not fit the card; printed with
+            its reckoning) trains 8 steps of SyntheticLM(seed 0) at 2 x 2048
+            tokens with launch/train's AdamW recipe and the Tucker-
+            compressed step (``CompressionConfig()``, the factors refreshed
+            at step 0).  Prints per step ms, tokens/s, peak allocated bytes,
+            loss, grad norm and the compressor's dense/compressed bytes;
+            the last step runs under torch.profiler (device busy ms, idle
+            share, top device ops).  Gates: finite losses, the last below
+            the first; S6 backward launches = 16 x 8; on the refresh step
+            every compressed leaf's factors orthonormal (1e-4), g_hat +
+            error = g_fb (1e-5 of max|g_fb|) and the reduced gradient
+            bitwise g_hat in bf16; the peak under 90% of the card.
+    ckpt_codec the trained weights saved with ``compress_cfg=
+            CompressionConfig()``: every eligible stacked leaf through the
+            Tucker tier, on ``hopper`` (ttt, matmul and ttm_interior must
+            launch), each leaf's rel_error within 1e-4 of the same methods
+            on ``matfree``, or, only for a leaf that ``matfree`` keeps to
+            within the Gram's resolution (its rel_error² under
+            ENTRY_TOL), its rel_error² within ENTRY_TOL of matfree's; per
+            leaf its shape, ranks, solvers, ms, rel_error, the clause it
+            passed by and bytes;
+            then restored into a fresh model that serves 4 requests x 32
+            tokens through ServeEngine (valid tokens, finite logits).
+    train_resume falcon-mamba SMOKE on the card through ``Trainer``
+            (compressed steps, ckpt_every=3): 6 steps, then a new Trainer
+            restores and runs to 8; parameters, optimizer and compressor
+            state bitwise those of an uninterrupted 8-step run.  The three
+            phases print their seconds; their checkpoints go to temporary
+            directories that are removed.
 7. tune     the tune flywheel (``repro_torch.tune``): a training set
             (seed 0) and a test set (seed 1) of tensors of order 3 and 4,
             dims log-uniform in [8, 8192], at most 2**29 elements, ranks
@@ -241,8 +282,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
             row carries the Gram's under "gram" and the range sample's under
             "sketch", the GEMM row its wide route's under "wide";
             ``launches_adaptive`` counts the adaptive phase,
-            ``launches_tucker_serve`` the streams of tucker_serve and
-            ``launches_sharded`` the sharded phase's ranks), after a
+            ``launches_tucker_serve`` the streams of tucker_serve,
+            ``launches_sharded`` the sharded phase's ranks,
+            ``launches_train`` and ``launches_ckpt_codec`` phase 6d's; the
+            ``s6_scan_bwd`` row's launches are the train phase's), after a
             ``run`` line with the whole run's seconds; then the
             ``nvidia-smi`` name/power-limit line; then the final
             ``{"ok": true, "device": ...}`` line.
@@ -250,8 +293,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 ``python3 chip_smoke.py --only kernels`` runs phases 1-3 only (the quick
 check after a kernel edit), ``--only tune`` phases 1, 2 and 7 (the
 command that trains the shipped cuda models), ``--only tucker_serve``
-phases 1, 2 and 6b and ``--only sharded`` phases 1, 2 and 6c; none prints
-the kernels line.
+phases 1, 2 and 6b, ``--only sharded`` phases 1, 2 and 6c and ``--only
+train`` phases 1, 2, the S6 backward's checks of phase 3 and 6d; none
+prints the kernels line.
 
 Imports nothing of JAX nor of the JAX package ``repro``.
 """
@@ -318,6 +362,11 @@ KERNELS = {
                          replaces="src/repro/kernels/ttm.py:39"),
     "s6_scan": dict(source="src/repro_torch/csrc/s6_scan.cu",
                     replaces="src/repro/kernels/s6_scan.py:51"),
+    # no Pallas kernel: the reference's training differentiates its jnp
+    # chunked scan
+    "s6_scan_bwd": dict(source="src/repro_torch/csrc/s6_scan_bwd.cu",
+                        replaces="none (jax.grad of src/repro/models/ssm.py:69"
+                                 " _s6_scan)"),
 }
 #: serve phase: prompt lengths of the 6 requests (the longest fills the
 #: 8192-token context with one token to spare), new tokens per request, the
@@ -336,6 +385,24 @@ WATCH, K_CARRY = 0, 8
 #: random-weight logits (measured on the H100), so the bf16 figures are
 #: reported, not held to a limit.
 CARRY_TOL = 1e-3
+#: the S6 scan's shape in the train phase: (B, T, Di, N) of falcon-mamba-7b
+#: at 2 sequences of 2048 tokens
+TRAIN_S6 = (2, 2048, 8192, 16)
+#: the codec on hopper against matfree, the same methods on the same leaf:
+#: |Δ rel_error| <= CODEC_REL_TOL, or, only for a leaf whose discarded
+#: energy on matfree lies below the hopper Gram's resolution (matfree's
+#: rel_error² < ENTRY_TOL), |Δ rel_error²| <= ENTRY_TOL.
+#: The tensor-core Gram holds each entry within ENTRY_TOL of its own scale,
+#: so directions carrying less than that share of the energy are not
+#: resolved: a near rank-1 leaf (the stacked a_log) may keep a different
+#: subspace inside that share, and rel_error = sqrt(the discarded share)
+#: magnifies it (on an H100 at 700 W: rel_error 3.0e-3 on hopper, 2.1e-4
+#: on matfree, 9e-6 of the energy apart)
+CODEC_REL_TOL = 1e-4
+#: the train phase: falcon-mamba-7b at full width cut to TRAIN_LAYERS
+#: layers (the training state of 64 does not fit the card: PERF.md §4),
+#: TRAIN_STEPS steps of TRAIN_BATCH sequences of TRAIN_SEQ tokens
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 16, 8, 2, 2048
 
 
 def emit(phase: str, **kw) -> None:
@@ -495,6 +562,7 @@ def phase_kernel_shapes(torch):
     phase_matmul_wide_shapes(torch)
     phase_ttm_shapes(torch)
     phase_s6_shapes(torch)
+    phase_s6_bwd_shapes(torch)
 
 
 def s6_inputs(torch, g, bsz, t, di, n, dtype, *, strided=False, h0=False,
@@ -574,6 +642,145 @@ def phase_s6_shapes(torch):
          chunk_lens=chunks, chunked_min_work=s6.CHUNKED_MIN_WORK,
          dtypes=["float32", "bfloat16"], max_abs_err=worst, tol_rel=TOL,
          ok=True)
+
+
+#: the S6 backward's tolerance: each gradient within TOL * max|plain|; an
+#: output in bf16 (dx, dB, dC when x is bf16) also within 2**-7 of the
+#: entry, since each side rounds its own fp32 sum to bf16 once and two
+#: nearby sums may round one bf16 unit (2**-7 relative at most) apart
+BF16_UNIT = 2.0 ** -7
+S6_GRADS = ("dx", "ddt", "dB", "dC", "da", "dh0")
+
+
+def close_grad(torch, got, want) -> float:
+    """max|got - want| / max|want| of one gradient, checked against TOL
+    (plus BF16_UNIT of the entry for a bf16 output)."""
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    scale = float(w.max())
+    room = TOL * max(scale, 1e-30) + (BF16_UNIT * w if got.dtype ==
+                                      torch.bfloat16 else 0.0)
+    require(bool(torch.isfinite(d).all()) and bool((d <= room).all()),
+            f"s6_scan_bwd: max|kernel - plain| = {float(d.max()):.3e} beyond "
+            f"{TOL:g} * {scale:.3e}" + (" + 2**-7 |plain|"
+                                        if got.dtype == torch.bfloat16 else ""))
+    return float(d.max()) / max(scale, 1e-30)
+
+
+def s6_bwd_check(torch, g, ops, force, dh_final):
+    """The backward kernel on one case against s6_scan_bwd_ref: returns the
+    worst relative error of each gradient."""
+    from repro_torch.kernels import ref, s6_scan_bwd
+    s6 = s6_module()
+    x, dt, bm, cm, a, h0 = ops
+    y, hf, states, stride = s6.forward_with_states(*ops, force_route=force)
+    dy = torch.randn(y.shape, generator=g, device="cuda")
+    dhf = (torch.randn(hf.shape, generator=g, device="cuda")
+           if dh_final else None)
+    got = s6_scan_bwd(*ops, dy, dhf, states=states, stride=stride)
+    want = ref.s6_scan_bwd_ref(*ops, dy, dhf)
+    return {k: close_grad(torch, gv, wv)
+            for k, gv, wv in zip(S6_GRADS, got, want)}
+
+
+def phase_s6_bwd_shapes(torch):
+    """The S6 backward kernel against its plain reverse recurrence on the
+    card: the shapes of the reference's S6 tests, ragged T, Di and N (every
+    state width N = 4 ... 64), T = 1, a nonzero h0 and dh_final, strided
+    B/C, fp32 and bf16, from the states of both forward routes (the single
+    pass's every SAVE_STRIDE steps, the chunked route's phase B), and the
+    chunked route at its chunk edges."""
+    s6 = s6_module()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    lc = s6.CHUNK_MIN
+    # (B, T, Di, N, strided, h0, dh_final)
+    cases = [(2, 128, 64, 8, False, False, False), (1, 64, 32, 4, False, False, True),
+             (3, 96, 16, 16, False, True, False), (2, 37, 5, 4, False, True, True),
+             (2, 77, 200, 16, True, True, True), (2, 33, 70, 5, True, False, True),
+             (1, 40, 48, 32, False, True, False), (1, 50, 40, 64, True, True, True),
+             (3, 1, 100, 16, True, True, True), (1, lc - 1, 200, 16, True, True, True),
+             (2, lc + 1, 70, 16, True, False, True), (2, 2 * lc + 3, 200, 5, True, True, True),
+             (1, 3 * lc + 17, 300, 16, True, False, False)]
+    worst = dict.fromkeys(S6_GRADS, 0.0)
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for bsz, t, di, n, strided, h0, dhf in cases:
+            ops = s6_inputs(torch, g, bsz, t, di, n, dtype, strided=strided,
+                            h0=h0)
+            for force in s6.ROUTES:
+                errs = s6_bwd_check(torch, g, ops, force, dhf)
+                worst = {k: max(worst[k], errs[k]) for k in worst}
+                n_cases += 1
+    torch.cuda.synchronize()
+    emit("kernels_small", name="s6_scan_bwd", cases=n_cases,
+         routes=list(s6.ROUTES), dtypes=["float32", "bfloat16"],
+         max_rel_err=worst, tol_rel=TOL, bf16_unit=BF16_UNIT, ok=True)
+
+
+def s6_bwd_bound(bsz, t, di, n, stride, xbytes, peaks):
+    """The S6 backward's bound at (bsz, t, di, n): the larger of its bytes
+    (x, dt, B, C, a, the chunk states, dy and dh_final read once; dx, ddt,
+    dB, dC, da and dh0 written once) over HBM and the exponentials that the
+    gradient needs, exp(dt_t·a) once for each (b, t, d, n) as in row 4's
+    bound, over the SFU rate.  The kernel computes each four times (two
+    passes, each a forward recompute and a reverse walk): that recompute is
+    part of the gap to the bound, not of the bound.  Returns (terms in ms,
+    the largest's name, bytes, exponentials)."""
+    bw, _, _, sfu = peaks
+    k = -(-t // stride)
+    nbytes = (bsz * t * di * (2 * xbytes + 4 + 4 + 4) + 4 * bsz * t * n * xbytes
+              + 2 * di * n * 4 + (k + 2) * bsz * di * n * 4)
+    exps = bsz * t * di * n
+    terms = {"bytes": nbytes / bw * 1e3, "exponentials": exps / sfu * 1e3}
+    return terms, max(terms, key=terms.get), nbytes, exps
+
+
+def s6_bwd_full(torch, peaks) -> dict:
+    """Row 4b: the S6 backward at the training shape, (B, T, Di, N) = (2,
+    2048, 8192, 16), bf16 x and strided B/C as the model gives them, from
+    the states of the route the training forward takes (h0 none): held to
+    its plain version, bitwise equal on a second run, timed with CUDA
+    events (ms) and under torch.profiler (device_ms), beside its bound."""
+    import importlib
+    from repro_torch.kernels import ref
+    s6 = s6_module()
+    bwd = importlib.import_module("repro_torch.kernels.s6_scan_bwd")
+    bsz, t, di, n = TRAIN_S6
+    g = torch.Generator(device="cuda").manual_seed(9)
+    ops = s6_inputs(torch, g, bsz, t, di, n, torch.bfloat16, strided=True,
+                    model_dt=True)
+    ops = (*ops[:4], model_a(torch, di, n), None)
+    _, hf, states, stride = s6.forward_with_states(*ops)
+    dy = torch.randn((bsz, t, di), generator=g, device="cuda")
+    dhf = torch.zeros_like(hf)
+
+    def call():
+        return bwd.s6_scan_bwd(*ops, dy, dhf, states=states, stride=stride)
+    got, again = call(), call()
+    require(all(torch.equal(p, q) for p, q in zip(got[:5], again[:5])),
+            "s6_scan_bwd: two runs on the same inputs differ")
+    want = ref.s6_scan_bwd_ref(*ops, dy, dhf)
+    errs = {k: close_grad(torch, gv, wv)
+            for k, gv, wv in zip(S6_GRADS[:5], got[:5], want[:5])}
+    max_abs = max(float((gv.float() - wv.float()).abs().max())
+                  for gv, wv in zip(got[:5], want[:5]))
+    del got, again, want
+    terms, by, nbytes, exps = s6_bwd_bound(bsz, t, di, n, stride, 2, peaks)
+    out = dict(shapes=[bsz, t, di, n], route=s6.route(bsz, t, di),
+               state_stride=stride, max_abs_err=max_abs, max_rel_err=errs,
+               bitwise_repeat=True, ms=time_ms(torch, call),
+               device_ms=device_ms(torch, call),
+               plain_ms=time_ms(torch, lambda: ref.s6_scan_bwd_ref(
+                   *ops, dy, dhf), runs=1),
+               bound_ms=terms[by], bound_by=("bytes" if by == "bytes"
+                                             else "operations"),
+               bound_terms_ms=terms, bytes=nbytes, exponentials=exps,
+               library_ms=None,
+               launch=bwd.launch_info(bsz, t, di, n, torch.bfloat16, stride))
+    emit("kernel_full", name="s6_scan_bwd", **out)
+    del ops, states, dy
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_ttt_wide_shapes(torch):
@@ -1053,6 +1260,7 @@ def phase_kernels_full(torch, peaks):
     del x6, dt6, bm6, cm6, a6, h06, s6_args
     torch.cuda.empty_cache()
     out["s6_scan"]["by_shape"] = phase_s6_by_shape(torch, peaks)
+    out["s6_scan_bwd"] = s6_bwd_full(torch, peaks)
 
     # ttt: the Boats mode-2 ALS TTT (B = 1, a 76,800-deep reduction)
     x, y = rnd(76800, 7000, 1), rnd(76800, 10, 1)
@@ -2665,6 +2873,354 @@ def carry_stats(torch, bundle, params, req, dec) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6d: training falcon-mamba-7b at full width, the Tucker checkpoint
+# codec on its weights, and a bitwise resume
+# ---------------------------------------------------------------------------
+
+def train_memory(cfg, layers: int) -> dict:
+    """The training state's bytes at ``layers`` layers: bf16 parameters and
+    gradients (4 B), AdamW's fp32 m and v (8 B), and the compressor's fp32
+    error feedback on the eligible stacked leaves (4 B)."""
+    from repro_torch.optim.grad_compress import CompressionConfig
+    d, di, n, v = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.vocab_padded
+    r = max(1, math.ceil(d / 16))
+    per_layer = {"in_proj": (d, 2 * di), "conv_w": (cfg.ssm_conv, di),
+                 "x_proj": (di, r + 2 * n), "dt_proj": (r, di), "a_log": (di, n),
+                 "conv_b": (di,), "dt_bias": (di,), "d_skip": (di,),
+                 "out_proj": (di, d), "norm": (d,)}
+    comp = CompressionConfig()
+    layer = sum(math.prod(s) for s in per_layer.values())
+    eligible = sum(math.prod(s) for s in per_layer.values()
+                   if comp.ranks_for((layers,) + s) is not None)
+    top = 2 * v * d + d
+    params = layers * layer + top
+    return dict(params_per_layer=layer, params_top=top, params=params,
+                bytes=params * 12 + layers * eligible * 4)
+
+
+def phase_train(torch) -> tuple:
+    """falcon-mamba-7b at full width and TRAIN_LAYERS layers trained for
+    TRAIN_STEPS compressed steps on SyntheticLM(seed 0) at TRAIN_BATCH x
+    TRAIN_SEQ tokens, with launch/train's AdamW recipe and
+    CompressionConfig() (the factors refreshed at step 0).  Returns (the
+    trained model, the S6 launches of the run)."""
+    from repro_torch import configs, kernels
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.models.convert import leaves, param_tree
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.train_step import (init_state,
+                                              make_compressed_train_step)
+    full = configs.get("falcon-mamba-7b")
+    cfg = full.with_(n_layers=TRAIN_LAYERS)
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit("train_config", model=cfg.name, layers=cfg.n_layers,
+         published_layers=full.n_layers, d_model=cfg.d_model,
+         d_inner=cfg.d_inner, ssm_state=cfg.ssm_state, vocab=cfg.vocab,
+         dtype=cfg.dtype, remat=cfg.remat, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=TRAIN_STEPS, card_bytes=total,
+         state_at_published_depth=train_memory(full, full.n_layers),
+         state_at_cut=train_memory(full, TRAIN_LAYERS),
+         cut_reason="bf16 params and grads, fp32 AdamW moments and fp32 "
+                    "error feedback at 64 layers exceed the card; 16 layers "
+                    "leave room for the step's transients")
+    bundle = build(cfg)
+    opt = AdamW(lr=cosine_schedule(3e-4, TRAIN_STEPS // 10, TRAIN_STEPS))
+    comp = gc.CompressionConfig()
+    t0 = time.perf_counter()
+    state = init_state(bundle, opt, 0, compression=comp, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = make_compressed_train_step(bundle, opt, comp)
+    src = SyntheticLM(DataConfig(seed=0), cfg, TRAIN_SEQ, TRAIN_BATCH,
+                      device="cuda")
+    checks = {}
+    real = gc.compress_psum
+
+    def checked(cfg_, grads, st, *, refresh, group=None):
+        """The refresh step's compressor, with g_fb kept on the host."""
+        g_fb = {}
+        for path, g in leaves(grads):
+            s = dict(state_leaves(st))[path]
+            if s is not None:
+                parts = g if isinstance(g, list) else [g]
+                g_fb[path] = torch.stack([p.float().cpu() for p in parts]) \
+                    .reshape(s["error"].shape) + s["error"].cpu()
+        red, new, stats = real(cfg_, grads, st, refresh=refresh, group=group)
+        for path, fb in g_fb.items():
+            s = dict(state_leaves(new))[path]
+            fb = fb.cuda()
+            g_hat = gc._expand(gc._project(fb, s["factors"]), s["factors"])
+            r = dict(leaves(red))[path]
+            r = torch.stack(r) if isinstance(r, list) else r
+            same = bool(torch.equal(r, g_hat.to(r.dtype).reshape(r.shape)))
+            del r
+            gap = float(g_hat.add_(s["error"]).sub_(fb).abs().max()
+                        / fb.abs().max())
+            ortho = max(float((u.T @ u - torch.eye(u.shape[1], device="cuda"))
+                              .abs().max()) for u in s["factors"] if u is not None)
+            checks["/".join(path)] = dict(
+                shape=list(fb.shape), feedback_rel_gap=gap,
+                reduced_is_bf16_of_g_hat=same, factors_orthonormality=ortho)
+            del fb, g_hat
+        return red, new, stats
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rows, prof = [], None
+    for step in range(TRAIN_STEPS):
+        batch = src.batch_at(step)
+        refresh = step % comp.refresh_every == 0
+        fn = steps[refresh]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if step == TRAIN_STEPS - 1:        # the last step under the profiler
+            held = {}
+
+            def run():
+                held["out"] = steps[False](state, batch)
+            prof = profile_call(torch, run, rows[-1]["ms"])
+            state, m = held.pop("out")
+        elif refresh:
+            gc.compress_psum = checked
+            try:
+                state, m = fn(state, batch)
+            finally:
+                gc.compress_psum = real
+        else:
+            state, m = fn(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(step=step, refresh=refresh,
+                         profiled=step == TRAIN_STEPS - 1, ms=ms,
+                         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                         peak_allocated=torch.cuda.max_memory_allocated(),
+                         loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                         bytes_dense=int(m["bytes_dense"]),
+                         bytes_compressed=int(m["bytes_compressed"])))
+        emit("train_step", **rows[-1])
+    counts = kernels.launch_counts()
+    losses = [r["loss"] for r in rows]
+    peak = max(r["peak_allocated"] for r in rows)
+    require(all(math.isfinite(v) for v in losses), f"train: losses {losses}")
+    require(losses[-1] < losses[0],
+            f"train: last loss {losses[-1]} not below the first {losses[0]}")
+    require(counts["s6_scan_bwd"] == cfg.n_layers * TRAIN_STEPS,
+            f"train: s6_scan_bwd launched {counts['s6_scan_bwd']} times, want "
+            f"{cfg.n_layers} x {TRAIN_STEPS}")
+    require(len(checks) == sum(s is not None for _, s in
+                               state_leaves(state.compressor)),
+            "train: a compressed leaf was not checked")
+    for name, c in checks.items():
+        require(c["factors_orthonormality"] <= 1e-4,
+                f"train: {name}'s factors are not orthonormal: "
+                f"{c['factors_orthonormality']:.2e}")
+        require(c["feedback_rel_gap"] <= 1e-5,
+                f"train: {name}: g_hat + error - g_fb = "
+                f"{c['feedback_rel_gap']:.2e} of max|g_fb|")
+        require(c["reduced_is_bf16_of_g_hat"],
+                f"train: {name}'s reduced gradient is not g_hat in bf16")
+    require(peak < 0.9 * total,
+            f"train: peak {peak} B is not under 90% of the card's {total} B")
+    plain = [r["ms"] for r in rows if not r["refresh"] and not r["profiled"]]
+    emit("train", layers=cfg.n_layers, steps=TRAIN_STEPS, init_s=init_s,
+         refresh_ms=rows[0]["ms"], step_ms_median=statistics.median(plain),
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / statistics.median(plain) * 1e3,
+         peak_allocated=peak, card_bytes=total, losses=losses,
+         launches={k: v for k, v in counts.items() if v},
+         refresh_checks=checks, profiled_step=prof, ok=True)
+    params = state.params
+    del state, steps
+    torch.cuda.empty_cache()
+    return params, counts
+
+
+def state_leaves(tree, prefix=()):
+    """(path, leaf state) of a compressor state (None: not compressed)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict) and "error" not in v:
+            out += state_leaves(v, prefix + (k,))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def phase_ckpt_codec(torch, params) -> dict:
+    """The trained TRAIN_LAYERS-layer weights saved with the Tucker codec
+    (``CompressionConfig()``): every eligible stacked leaf through
+    ``sthosvd(methods="auto", impl="auto")`` on the card, which must
+    resolve to ``hopper`` and launch ttt, matmul and ttm_interior; each
+    leaf's rel_error within 1e-4 of the same methods on ``matfree``, or,
+    where matfree's rel_error² is under ENTRY_TOL, its rel_error² within
+    ENTRY_TOL of matfree's (``CODEC_REL_TOL``; each leaf's record names the
+    clause it passed by); then
+    restored into a fresh model that serves 4 requests x 32 tokens through
+    ServeEngine (valid tokens, finite logits)."""
+    import tempfile
+    from repro_torch import configs, kernels
+    from repro_torch.checkpoint.checkpointer import (Checkpointer,
+                                                     tree_flatten)
+    from repro_torch.core.sthosvd import sthosvd
+    from repro_torch.models import build
+    from repro_torch.models.convert import load_tree, tree_from_params
+    from repro_torch.optim.grad_compress import CompressionConfig
+    from repro_torch.serve import Request, ServeEngine
+    cfg = configs.get("falcon-mamba-7b").with_(n_layers=TRAIN_LAYERS)
+    comp = CompressionConfig()
+    with tempfile.TemporaryDirectory(prefix="ckpt_codec_") as d:
+        tree = tree_from_params(params)
+        flat = tree_flatten(tree)
+        eligible = [i for i, v in enumerate(flat)
+                    if comp.ranks_for(tuple(v.shape)) is not None]
+        ck = Checkpointer(d)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ck.save(1, tree, compress_cfg=comp, blocking=True)
+        save_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        log = ck.tucker_log
+        require([r["index"] for r in log] == eligible,
+                f"ckpt_codec: Tucker leaves {[r['index'] for r in log]}, "
+                f"eligible {eligible}")
+        require(all(r["backend"] == "hopper" for r in log),
+                f"ckpt_codec: backends {[r['backend'] for r in log]}")
+        for k in ("ttt", "matmul", "ttm_interior"):
+            require(counts[k] > 0, f"ckpt_codec: {k} never launched")
+        for r in log:
+            x = flat[r["index"]].float()
+            ref = sthosvd(x, r["ranks"], methods=tuple(r["methods"]),
+                          impl="matfree", device=x.device,
+                          block_until_ready=True)
+            r["rel_error_matfree"] = float(ref.tucker.rel_error(x))
+            r["d_rel_error"] = r["rel_error"] - r["rel_error_matfree"]
+            r["d_energy"] = r["rel_error"] ** 2 - r["rel_error_matfree"] ** 2
+            del x, ref
+            if abs(r["d_rel_error"]) <= CODEC_REL_TOL:
+                r["passed_by"] = "rel_error"
+            elif (r["rel_error_matfree"] ** 2 < ENTRY_TOL
+                  and abs(r["d_energy"]) <= ENTRY_TOL):
+                r["passed_by"] = "energy"
+            else:
+                r["passed_by"] = None
+            emit("ckpt_codec_leaf", **r)
+            require(r["passed_by"] is not None,
+                    f"ckpt_codec: leaf {r['index']} rel_error "
+                    f"{r['rel_error']} vs matfree {r['rel_error_matfree']}")
+        disk = sum(p.stat().st_size for p in Path(d).rglob("*") if p.is_file())
+        del tree, flat, params
+        torch.cuda.empty_cache()
+        bundle = build(cfg)
+        fresh = bundle.init(1, "cuda")
+        restored, step = Checkpointer(d).restore(tree_from_params(fresh, "cpu"))
+        load_tree(fresh, restored)
+        del restored
+    eng = ServeEngine(bundle, fresh, batch_slots=4, max_len=64)
+    finite = [True]
+    inner_prefill, inner_decode = eng._prefill, eng._decode
+
+    def watch(fn):
+        def run(*args):
+            logits, c = fn(*args)
+            finite[0] &= bool(torch.isfinite(logits).all())
+            return logits, c
+        return run
+    eng._prefill, eng._decode = watch(inner_prefill), watch(inner_decode)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (8,), generator=g,
+                                         device="cuda").tolist(),
+                    max_new_tokens=32, rid=i) for i in range(4)]
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    require(finite[0], "ckpt_codec: non-finite logits from the restored model")
+    for r in reqs:
+        require(len(r.output) == 32 and all(0 <= v < cfg.vocab for v in r.output),
+                f"ckpt_codec: request {r.rid} got {r.output}")
+    out = dict(leaves=len(log), save_s=save_s, disk_bytes=disk,
+               bytes_raw=sum(r["bytes_raw"] for r in log),
+               bytes_tucker=sum(r["bytes_tucker"] for r in log),
+               launches={k: v for k, v in counts.items() if v},
+               ttt_routes=kernels.ttt_route_counts(),
+               matmul_routes=kernels.matmul_route_counts(),
+               ttm_routes=kernels.ttm_route_counts(),
+               restored_step=step, served_tokens=sum(len(r.output) for r in reqs),
+               serve_s=serve_s, ok=True)
+    emit("ckpt_codec", **out)
+    del eng, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_resume(torch) -> dict:
+    """falcon-mamba SMOKE on the card through Trainer (compressed steps,
+    ckpt_every=3): 6 steps, then a new Trainer restores and runs to 8; its
+    parameters and optimizer and compressor state must be bitwise those of
+    an uninterrupted 8-step run."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.optim.grad_compress import CompressionConfig
+    from repro_torch.train.train_step import (init_state,
+                                              make_compressed_train_step)
+    from repro_torch.train.trainer import Trainer, TrainerConfig, state_tree
+    cfg = configs.get_smoke("falcon-mamba-7b")
+    bundle = build(cfg)
+    opt = AdamW(lr=cosine_schedule(1e-2, 2, 8))
+    comp = CompressionConfig(min_size=1024, refresh_every=4)
+    steps = make_compressed_train_step(bundle, opt, comp)
+
+    def trainer(total, d):
+        state = init_state(bundle, opt, 0, compression=comp, device="cuda")
+        src = SyntheticLM(DataConfig(seed=0), cfg, 128, 4, device="cuda")
+        tc = TrainerConfig(total_steps=total, ckpt_every=3, log_every=1,
+                           ckpt_dir=d, refresh_every=comp.refresh_every)
+        return Trainer(tc, steps, state, src)
+
+    with tempfile.TemporaryDirectory(prefix="train_resume_") as d:
+        whole = trainer(8, f"{d}/whole")
+        whole.run()
+        trainer(6, f"{d}/split").run()
+        second = trainer(8, f"{d}/split")
+        at = second.restore_if_available()
+        hist = second.run(start_step=at)
+    a = tree_flatten(state_tree(whole.state, "cpu"))
+    b = tree_flatten(state_tree(second.state, "cpu"))
+    same = len(a) == len(b) and all(torch.equal(x.cpu(), y.cpu())
+                                    for x, y in zip(a, b))
+    require(at == 6, f"train_resume: restored at step {at}, want 6")
+    require(same, "train_resume: the resumed run is not bitwise the "
+                  "uninterrupted one")
+    out = dict(model=cfg.name, restored_at=at, leaves=len(a), bitwise=same,
+               losses=[h["loss"] for h in hist], ok=True)
+    emit("train_resume", **out)
+    return out
+
+
+def phase_training(torch) -> dict:
+    """Phases train, ckpt_codec and train_resume, with the seconds each
+    took; returns the launches of the train and codec runs."""
+    t0 = time.perf_counter()
+    params, train_counts = phase_train(torch)
+    t1 = time.perf_counter()
+    codec = phase_ckpt_codec(torch, params)
+    del params
+    t2 = time.perf_counter()
+    phase_train_resume(torch)
+    t3 = time.perf_counter()
+    emit("training_seconds", train=t1 - t0, ckpt_codec=t2 - t1,
+         train_resume=t3 - t2)
+    return {"train": train_counts, "ckpt_codec": codec["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 6b: the streaming Tucker service on the card
 # ---------------------------------------------------------------------------
 
@@ -4172,7 +4728,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "tune", "tucker_serve",
-                                       "sharded", "profiler"),
+                                       "sharded", "profiler", "train"),
                     help="kernels: run env, build and the kernel phases "
                          "(small and full-size shapes) only: no large "
                          "operands, main path or serve run; tune: env, "
@@ -4180,7 +4736,10 @@ def main(argv=None) -> int:
                          "build and the Tucker service phase only; sharded: "
                          "env, build and the sharded phase only; profiler: "
                          "env, build and the profiler probe of the sharded "
-                         "phase's hang; none prints the kernels line")
+                         "phase's hang; train: env, build, the S6 "
+                         "backward's small shapes and its timed row, then "
+                         "train, ckpt_codec and train_resume; none prints the "
+                         "kernels line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -4196,6 +4755,13 @@ def main(argv=None) -> int:
     try:
         smi, peaks = phase_env(torch)
         phase_build()
+        if args.only == "train":
+            phase_s6_bwd_shapes(torch)
+            s6_bwd_full(torch, peaks)
+            phase_training(torch)
+            emit("run", seconds=time.perf_counter() - t_run)
+            print(smi, flush=True)
+            return 0
         if args.only in ("tune", "tucker_serve", "sharded", "profiler"):
             {"tune": lambda: phase_tune(torch, smi),
              "tucker_serve": lambda: phase_tucker_serve(torch),
@@ -4218,6 +4784,8 @@ def main(argv=None) -> int:
         launched["s6_scan"] = phase_serve(torch)
         tucker_serve = phase_tucker_serve(torch)
         sharded = phase_sharded(torch)
+        training = phase_training(torch)
+        launched["s6_scan_bwd"] = training["train"]["s6_scan_bwd"]
         phase_tune(torch, smi)
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
@@ -4232,12 +4800,18 @@ def main(argv=None) -> int:
                    launches_adaptive=adaptive.get(name),
                    launches_tucker_serve=tucker_serve.get(name),
                    launches_sharded=sharded.get(name),
+                   launches_train=training["train"].get(name),
+                   launches_ckpt_codec=training["ckpt_codec"].get(name, 0),
                    max_abs_err=m["max_abs_err"], ms=m["ms"],
                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                    bound_by=m["bound_by"], library_ms=m["library_ms"],
                    device_ms=m["device_ms"],
                    library_device_ms=m.get("library_device_ms"),
                    launch=m["launch"])
+        if name == "s6_scan_bwd":
+            row.update(shapes=m["shapes"], max_rel_err=m["max_rel_err"],
+                       bound_terms_ms=m["bound_terms_ms"],
+                       state_stride=m["state_stride"])
         if name == "s6_scan":
             row["by_shape"] = m["by_shape"]
         if name == "ttt":

@@ -525,7 +525,7 @@ def _step_on_slab(y, step, ax, local, als_iters):
         res = eig_solve(y, step.mode, step.r_n, impl=ops)
     elif step.method == "als":
         res = als_solve(y, step.mode, step.r_n, num_iters=als_iters,
-                        impl=ops)
+                        impl=ops, cols=step.j_n)
     else:
         raise ValueError(f"unknown distributed method {step.method!r}")
     return res.u, res.y_new
@@ -587,7 +587,7 @@ def _group_on_slab(y, group, ax, local, als_iters):
             if step.method == "als":
                 factors[step.mode] = als_solve(y, step.mode, step.r_n,
                                                num_iters=als_iters,
-                                               impl=ops).u
+                                               impl=ops, cols=step.j_n).u
     for step in group:
         y = ttm(y, factors[step.mode].T, step.mode)
     return factors, y

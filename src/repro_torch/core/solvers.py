@@ -83,10 +83,22 @@ def als_solve(y: torch.Tensor, mode: int, rank: int, *,
               num_iters: int = DEFAULT_ALS_ITERS,
               seed: int = 0,
               impl="matfree",
-              l0: torch.Tensor | None = None) -> SolveResult:
+              l0: torch.Tensor | None = None,
+              cols: int | None = None) -> SolveResult:
     """``l0`` (I_n, R_n) overrides the random start, which is otherwise
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``y``'s device
-    (tests inject the reference's own ``jax.random`` draw through it)."""
+    (tests inject the reference's own ``jax.random`` draw through it).
+    ``cols`` is the column count of the whole mode-n unfolding (the local
+    ``y``'s by default; the sharded runner passes the step's ``j_n``).
+
+    A rank above ``cols`` is improper: the unfolding has no more than
+    ``cols`` directions, and ALS at the full rank would solve a singular
+    least-squares problem whose surplus columns are rounding noise (on a
+    tensor-core Gram they swamp the real directions).  ALS then runs at
+    rank ``cols`` on the first ``cols`` columns of the start, and the
+    factor is completed to R_n orthonormal columns from the rest of the
+    start, with zero core slices: the same reconstruction, the asked
+    shapes."""
     if num_iters < 1:
         # the loop must run at least once: the R-tensor is only written
         # inside the body (zero iterations would return a zero core)
@@ -103,6 +115,8 @@ def als_solve(y: torch.Tensor, mode: int, rank: int, *,
         raise ValueError(f"als_solve: l0 must be {(i_n, rank)}, got "
                          f"{tuple(l0.shape)}")
     l = l0.to(device=y.device, dtype=cdtype)
+    k = min(rank, y.numel() // i_n if cols is None else cols)
+    l, rest = l[:, :k], l[:, k:]
     # the live set stays inside the step's modeled scratch (2 L + 2 R +
     # the output): the start is not kept beside the iterates, and the last
     # iteration's (I_n, R_n) product is dropped before the next TTT
@@ -127,8 +141,22 @@ def als_solve(y: torch.Tensor, mode: int, rank: int, *,
     # exact LS optimum FOR R_{k-1} — so the sweep ends on an L-update.
     # orthonormalize:  L = Q̂ R̂,  U ← Q̂,  core ← TTM(R-tensor, R̂)
     q, rhat = torch.linalg.qr(l)
-    y_new = ttm(r_t, rhat, mode).to(y.dtype)
-    return SolveResult(q.to(y.dtype), y_new)
+    y_new = ttm(r_t, rhat, mode)
+    if k < rank:
+        q = torch.cat([q, _complement(q, rest)], 1)
+        pad = list(y_new.shape)
+        pad[mode] = rank - k
+        y_new = torch.cat([y_new, y_new.new_zeros(pad)], mode)
+    return SolveResult(q.to(y.dtype), y_new.to(y.dtype))
+
+
+def _complement(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``w``'s columns made orthonormal and orthogonal to ``q``'s
+    (orthonormal) columns: projected off ``q`` and orthonormalized, twice,
+    so that fp32 leaves no component along ``q``."""
+    for _ in range(2):
+        w = torch.linalg.qr(w - q @ (q.T @ w))[0]
+    return w
 
 
 #: escalating relative re-regularization ladder: the baseline 1e-12·tr(A)

@@ -15,6 +15,12 @@
 //
 // Two routes, chosen by the Python wrapper from the shape alone:
 //
+// Both routes can keep, for the backward (csrc/s6_scan_bwd.cu), the state
+// at the entry of every chunk of Lc steps, (K, Bt, Di, N) fp32: the chunked
+// route's phase B forms them anyway, and the single pass writes them to
+// `hs` at a stride given by the wrapper (a multiple of its TC steps) when
+// `hs` is not null.
+//
 // Single pass (atucker_s6_scan), for short scans and decode: one launch.
 // Each block owns CH channels of one batch row and walks all of T itself.
 // Each channel is spread over L = 4 neighbouring lanes, each holding
@@ -71,7 +77,8 @@ __global__ void __launch_bounds__(THREADS)
 s6_scan_kernel(const E* __restrict__ x, const float* __restrict__ dt,
                const E* __restrict__ bm, const E* __restrict__ cm,
                const float* __restrict__ a, const float* __restrict__ h0,
-               float* __restrict__ y, float* __restrict__ hf, int T, int Di,
+               float* __restrict__ y, float* __restrict__ hf,
+               float* __restrict__ hs, int stride, int T, int Di,
                int N, long long sbb, long long sbt, long long scb,
                long long sct) {
   constexpr int NP = L * S;        // states per channel, padded
@@ -102,6 +109,15 @@ s6_scan_kernel(const E* __restrict__ x, const float* __restrict__ dt,
   const long long row0 = (long long)b * T;  // (b, t = 0) row of x, dt, y
   for (int t0 = 0; t0 < T; t0 += TC) {
     const int tl = min(TC, T - t0);
+    if (hs != nullptr && t0 % stride == 0 && dvalid) {
+      // the entry state of chunk t0 / stride, (K, Bt, Di, N)
+      const long long srow = ((long long)(t0 / stride) * gridDim.y + b) * Di + d;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int n = lane * S + s;
+        if (n < N) hs[srow * N + n] = h[s];
+      }
+    }
     for (int e = tid; e < TC * CH; e += THREADS) {
       const int tt = e / CH, cc = e % CH;
       const bool ok = tt < tl && d0 + cc < Di;
@@ -152,23 +168,24 @@ s6_scan_kernel(const E* __restrict__ x, const float* __restrict__ dt,
 
 template <typename E, int S>
 cudaError_t launch(const void* x, const float* dt, const void* bm, const void* cm,
-                   const float* a, const float* h0, float* y, float* hf, int B, int T,
-                   int Di, int N, long long sbb, long long sbt, long long scb,
-                   long long sct, cudaStream_t st) {
+                   const float* a, const float* h0, float* y, float* hf, float* hs,
+                   int stride, int B, int T, int Di, int N, long long sbb, long long sbt,
+                   long long scb, long long sct, cudaStream_t st) {
   dim3 grid(ceil_div(Di, CH), B);
   s6_scan_kernel<E, S><<<grid, THREADS, 0, st>>>(
       static_cast<const E*>(x), dt, static_cast<const E*>(bm), static_cast<const E*>(cm),
-      a, h0, y, hf, T, Di, N, sbb, sbt, scb, sct);
+      a, h0, y, hf, hs, stride, T, Di, N, sbb, sbt, scb, sct);
   return cudaGetLastError();
 }
 
 template <typename E>
 cudaError_t dispatch(const void* x, const float* dt, const void* bm, const void* cm,
-                     const float* a, const float* h0, float* y, float* hf, int B, int T,
-                     int Di, int N, long long sbb, long long sbt, long long scb,
-                     long long sct, cudaStream_t st) {
-#define S6_LAUNCH(S) \
-  launch<E, S>(x, dt, bm, cm, a, h0, y, hf, B, T, Di, N, sbb, sbt, scb, sct, st)
+                     const float* a, const float* h0, float* y, float* hf, float* hs,
+                     int stride, int B, int T, int Di, int N, long long sbb,
+                     long long sbt, long long scb, long long sct, cudaStream_t st) {
+#define S6_LAUNCH(S)                                                                  \
+  launch<E, S>(x, dt, bm, cm, a, h0, y, hf, hs, stride, B, T, Di, N, sbb, sbt, scb, sct, \
+               st)
   if (N <= 1 * L) return S6_LAUNCH(1);
   if (N <= 2 * L) return S6_LAUNCH(2);
   if (N <= 4 * L) return S6_LAUNCH(4);
@@ -355,12 +372,15 @@ cudaError_t info(int B, int T, int Di, int N, int Lc, int chunked, int* out) {
 
 }  // namespace
 
+// hs: null, or (ceil(T / stride), B, Di, N) fp32 receiving the state at the
+// entry of every `stride` steps (stride a positive multiple of TC).
 extern "C" int atucker_s6_scan(const void* x, const void* dt, const void* bm,
                                const void* cm, const void* a, const void* h0, void* y,
-                               void* hf, int B, int T, int Di, int N, long long sbb,
-                               long long sbt, long long scb, long long sct, int dtype,
-                               void* stream) {
-  if (B <= 0 || B > 65535 || T <= 0 || Di <= 0 || N <= 0 || N > kMaxN)
+                               void* hf, void* hs, int stride, int B, int T, int Di, int N,
+                               long long sbb, long long sbt, long long scb, long long sct,
+                               int dtype, void* stream) {
+  if (B <= 0 || B > 65535 || T <= 0 || Di <= 0 || N <= 0 || N > kMaxN ||
+      (hs != nullptr && (stride <= 0 || stride % TC != 0)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dtp = static_cast<const float*>(dt);
@@ -368,12 +388,13 @@ extern "C" int atucker_s6_scan(const void* x, const void* dt, const void* bm,
   const float* h0p = static_cast<const float*>(h0);
   float* yp = static_cast<float*>(y);
   float* hfp = static_cast<float*>(hf);
+  float* hsp = static_cast<float*>(hs);
   if (dtype == kFloat32)
-    return (int)dispatch<float>(x, dtp, bm, cm, ap, h0p, yp, hfp, B, T, Di, N, sbb, sbt,
-                                scb, sct, st);
+    return (int)dispatch<float>(x, dtp, bm, cm, ap, h0p, yp, hfp, hsp, stride, B, T, Di, N,
+                                sbb, sbt, scb, sct, st);
   if (dtype == kBFloat16)
-    return (int)dispatch<__nv_bfloat16>(x, dtp, bm, cm, ap, h0p, yp, hfp, B, T, Di, N,
-                                        sbb, sbt, scb, sct, st);
+    return (int)dispatch<__nv_bfloat16>(x, dtp, bm, cm, ap, h0p, yp, hfp, hsp, stride, B, T,
+                                        Di, N, sbb, sbt, scb, sct, st);
   return cudaErrorInvalidValue;
 }
 

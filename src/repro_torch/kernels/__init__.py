@@ -8,10 +8,14 @@ ctypes; each wrapper runs its plain version from ``ref.py`` on CPU tensors):
   ttt.ttt3             — TTT / Gram contraction        (csrc/ttt.cu)
   s6_scan.s6_scan      — Mamba-1 selective scan with
                          state carry                   (csrc/s6_scan.cu)
+  s6_scan_bwd.s6_scan_bwd — its backward (the
+                         gradient of ``S6Scan``)       (csrc/s6_scan_bwd.cu)
 
 ops.py carries the mode-n dispatch behind the ``hopper`` ops backend;
-``models/ssm.py`` calls ``s6_scan`` in every Mamba-1 layer, in prefill and
-in decode.
+``models/ssm.py`` calls ``s6_scan`` in every Mamba-1 layer, in prefill,
+decode and training (where its gradient is ``s6_scan_bwd``).  The other
+three kernels have no backward: on the card they refuse an input that
+requires grad while grad is enabled (``_build.refuse_grad``).
 """
 
 import importlib
@@ -19,12 +23,13 @@ import importlib
 from . import ops, ref
 from .matmul import matmul
 from .s6_scan import s6_scan
+from .s6_scan_bwd import s6_scan_bwd
 from .ttm import ttm_interior
 from .ttt import ttt3
 
 #: kernel name -> wrapper module holding its ``LAUNCHES`` counter
 KERNEL_MODULES = {"ttt": "ttt", "matmul": "matmul", "ttm_interior": "ttm",
-                  "s6_scan": "s6_scan"}
+                  "s6_scan": "s6_scan", "s6_scan_bwd": "s6_scan_bwd"}
 
 
 def _module(name: str):
@@ -106,5 +111,5 @@ def add_launches(delta: dict, times: int = 1) -> None:
 __all__ = ["KERNEL_MODULES", "add_launches", "launch_counts",
            "launch_snapshot", "launches_since", "matmul",
            "matmul_route_counts", "ops", "ref", "reset_launch_counts",
-           "s6_scan", "ttm_interior", "ttm_route_counts", "ttt3",
+           "s6_scan", "s6_scan_bwd", "ttm_interior", "ttm_route_counts", "ttt3",
            "ttt_route_counts"]

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ttt", "matmul", "ttm", "s6_scan")
+SOURCES = ("ttt", "matmul", "ttm", "s6_scan", "s6_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,12 +43,14 @@ SIGNATURES = {
                "atucker_matmul_info": (_P, _P, _I, _I, _I, _I, _P)},
     "ttm": {"atucker_ttm_interior": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
             "atucker_ttm_interior_info": (_P, _I, _I, _I, _I, _I, _P)},
-    "s6_scan": {"atucker_s6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _L, _L, _L, _L, _I, _P),
+    "s6_scan": {"atucker_s6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _L, _L, _L, _L, _I, _P),
                 "atucker_s6_scan_chunked": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                             _P, _I, _I, _I, _I, _I, _L, _L, _L,
                                             _L, _I, _P),
                 "atucker_s6_scan_info": (_I, _I, _I, _I, _I, _I, _I, _P)},
+    "s6_scan_bwd": {"atucker_s6_scan_bwd": (_P,) * 20 + (_I,) * 10 + (_P,),
+                    "atucker_s6_scan_bwd_info": (_I,) * 6 + (_P,)},
 }
 
 #: ptxas report (registers, shared memory, spills) of each build, by source
@@ -182,6 +184,18 @@ def check_operands(what: str, shapes: dict, *tensors) -> str:
     elif kind != "cpu":
         raise ValueError(f"{what}: unsupported device {first.device}")
     return kind
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad is enabled and an operand requires grad: the kernel
+    ``what`` has no backward, and its output, filled on the card through
+    ctypes, would silently carry none.  Called by the wrappers of the
+    kernels without a backward, on the card."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the Hopper kernel has no backward, and an operand "
+            "requires grad while grad is enabled; run it under "
+            "torch.no_grad() or detach the operands")
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -109,6 +109,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{tuple(b.shape)}")
     if kind == "cpu":
         return matmul_ref(a, b)
+    _build.refuse_grad("matmul", a, b)
     rt = route(m, n)
     dev = a.device
     with torch.cuda.device(dev):

@@ -285,3 +285,50 @@ def s6_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
         h = decay[:, j] * h + h_loc[:, j]
     _, ys = scan(entry, True)                                  # phase C
     return ys.reshape(bsz, k * chunk, di)[:, :t].contiguous(), h
+
+
+def s6_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+                    cmat: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
+                    dy: torch.Tensor, dh_final: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`s6_scan_ref` by its reverse recurrence, as
+    ``csrc/s6_scan_bwd.cu`` computes it: with every state h_t of the
+    forward kept, the state's gradient runs back from ``dh_final`` (zeros
+    when None),
+
+        g_t = C_t ⊗ dy_t + exp(dt_{t+1} a) ⊙ g_{t+1},
+
+    and gives dx_t = dt_t Σ_n g_t B_t, ddt_t = Σ_n g_t ⊙ (a exp(dt_t a) ⊙
+    h_{t-1} + x_t B_t), dB_t = Σ_d g_t dt_t x_t, dC_t = Σ_d dy_t h_t,
+    da = Σ_{b,t} g_t dt_t exp(dt_t a) ⊙ h_{t-1} and dh0 = exp(dt_1 a) ⊙ g_1.
+    Returns (dx, ddt, dB, dC, da, dh0): dx in x's dtype, dB and dC in
+    bmat's and cmat's, the rest fp32; every sum is fp32."""
+    xf, dtf, bf, cf, af = (v.float() for v in (x, dt, bmat, cmat, a))
+    dy = dy.float()
+    bsz, t, di = xf.shape
+    h = (torch.zeros((bsz, di, af.shape[1]), dtype=torch.float32,
+                     device=xf.device)
+         if h0 is None else h0.float())
+    hs = [h]
+    for i in range(t):
+        h = (torch.exp(dtf[:, i, :, None] * af) * h
+             + (dtf[:, i] * xf[:, i])[..., None] * bf[:, i, None, :])
+        hs.append(h)
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(af)
+    carry = (torch.zeros_like(h) if dh_final is None
+             else dh_final.float().clone())
+    for i in range(t - 1, -1, -1):
+        g = dy[:, i, :, None] * cf[:, i, None, :] + carry
+        dec = torch.exp(dtf[:, i, :, None] * af)
+        dh = dec * hs[i]
+        dx[:, i] = dtf[:, i] * (g * bf[:, i, None, :]).sum(-1)
+        ddt[:, i] = (g * (af * dh + xf[:, i, :, None]
+                          * bf[:, i, None, :])).sum(-1)
+        db[:, i] = (g * (dtf[:, i] * xf[:, i])[..., None]).sum(1)
+        dc[:, i] = (dy[:, i, :, None] * hs[i + 1]).sum(1)
+        da += (g * dtf[:, i, :, None] * dh).sum(0)
+        carry = dec * g
+    return (dx.to(x.dtype), ddt, db.to(bmat.dtype), dc.to(cmat.dtype), da,
+            carry)

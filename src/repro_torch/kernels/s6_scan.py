@@ -33,6 +33,14 @@ everything else must be contiguous on the card.
 A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.s6_scan_ref`); a CUDA tensor launches the
 kernel or raises.
+
+Under autograd (grad enabled and an input that requires grad) the scan is
+:class:`S6Scan`: its forward is the kernel above, keeping the state at the
+entry of every chunk (the chunked route's phase B forms them; the single
+pass writes them every :data:`SAVE_STRIDE` steps), and its backward is the
+hand-written ``csrc/s6_scan_bwd.cu`` (:mod:`.s6_scan_bwd`), which
+recomputes the states in between.  On CPU tensors the backward is the
+plain :func:`repro_torch.kernels.ref.s6_scan_bwd_ref`.
 """
 
 from __future__ import annotations
@@ -45,6 +53,9 @@ from .ref import s6_scan_ref
 #: launches of the CUDA kernel (one per wrapper call on the card, whatever
 #: the number of CUDA kernels the route runs)
 LAUNCHES = 0
+#: steps between the states the single-pass route keeps for the backward
+#: (a multiple of the backward's sub-chunk, ``s6_scan_bwd.SUB_CHUNK``)
+SAVE_STRIDE = 64
 #: the kernel keeps at most 16 states per lane, 4 lanes per channel
 MAX_STATE = 64
 #: the chunked route runs from this B·T·Di on.  At (1, T, 8192, 16) on the
@@ -136,24 +147,15 @@ def _check(x, dt, bmat, cmat, a, h0) -> str:
     return kind
 
 
-def s6_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
-            cmat: torch.Tensor, a: torch.Tensor,
-            h0: torch.Tensor | None = None, *, force_route: str | None = None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, T, Di), h_final (B, Di, N)), both fp32: the selective scan of
-    x under step sizes dt from state h0 (zeros when None).  On the card
-    ``force_route`` ("single" or "chunked") overrides :func:`route`, for
-    measurements and tests of both routes at one shape."""
-    kind = _check(x, dt, bmat, cmat, a, h0)
-    if force_route is not None and force_route not in ROUTES:
-        raise ValueError(f"s6_scan: force_route must be one of {ROUTES}, got "
-                         f"{force_route!r}")
-    if kind == "cpu":
-        return s6_scan_ref(x, dt, bmat, cmat, a, h0)
+def _forward(x, dt, bmat, cmat, a, h0, force_route, keep_states: bool):
+    """The CUDA forward: (y, h_final, states, stride), with ``states``
+    (K, B, Di, N) fp32, the state at the entry of every ``stride`` steps,
+    when ``keep_states`` (else None)."""
     bsz, t, di = x.shape
     n = a.shape[1]
     dev = x.device
     chunked = (force_route or route(bsz, t, di)) == "chunked"
+    states, stride = None, None
     with torch.cuda.device(dev):
         y = torch.empty((bsz, t, di), dtype=torch.float32, device=dev)
         hf = torch.empty((bsz, di, n), dtype=torch.float32, device=dev)
@@ -167,17 +169,95 @@ def s6_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
             lc = chunk_len(bsz, t, di, torch.cuda.get_device_properties(
                 dev).multi_processor_count)
             k = -(-t // lc)
+            # phase B leaves each chunk's entry state here
             h_loc = torch.empty((k, bsz, di, n), dtype=torch.float32,
                                 device=dev)
             ssum = torch.empty((k, bsz, di), dtype=torch.float32, device=dev)
             err = lib.atucker_s6_scan_chunked(
                 *ptrs, h_loc.data_ptr(), ssum.data_ptr(), bsz, t, di, n, lc,
                 *tail)
+            if keep_states:
+                states, stride = h_loc, lc
         else:
-            err = lib.atucker_s6_scan(*ptrs, bsz, t, di, n, *tail)
+            if keep_states:
+                stride = SAVE_STRIDE
+                states = torch.empty((-(-t // stride), bsz, di, n),
+                                     dtype=torch.float32, device=dev)
+            err = lib.atucker_s6_scan(
+                *ptrs, None if states is None else states.data_ptr(),
+                stride or 0, bsz, t, di, n, *tail)
         _build.check(lib, err, "s6_scan")
     global LAUNCHES
     LAUNCHES += 1
+    return y, hf, states, stride
+
+
+def forward_with_states(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+                        cmat: torch.Tensor, a: torch.Tensor,
+                        h0: torch.Tensor | None = None, *,
+                        force_route: str | None = None):
+    """The scan on the card keeping what its backward needs: (y, h_final,
+    states, stride), ``states`` (K, B, Di, N) fp32 being the state at the
+    entry of every ``stride`` steps (card only)."""
+    if _check(x, dt, bmat, cmat, a, h0) != "cuda":
+        raise ValueError("forward_with_states: the operands must be on the "
+                         "card (the plain version keeps every state)")
+    _check_route(force_route)
+    return _forward(x, dt, bmat, cmat, a, h0, force_route, True)
+
+
+def _check_route(force_route):
+    if force_route is not None and force_route not in ROUTES:
+        raise ValueError(f"s6_scan: force_route must be one of {ROUTES}, got "
+                         f"{force_route!r}")
+
+
+class S6Scan(torch.autograd.Function):
+    """The selective scan under autograd.  Forward: the kernel (or, on CPU
+    tensors, its plain version), keeping the chunk entry states on the
+    card; backward: :func:`.s6_scan_bwd.s6_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bmat, cmat, a, h0, force_route):
+        if x.device.type == "cpu":
+            y, hf = s6_scan_ref(x, dt, bmat, cmat, a, h0)
+            states = stride = None
+        else:
+            y, hf, states, stride = _forward(x, dt, bmat, cmat, a, h0,
+                                             force_route, True)
+        ctx.save_for_backward(x, dt, bmat, cmat, a, h0, states)
+        ctx.stride = stride
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        from .s6_scan_bwd import s6_scan_bwd
+        x, dt, bmat, cmat, a, h0, states = ctx.saved_tensors
+        dx, ddt, db, dc, da, dh0 = s6_scan_bwd(
+            x, dt, bmat, cmat, a, h0, dy, dh_final, states=states,
+            stride=ctx.stride)
+        return dx, ddt, db, dc, da, (dh0 if h0 is not None else None), None
+
+
+def s6_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+            cmat: torch.Tensor, a: torch.Tensor,
+            h0: torch.Tensor | None = None, *, force_route: str | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, T, Di), h_final (B, Di, N)), both fp32: the selective scan of
+    x under step sizes dt from state h0 (zeros when None).  On the card
+    ``force_route`` ("single" or "chunked") overrides :func:`route`, for
+    measurements and tests of both routes at one shape.  With grad enabled
+    and an input that requires grad it runs as :class:`S6Scan`, whose
+    gradient comes from the backward kernel."""
+    kind = _check(x, dt, bmat, cmat, a, h0)
+    _check_route(force_route)
+    if torch.is_grad_enabled() and any(
+            v is not None and v.requires_grad
+            for v in (x, dt, bmat, cmat, a, h0)):
+        return S6Scan.apply(x, dt, bmat, cmat, a, h0, force_route)
+    if kind == "cpu":
+        return s6_scan_ref(x, dt, bmat, cmat, a, h0)
+    y, hf, _, _ = _forward(x, dt, bmat, cmat, a, h0, force_route, False)
     return y, hf
 
 

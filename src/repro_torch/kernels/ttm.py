@@ -96,6 +96,7 @@ def ttm_interior(u: torch.Tensor, x3: torch.Tensor) -> torch.Tensor:
                          f"the contracted axis of x3 {tuple(x3.shape)}")
     if kind == "cpu":
         return ttm_interior_ref(u, x3)
+    _build.refuse_grad("ttm_interior", u, x3)
     dt = dtype_name(x3)
     rt = route(r, b, dt, x3.data_ptr() % 16 == 0)
     dev = x3.device

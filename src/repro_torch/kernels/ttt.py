@@ -209,6 +209,7 @@ def ttt3(x3: torch.Tensor, y3: torch.Tensor,
     if kind == "cpu":
         z = ttt_ref(x3, y3)
         return z if out is None else out.copy_(z)
+    _build.refuse_grad("ttt", x3, y3)
     dev = x3.device
     with torch.cuda.device(dev):
         a, i, r, b, sym, splits, k_per_split = _plan(x3, y3)

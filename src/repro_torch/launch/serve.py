@@ -5,19 +5,25 @@
         [--device cpu]
 
 Runs on ``cuda:0`` and raises without CUDA unless ``--device cpu`` is given.
-Weights are random, from ``torch.Generator(device).manual_seed(0)``.
+Weights are random, from ``torch.Generator(device).manual_seed(0)``, or,
+with ``--ckpt <dir>``, the parameter tree of that directory's newest
+checkpoint (one written by ``Checkpointer.save`` of a parameter tree, by
+either package; a Tucker-tier leaf comes back reconstructed).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import torch
 
 from .. import configs
 from ..core.api import resolve_device
+from ..checkpoint.checkpointer import Checkpointer
 from ..models import build
+from ..models.convert import load_tree, tree_from_params
 from ..serve.engine import Request, ServeEngine
 
 
@@ -33,15 +39,21 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda:0; 'cpu' to run there)")
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: checkpoint/ is not ported yet (ROADMAP.md Queue 1 "
-            "item 11)")
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     device = resolve_device(args.device)
     bundle = build(cfg)
     params = bundle.init(0, device)
+    if args.ckpt:
+        if not Path(args.ckpt).is_dir():
+            raise FileNotFoundError(f"--ckpt: no checkpoint directory "
+                                    f"{args.ckpt!r}")
+        restored = Checkpointer(args.ckpt).restore(tree_from_params(params,
+                                                                    "cpu"))
+        if restored:
+            tree, step = restored
+            load_tree(params, tree)
+            print(f"restored params at step {step}")
     eng = ServeEngine(bundle, params, batch_slots=args.slots,
                       max_len=args.max_len)
     reqs = [Request(prompt=[1 + i, 2, 3, 4 + i], max_new_tokens=args.max_new,

@@ -5,9 +5,10 @@ The port of ``repro/models/layers.py`` as far as the Mamba-1 LM needs it:
 MLPs come with the families that use them (``ROADMAP.md`` Queue 1 item 11).
 
 Parameters live in ``nn.ParameterDict``s keyed by the reference's names, so
-``p["scale"]`` reads as it does there; they do not require grad (serving
-only).  Random draws come from an explicit ``torch.Generator`` and land on
-its device.
+``p["scale"]`` reads as it does there; they are made without
+``requires_grad`` (serving), and training turns it on
+(``repro_torch.train.train_step.init_state``).  Random draws come from an
+explicit ``torch.Generator`` and land on its device.
 """
 
 from __future__ import annotations

@@ -8,9 +8,14 @@ has ``lax.scan``.  The decode cache keeps the reference's stacked layout,
 ``{"conv": (L, B, K-1, Di), "ssm": (L, B, Di, N)}``, and every entry point
 returns a new cache, as the reference does.
 
+Training runs :func:`lm_loss`: the reference's next-token loss, with each
+layer under ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat``,
+as the reference wraps its layer body in ``jax.checkpoint``.  The
+parameters' gradients reach the S6 scan through its autograd Function,
+whose backward is a hand-written kernel on the card.
+
 Other families (dense, moe, hybrid, vlm, encdec) raise
-``NotImplementedError``, and ``lm_loss`` waits for training
-(``ROADMAP.md`` Queue 1 item 11).
+``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.api import resolve_device
 from .config import ATTN_LOCAL, ModelConfig
@@ -95,12 +101,24 @@ def embed_tokens(params: LM, cfg: ModelConfig, tokens) -> torch.Tensor:
     return h
 
 
+def _block(layer: Mamba1Block, h: torch.Tensor, cfg: ModelConfig):
+    """One layer without a cache (training): h + ssm(norm(h))."""
+    out, _ = mamba1_apply(layer.ssm, norm_apply(layer.norm_ssm, h, cfg), cfg)
+    return h + out
+
+
 def forward_hidden(params: LM, cfg: ModelConfig, tokens, *, cache=None):
-    """Run the stack.  Returns (hidden (B, T, d), new_cache, aux_loss)."""
+    """Run the stack.  Returns (hidden (B, T, d), new_cache, aux_loss).
+    Without a cache, under grad and with ``cfg.remat``, each layer is
+    checkpointed: only its input is kept, and the backward recomputes it."""
     require_mamba1(cfg)
     h = embed_tokens(params, cfg, tokens)
+    remat = cache is None and cfg.remat and torch.is_grad_enabled()
     conv, ssm = [], []
     for i, layer in enumerate(params.layers):
+        if remat:
+            h = checkpoint(_block, layer, h, cfg, use_reentrant=False)
+            continue
         lcache = None if cache is None else {"conv": cache["conv"][i],
                                              "ssm": cache["ssm"][i]}
         out, c = mamba1_apply(layer.ssm, norm_apply(layer.norm_ssm, h, cfg),
@@ -131,6 +149,24 @@ def logits_from_hidden(params: LM, cfg: ModelConfig, h) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # task-level entry points
 # ---------------------------------------------------------------------------
+
+def lm_loss(params: LM, cfg: ModelConfig, batch):
+    """batch: {tokens (B, T+1)} → (loss, {"nll", "aux"}): the mean next-token
+    negative log-likelihood of ``tokens[:, 1:]`` given ``tokens[:, :-1]``,
+    over the padded vocab (its tail masked to -1e30), plus the aux loss (0
+    for the ssm family), as ``repro.models.lm.lm_loss``.  The label's logit
+    is gathered where the reference contracts a one-hot: the same value,
+    without the (B, T, V) one-hot."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    h, _, aux = forward_hidden(params, cfg, inputs)
+    logits = logits_from_hidden(params, cfg, h)
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - label_logit
+    loss = nll.mean() + aux
+    return loss, {"nll": nll.mean(), "aux": aux}
+
 
 def prefill(params: LM, cfg: ModelConfig, tokens, cache):
     """Full-sequence pass that returns last-position logits + the populated

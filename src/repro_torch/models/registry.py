@@ -1,9 +1,10 @@
-"""Uniform per-architecture API: init / prefill / decode / init_cache.
+"""Uniform per-architecture API: init / loss / prefill / decode /
+init_cache.
 
 ``build(cfg)`` returns a ModelBundle whose entry points close over the
 config, as in ``repro/models/registry.py``.  The port has the lm families'
-Mamba-1 (ssm) member only; ``encdec``, ``lm_loss`` and ``input_specs`` wait
-for their slices (``ROADMAP.md`` Queue 1 item 11).
+Mamba-1 (ssm) member only; ``encdec`` and ``input_specs`` wait for their
+slices (``ROADMAP.md`` Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .config import ModelConfig
 class ModelBundle:
     cfg: ModelConfig
     init: Callable[..., Any]
+    loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
@@ -39,6 +41,7 @@ def build(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init=init,
+        loss=lambda p, b: lm.lm_loss(p, cfg, b),
         prefill=lambda p, b, cache: lm.prefill(p, cfg, b["tokens"], cache),
         decode=lambda p, tok, cache, pos: lm.decode_step(p, cfg, tok, cache,
                                                          pos),

@@ -10,6 +10,10 @@ computes ``exp(-Σ dt·a)`` over a whole chunk, which overflows fp32 at
 falcon-mamba's ``ssm_chunk = 256`` once a channel's mean dt exceeds about
 0.022 (``ROADMAP.md`` Queue 3).  ``cfg.ssm_chunk`` is therefore unused here.
 
+In training the scan runs as the kernel's autograd Function
+(``repro_torch.kernels.s6_scan.S6Scan``), whose backward is the
+hand-written ``csrc/s6_scan_bwd.cu`` on the card.
+
 Decode carries (conv_state, ssm_state) per layer, O(1) in sequence length.
 Mamba-2 (SSD) comes with zamba2 (``ROADMAP.md`` Queue 1 item 11).
 """

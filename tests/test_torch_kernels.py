@@ -161,7 +161,8 @@ class TestWrapperChecks:
         ops.ttm(torch.zeros(3, 4, 5), torch.zeros(2, 4), 1)
         ops.gram(torch.zeros(3, 4, 5), 0)
         assert K.launch_counts() == {"ttt": 0, "matmul": 0,
-                                     "ttm_interior": 0, "s6_scan": 0}
+                                     "ttm_interior": 0, "s6_scan": 0,
+                                     "s6_scan_bwd": 0}
 
     @pytest.mark.parametrize("i,r,k,b,sym", [
         (7000, 10, 76800, 1, False), (1340, 1340, 269544, 264, True),

@@ -138,10 +138,14 @@ class TestEntryPoints:
             build(SMOKE).init(0)
         assert build(SMOKE).init(0, "cpu").embed.device.type == "cpu"
 
-    def test_checkpoint_restore_waits(self):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
+    def test_checkpoint_restore_waits(self, tmp_path):
+        """--ckpt restores (tests/test_torch_checkpoint.py); a directory
+        that does not exist is refused, not created."""
+        missing = tmp_path / "nonexistent"
+        with pytest.raises(FileNotFoundError, match="nonexistent"):
             launch_serve.main(["--arch", "falcon-mamba-7b", "--smoke",
-                               "--device", "cpu", "--ckpt", "/nonexistent"])
+                               "--device", "cpu", "--ckpt", str(missing)])
+        assert not missing.exists()
 
 
 def _imported_roots(path: Path) -> set[str]:

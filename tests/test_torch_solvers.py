@@ -167,3 +167,53 @@ def test_unknown_backend_rejected():
             fn(x, 0, 2, impl="magic")
     with pytest.raises(NotImplementedError):   # the reference's TPU backend
         PS.eig_solve(x, 0, 2, impl="pallas")
+
+
+def _noisy_gram(rel, seed=0):
+    """matfree's ops with a Gram whose entries carry a relative error of
+    ``rel`` of their own scale sqrt(S_ii S_jj), as a tensor-core Gram's do."""
+    ttm, gram, ttt = PS._ops("matfree")
+    g = torch.Generator().manual_seed(seed)
+
+    def noisy(y, mode):
+        s = gram(y, mode)
+        d = s.diagonal().clamp_min(0).sqrt()
+        e = torch.randn(s.shape, generator=g, dtype=s.dtype)
+        return s + rel * (e + e.T) / 2 * torch.outer(d, d)
+    return ttm, noisy, ttt
+
+
+@pytest.mark.parametrize("rel", [0.0, 2e-4])
+@pytest.mark.parametrize("shape,mode,rank", [((4, 3, 256), 2, 64),
+                                             ((5, 40, 2), 1, 16)])
+def test_als_at_an_improper_rank_keeps_the_reconstruction(shape, mode, rank,
+                                                          rel):
+    """A rank above the unfolding's column count (12 and 10 here): ALS
+    solves at the column count and completes the factor, so its leading
+    columns and core slices are those of the solve at the column count
+    (bitwise, from the same start and the same Gram noise), the factor is
+    orthonormal at the asked rank and the surplus core slices are zero;
+    without noise the shrunk tensor reconstructs y.  The noisy Gram is the
+    tensor-core one's resolution, where the solve at the full rank, its
+    RᵀR singular, lost percents of the energy."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(shape)
+                         .astype(np.float32))
+    cols = x.numel() // shape[mode]
+    assert rank > cols
+    l0 = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (shape[mode], rank)).astype(np.float32))
+    res = PS.als_solve(x, mode, rank, impl=_noisy_gram(rel), l0=l0)
+    proper = PS.als_solve(x, mode, cols, impl=_noisy_gram(rel),
+                          l0=l0[:, :cols])
+    assert res.u.shape == (shape[mode], rank)
+    assert res.y_new.shape[mode] == rank
+    assert torch.equal(res.u[:, :cols], proper.u)
+    assert torch.equal(res.y_new.narrow(mode, 0, cols), proper.y_new)
+    assert float(res.y_new.narrow(mode, cols, rank - cols).abs().max()) == 0
+    assert float((res.u.T @ res.u - torch.eye(rank)).abs().max()) <= 1e-5
+    if rel == 0:
+        back = PT.ttm(res.y_new, res.u, mode)
+        assert float((back - x).abs().max()) <= 1e-4 * float(x.abs().max())
+    same = PS.als_solve(x, mode, rank, impl=_noisy_gram(rel), l0=l0,
+                        cols=cols)
+    assert torch.equal(same.u, res.u) and torch.equal(same.y_new, res.y_new)
