@@ -54,14 +54,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
             S6 is also timed at every shape the serve run gives it, on both
             of its routes.  The S6 backward (``csrc/s6_scan_bwd.cu``) is
             held against ``s6_scan_bwd_ref`` (the reverse recurrence) on the
-            S6 test shapes, ragged T/Di/N (N = 4 ... 64), T = 1, a nonzero
-            h0 and dh_final, strided B/C, fp32 and bf16, from the states of
-            both forward routes: every gradient within 1e-4 of its
+            S6 test shapes, ragged T/Di/N (N = 4 ... 64, one and several
+            state groups), T = 1, a nonzero h0 and dh_final, strided B/C,
+            fp32 and bf16, from the 8-step checkpoints of both forward
+            routes, and at widths whose chunks hold several sub-chunks:
+            every gradient within 1e-4 of its
             max|plain| (a bf16 output also within 2**-7 of the entry: each
             side rounds its own fp32 sum once); then at the training shape
             (2, 2048, 8192, 16), bitwise equal on a second run, timed
             beside its bound (the larger of its bytes and the
-            exponentials the gradient needs, one per (b, t, d, n)).
+            exponentials the gradient needs, one per (b, t, d, n)), with
+            each of its four CUDA kernels' registers, spills, shared
+            memory, blocks and warps per SM and device ms, and the
+            forward's time with and without its checkpoints.
 4. main     ``plan -> execute`` with ``impl="auto"`` on the paper's Table III
             Boats (320, 240, 7000), HSI (1021, 1340, 33, 8), Cavity (100,
             100, 10000) and MNIST (784, 5000, 10) tensors at full size
@@ -216,13 +221,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
             CompressionConfig()``: every eligible stacked leaf through the
             Tucker tier, on ``hopper`` (ttt, matmul and ttm_interior must
             launch), each leaf's rel_error within 1e-4 of the same methods
-            on ``matfree``, or, only for a leaf that ``matfree`` keeps to
-            within the Gram's resolution (its rel_error² under
-            ENTRY_TOL), its rel_error² within ENTRY_TOL of matfree's; per
-            leaf its shape, ranks, solvers, ms, rel_error, the clause it
-            passed by and bytes;
-            then restored into a fresh model that serves 4 requests x 32
+            on ``matfree``; per leaf its shape, ranks, solvers, ms,
+            rel_error and bytes, and a ``codec_diag`` line: the leaf's
+            st-HOSVD step by step on both backends (each mode's solver,
+            launches by route, projector gap against matfree) and an
+            ``als_gate`` line (below); then restored into a fresh model that serves 4 requests x 32
             tokens through ServeEngine (valid tokens, finite logits).
+    als_gate (in main, adaptive, tucker_serve's sampled tiles and
+            ckpt_codec) every decomposition with an ALS mode again, step by
+            step on hopper: its ALS iterations, how many of them the
+            resolution gate of ``solvers._spd_inverse`` changed against
+            the reference's jitter ladder, and where it changed one, both
+            rel_errors and each factor's projector gap.
     train_resume falcon-mamba SMOKE on the card through ``Trainer``
             (compressed steps, ckpt_every=3): 6 steps, then a new Trainer
             restores and runs to 8; parameters, optimizer and compressor
@@ -294,8 +304,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 check after a kernel edit), ``--only tune`` phases 1, 2 and 7 (the
 command that trains the shipped cuda models), ``--only tucker_serve``
 phases 1, 2 and 6b, ``--only sharded`` phases 1, 2 and 6c and ``--only
-train`` phases 1, 2, the S6 backward's checks of phase 3 and 6d; none
-prints the kernels line.
+train`` phases 1, 2, the S6 scan's and its backward's checks of phase 3
+and 6d; none prints the kernels line.
 
 Imports nothing of JAX nor of the JAX package ``repro``.
 """
@@ -389,15 +399,11 @@ CARRY_TOL = 1e-3
 #: at 2 sequences of 2048 tokens
 TRAIN_S6 = (2, 2048, 8192, 16)
 #: the codec on hopper against matfree, the same methods on the same leaf:
-#: |Δ rel_error| <= CODEC_REL_TOL, or, only for a leaf whose discarded
-#: energy on matfree lies below the hopper Gram's resolution (matfree's
-#: rel_error² < ENTRY_TOL), |Δ rel_error²| <= ENTRY_TOL.
-#: The tensor-core Gram holds each entry within ENTRY_TOL of its own scale,
-#: so directions carrying less than that share of the energy are not
-#: resolved: a near rank-1 leaf (the stacked a_log) may keep a different
-#: subspace inside that share, and rel_error = sqrt(the discarded share)
-#: magnifies it (on an H100 at 700 W: rel_error 3.0e-3 on hopper, 2.1e-4
-#: on matfree, 9e-6 of the energy apart)
+#: |Δ rel_error| <= CODEC_REL_TOL on every eligible leaf.  (Until the ALS
+#: least-squares step kept a numerically singular RᵀR from amplifying its
+#: own rounding noise, the near rank-1 stacked a_log came back at 3.0e-3 on
+#: hopper against 2.1e-4 on matfree on an H100 at 700 W, and passed only by
+#: an energy clause; core/solvers.py _spd_inverse.)
 CODEC_REL_TOL = 1e-4
 #: the train phase: falcon-mamba-7b at full width cut to TRAIN_LAYERS
 #: layers (the training state of 64 does not fit the card: PERF.md §4),
@@ -686,10 +692,11 @@ def s6_bwd_check(torch, g, ops, force, dh_final):
 def phase_s6_bwd_shapes(torch):
     """The S6 backward kernel against its plain reverse recurrence on the
     card: the shapes of the reference's S6 tests, ragged T, Di and N (every
-    state width N = 4 ... 64), T = 1, a nonzero h0 and dh_final, strided
-    B/C, fp32 and bf16, from the states of both forward routes (the single
-    pass's every SAVE_STRIDE steps, the chunked route's phase B), and the
-    chunked route at its chunk edges."""
+    state width N = 4 ... 64, one and several state groups), T = 1, a
+    nonzero h0 and dh_final, strided B/C, fp32 and bf16, from the
+    checkpoints of both forward routes (each keeps the state entering every
+    8th step), the chunked route at its chunk edges, and two widths whose
+    backward chunks hold several sub-chunks."""
     s6 = s6_module()
     g = torch.Generator(device="cuda").manual_seed(6)
     lc = s6.CHUNK_MIN
@@ -700,7 +707,9 @@ def phase_s6_bwd_shapes(torch):
              (1, 40, 48, 32, False, True, False), (1, 50, 40, 64, True, True, True),
              (3, 1, 100, 16, True, True, True), (1, lc - 1, 200, 16, True, True, True),
              (2, lc + 1, 70, 16, True, False, True), (2, 2 * lc + 3, 200, 5, True, True, True),
-             (1, 3 * lc + 17, 300, 16, True, False, False)]
+             (1, 3 * lc + 17, 300, 16, True, False, False),
+             (2, 45, 70, 20, True, True, True), (3, 100, 8192, 16, True, True, True),
+             (1, 77, 4096, 64, True, True, True)]
     worst = dict.fromkeys(S6_GRADS, 0.0)
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -717,30 +726,52 @@ def phase_s6_bwd_shapes(torch):
          max_rel_err=worst, tol_rel=TOL, bf16_unit=BF16_UNIT, ok=True)
 
 
-def s6_bwd_bound(bsz, t, di, n, stride, xbytes, peaks):
+def s6_bwd_bound(bsz, t, di, n, xbytes, peaks):
     """The S6 backward's bound at (bsz, t, di, n): the larger of its bytes
-    (x, dt, B, C, a, the chunk states, dy and dh_final read once; dx, ddt,
-    dB, dC, da and dh0 written once) over HBM and the exponentials that the
-    gradient needs, exp(dt_t·a) once for each (b, t, d, n) as in row 4's
-    bound, over the SFU rate.  The kernel computes each four times (two
-    passes, each a forward recompute and a reverse walk): that recompute is
-    part of the gap to the bound, not of the bound.  Returns (terms in ms,
-    the largest's name, bytes, exponentials)."""
+    (x, dt, B, C, a, h0, dy and dh_final read once; dx, ddt, dB, dC, da and
+    dh0 written once) over HBM and the exponentials that the gradient
+    needs, exp(dt_t·a) once for each (b, t, d, n) as in row 4's bound, over
+    the SFU rate.  The kernel takes each three times (the local pass's
+    walk, the chunk pass's recompute and walk) and reads the forward's
+    checkpoints: that is part of the gap to the bound, not of the bound.
+    Returns (terms in ms, the largest's name, bytes, exponentials)."""
     bw, _, _, sfu = peaks
-    k = -(-t // stride)
     nbytes = (bsz * t * di * (2 * xbytes + 4 + 4 + 4) + 4 * bsz * t * n * xbytes
-              + 2 * di * n * 4 + (k + 2) * bsz * di * n * 4)
+              + 2 * di * n * 4 + 3 * bsz * di * n * 4)
     exps = bsz * t * di * n
     terms = {"bytes": nbytes / bw * 1e3, "exponentials": exps / sfu * 1e3}
     return terms, max(terms, key=terms.get), nbytes, exps
 
 
+def kernel_device_ms(torch, fn, names, runs: int = 5) -> dict:
+    """Device ms per call of ``fn`` of each CUDA kernel whose name holds
+    one of ``names`` (torch.profiler, ``runs`` warm calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in names:
+                if k in e.name:
+                    out[k] += e.time_range.elapsed_us() / runs / 1e3
+    return out
+
+
 def s6_bwd_full(torch, peaks) -> dict:
     """Row 4b: the S6 backward at the training shape, (B, T, Di, N) = (2,
     2048, 8192, 16), bf16 x and strided B/C as the model gives them, from
-    the states of the route the training forward takes (h0 none): held to
-    its plain version, bitwise equal on a second run, timed with CUDA
-    events (ms) and under torch.profiler (device_ms), beside its bound."""
+    the checkpoints of the route the training forward takes (h0 none):
+    held to its plain version, bitwise equal on a second run, timed with
+    CUDA events (ms) and under torch.profiler (device_ms, and each of its
+    four kernels' device ms beside its registers, spills, shared memory,
+    blocks and warps per SM), beside its bound; and the forward's time
+    with and without the checkpoints it writes."""
     import importlib
     from repro_torch.kernels import ref
     s6 = s6_module()
@@ -751,6 +782,8 @@ def s6_bwd_full(torch, peaks) -> dict:
                     model_dt=True)
     ops = (*ops[:4], model_a(torch, di, n), None)
     _, hf, states, stride = s6.forward_with_states(*ops)
+    fwd_ms = {"checkpoints": time_ms(torch, lambda: s6.forward_with_states(*ops)),
+              "plain": time_ms(torch, lambda: s6.s6_scan(*ops))}
     dy = torch.randn((bsz, t, di), generator=g, device="cuda")
     dhf = torch.zeros_like(hf)
 
@@ -765,9 +798,28 @@ def s6_bwd_full(torch, peaks) -> dict:
     max_abs = max(float((gv.float() - wv.float()).abs().max())
                   for gv, wv in zip(got[:5], want[:5]))
     del got, again, want
-    terms, by, nbytes, exps = s6_bwd_bound(bsz, t, di, n, stride, 2, peaks)
+    terms, by, nbytes, exps = s6_bwd_bound(bsz, t, di, n, 2, peaks)
+    # the device memory one layer's scan adds under training: the forward
+    # with its checkpoints, then the backward's outputs and scratch
+    del states
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _, _, states, _ = s6.forward_with_states(*ops)
+    grads = bwd.s6_scan_bwd(*ops, dy, dhf, states=states, stride=stride)
+    torch.cuda.synchronize()
+    s6_peak = torch.cuda.max_memory_allocated() - held
+    del grads
+    launch = bwd.launch_info(bsz, t, di, n, torch.bfloat16)
+    per_kernel = kernel_device_ms(torch, call, [
+        f"s6_bwd_{k}_kernel" for k in bwd.KERNEL_NAMES])
+    for row in launch:
+        row["device_ms"] = per_kernel[f"s6_bwd_{row['kernel']}_kernel"]
     out = dict(shapes=[bsz, t, di, n], route=s6.route(bsz, t, di),
-               state_stride=stride, max_abs_err=max_abs, max_rel_err=errs,
+               checkpoint_stride=stride, chunk_len=launch[0]["chunk_len"],
+               checkpoint_bytes=states.numel() * 4, peak_bytes=s6_peak,
+               forward_ms=fwd_ms,
+               max_abs_err=max_abs, max_rel_err=errs,
                bitwise_repeat=True, ms=time_ms(torch, call),
                device_ms=device_ms(torch, call),
                plain_ms=time_ms(torch, lambda: ref.s6_scan_bwd_ref(
@@ -775,8 +827,7 @@ def s6_bwd_full(torch, peaks) -> dict:
                bound_ms=terms[by], bound_by=("bytes" if by == "bytes"
                                              else "operations"),
                bound_terms_ms=terms, bytes=nbytes, exponentials=exps,
-               library_ms=None,
-               launch=bwd.launch_info(bsz, t, di, n, torch.bfloat16, stride))
+               library_ms=None, launch=launch)
     emit("kernel_full", name="s6_scan_bwd", **out)
     del ops, states, dy
     torch.cuda.empty_cache()
@@ -1822,6 +1873,9 @@ def phase_main(torch):
         emit("main", **row)
         results.append(row)
         del res, ref_res
+        if "als" in p.methods:
+            als_gate(torch, "main", name, x, ranks, p.methods,
+                     [st.mode for st in p.schedule])
         picks_vs_textbook(torch, name, p, x)
         if name in WANT_ROUTES:
             main_capped(torch, name, p, x)
@@ -2332,6 +2386,11 @@ def adaptive_case(torch, name, x, cfg_kw, want_ranks, launched,
                profile_matfree=profile_call(torch, lambda: pm.execute(x),
                                             statistics.median(times_m)))
     emit("adaptive", **row)
+    by_mode = {t.mode: t.method for t in res.trace}
+    if "als" in by_mode.values() and set(by_mode.values()) <= {"eig", "als"}:
+        als_gate(torch, "adaptive", name, x, res.tucker.ranks,
+                 [by_mode[m] for m in range(x.ndim)],
+                 [t.mode for t in res.trace])
     require(res.tucker.ranks == res_m.tucker.ranks and
             want_ranks in (None, res.tucker.ranks),
             f"{name}: ranks {res.tucker.ranks} (matfree "
@@ -3049,17 +3108,107 @@ def state_leaves(tree, prefix=()):
     return out
 
 
+def reference_ladder(torch, a):
+    """The reference's ``_spd_inverse`` (``src/repro/core/solvers.py``) in
+    PyTorch: the first jitter rung (1e-12, 1e-8, 1e-4 of tr(A), the last
+    plus 1e-6) whose Cholesky succeeds, with no resolution gate."""
+    eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    scale = torch.trace(a)
+    nan = torch.full_like(a, float("nan"))
+    inv = nan
+    for i, jitter in enumerate((1e-12, 1e-8, 1e-4)):
+        reg = jitter * scale + (1e-6 if i == 2 else 0.0)
+        c, info = torch.linalg.cholesky_ex(a + reg * eye)
+        cand = torch.where(info == 0, torch.cholesky_solve(eye, c), nan)
+        inv = torch.where(torch.isfinite(inv).all(), inv, cand)
+    return inv
+
+
+def als_gate(torch, phase, name, x, ranks, methods, order) -> dict:
+    """Whether the resolution gate of ``solvers._spd_inverse`` changed any
+    ALS iteration of ``x``'s st-HOSVD on ``hopper`` (the per-step runner,
+    ``methods`` by mode, modes in ``order``): each iteration's inverse is
+    held against :func:`reference_ladder`'s on the same Gram.  Where one
+    differs, the same decomposition with the reference's ladder gives how
+    far each factor moved (projector gap) and both rel_errors."""
+    from unittest import mock
+
+    from repro_torch.core import solvers
+    from repro_torch.core.sthosvd import sthosvd
+    gated = solvers._spd_inverse
+    seen = [0, 0]
+
+    def watch(a):
+        inv = gated(a)
+        ref = reference_ladder(torch, a)
+        seen[0] += 1
+        seen[1] += int(not bool(((inv == ref) | (inv.isnan() & ref.isnan()))
+                                .all()))
+        return inv
+
+    def run(inverse):
+        with mock.patch.object(solvers, "_spd_inverse", inverse):
+            return sthosvd(x, list(ranks), methods=tuple(methods),
+                           mode_order=list(order), impl="hopper",
+                           device=x.device, block_until_ready=True)
+    res = run(watch)
+    row = dict(of=phase, case=name, shape=list(x.shape), ranks=list(ranks),
+               methods=list(methods), iterations=seen[0], fired=seen[1],
+               rel_error=float(res.tucker.rel_error(x)))
+    if seen[1]:
+        ref = run(lambda a: reference_ladder(torch, a))
+        row.update(rel_error_reference_ladder=float(ref.tucker.rel_error(x)),
+                   gaps=[projector_gap(torch, u.float(), v.float()) for u, v
+                         in zip(res.tucker.factors, ref.tucker.factors)])
+        del ref
+    del res
+    emit("als_gate", **row)
+    return row
+
+
+def codec_diag(torch, x, rec) -> dict:
+    """One codec leaf's st-HOSVD step by step on ``hopper`` and on
+    ``matfree`` (the codec's methods, modes in order, ALS seed 0, as the
+    plan's per-step runner solves them): per mode the solver, the launches
+    by route and the projector gap max|UUᵀ - U_mU_mᵀ| against matfree's
+    factor, and the rel_error."""
+    from repro_torch import kernels
+    from repro_torch.core import solvers
+    from repro_torch.core import tensor_ops as T
+    from repro_torch.core.backend import backend_ops
+    methods, ranks = rec["methods"], rec["ranks"]
+
+    def run(ops):
+        y, us, modes = x, [], []
+        for m, meth in enumerate(methods):
+            before = kernels.launch_snapshot()
+            u, y = solvers.SOLVERS[meth](y, m, ranks[m], impl=ops)
+            routes = {f"{k}:{rt}": v for (k, rt), v in
+                      kernels.launches_since(before).items() if rt}
+            modes.append(dict(mode=m, solver=meth, routes=routes))
+            us.append(u)
+        return us, modes, float(T.rel_error(x, y, us))
+
+    ref_us, _, ref_err = run(backend_ops("matfree"))
+    us, modes, err = run(backend_ops("hopper"))
+    for md, u, v in zip(modes, us, ref_us):
+        md["gap"] = projector_gap(torch, u.float(), v.float())
+    out = dict(index=rec["index"], shape=rec["shape"], ranks=ranks,
+               methods=methods, rel_error_matfree=ref_err,
+               rel_error_hopper=err, modes=modes)
+    emit("codec_diag", **out)
+    return out
+
+
 def phase_ckpt_codec(torch, params) -> dict:
     """The trained TRAIN_LAYERS-layer weights saved with the Tucker codec
     (``CompressionConfig()``): every eligible stacked leaf through
     ``sthosvd(methods="auto", impl="auto")`` on the card, which must
     resolve to ``hopper`` and launch ttt, matmul and ttm_interior; each
-    leaf's rel_error within 1e-4 of the same methods on ``matfree``, or,
-    where matfree's rel_error² is under ENTRY_TOL, its rel_error² within
-    ENTRY_TOL of matfree's (``CODEC_REL_TOL``; each leaf's record names the
-    clause it passed by); then
-    restored into a fresh model that serves 4 requests x 32 tokens through
-    ServeEngine (valid tokens, finite logits)."""
+    leaf's rel_error within CODEC_REL_TOL = 1e-4 of the same methods on
+    ``matfree``, and each leaf's step-by-step diagnosis (:func:`codec_diag`)
+    printed; then restored into a fresh model that serves 4 requests x 32
+    tokens through ServeEngine (valid tokens, finite logits)."""
     import tempfile
     from repro_torch import configs, kernels
     from repro_torch.checkpoint.checkpointer import (Checkpointer,
@@ -3097,17 +3246,14 @@ def phase_ckpt_codec(torch, params) -> dict:
                           block_until_ready=True)
             r["rel_error_matfree"] = float(ref.tucker.rel_error(x))
             r["d_rel_error"] = r["rel_error"] - r["rel_error_matfree"]
-            r["d_energy"] = r["rel_error"] ** 2 - r["rel_error_matfree"] ** 2
             del x, ref
-            if abs(r["d_rel_error"]) <= CODEC_REL_TOL:
-                r["passed_by"] = "rel_error"
-            elif (r["rel_error_matfree"] ** 2 < ENTRY_TOL
-                  and abs(r["d_energy"]) <= ENTRY_TOL):
-                r["passed_by"] = "energy"
-            else:
-                r["passed_by"] = None
             emit("ckpt_codec_leaf", **r)
-            require(r["passed_by"] is not None,
+            codec_diag(torch, flat[r["index"]].float(), r)
+            if "als" in r["methods"]:
+                als_gate(torch, "ckpt_codec", f"leaf{r['index']}",
+                         flat[r["index"]].float(), r["ranks"], r["methods"],
+                         range(len(r["ranks"])))
+            require(abs(r["d_rel_error"]) <= CODEC_REL_TOL,
                     f"ckpt_codec: leaf {r['index']} rel_error "
                     f"{r['rel_error']} vs matfree {r['rel_error_matfree']}")
         disk = sum(p.stat().st_size for p in Path(d).rglob("*") if p.is_file())
@@ -3465,6 +3611,9 @@ def hsi_tiles(torch, launched: dict) -> dict:
         p = plan(tuple(tiles[i].shape), "float32", cfg)
         require_hopper([p], "hsi_tiles direct")
         ref = p.execute(tiles[i])
+        if "als" in p.methods:
+            als_gate(torch, "tucker_serve", f"tile{i}", tiles[i], ranks,
+                     p.methods, [st.mode for st in p.schedule])
         gap = max(projector_gap(torch, a, b) for a, b in
                   zip(results[i].tucker.factors, ref.tucker.factors))
         d_rel = abs(rels[i] - float(ref.tucker.rel_error(tiles[i])))
@@ -4736,8 +4885,9 @@ def main(argv=None) -> int:
                          "build and the Tucker service phase only; sharded: "
                          "env, build and the sharded phase only; profiler: "
                          "env, build and the profiler probe of the sharded "
-                         "phase's hang; train: env, build, the S6 "
-                         "backward's small shapes and its timed row, then "
+                         "phase's hang; train: env, build, the S6 scan's "
+                         "and its backward's small shapes and the "
+                         "backward's timed row, then "
                          "train, ckpt_codec and train_resume; none prints the "
                          "kernels line")
     args = ap.parse_args(argv)
@@ -4756,6 +4906,7 @@ def main(argv=None) -> int:
         smi, peaks = phase_env(torch)
         phase_build()
         if args.only == "train":
+            phase_s6_shapes(torch)
             phase_s6_bwd_shapes(torch)
             s6_bwd_full(torch, peaks)
             phase_training(torch)
@@ -4809,9 +4960,9 @@ def main(argv=None) -> int:
                    library_device_ms=m.get("library_device_ms"),
                    launch=m["launch"])
         if name == "s6_scan_bwd":
-            row.update(shapes=m["shapes"], max_rel_err=m["max_rel_err"],
-                       bound_terms_ms=m["bound_terms_ms"],
-                       state_stride=m["state_stride"])
+            row.update({k: m[k] for k in (
+                "shapes", "max_rel_err", "bound_terms_ms", "checkpoint_stride",
+                "chunk_len", "checkpoint_bytes", "peak_bytes", "forward_ms")})
         if name == "s6_scan":
             row["by_shape"] = m["by_shape"]
         if name == "ttt":

@@ -174,17 +174,33 @@ def _spd_inverse(a: torch.Tensor) -> torch.Tensor:
     stronger jitter is tried.  The last rung adds an absolute floor so even
     an exactly-zero Gram yields a finite (pseudo-)inverse instead of
     poisoning the whole sweep.  The first finite rung is chosen on the
-    device with ``torch.where`` — no host sync."""
+    device with ``torch.where`` — no host sync.
+
+    A rung before the last also fails when its Cholesky succeeds with a
+    pivot² under eps·tr(A), eps of A's dtype: A is then singular to its
+    own precision (its condition number beyond 1/eps), its smallest
+    directions are the rounding noise of its sums, and their inverse would
+    amplify that noise into L.  ALS at a rank above its unfolding's
+    numerical rank meets such Grams (the codec's stacked a_log: one
+    direction carries all but 3e-8 of the energy), and there, without the
+    gate, the rung that happens to succeed decides the subspace ALS returns
+    on any fp32 arithmetic.  The reference's ladder has no such gate; a
+    Gram whose pivots clear it gets the same rung, and the same bits."""
     eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
     scale = torch.trace(a)
+    floor = torch.finfo(a.dtype).eps * scale
     nan = torch.full_like(a, float("nan"))
     inv = nan
+    last = len(_SPD_JITTERS) - 1
     for i, jitter in enumerate(_SPD_JITTERS):
         reg = jitter * scale
-        if i == len(_SPD_JITTERS) - 1:
+        if i == last:
             reg = reg + 1e-6                             # absolute floor
         c, info = torch.linalg.cholesky_ex(a + reg * eye)
-        cand = torch.where(info == 0, torch.cholesky_solve(eye, c), nan)
+        good = info == 0
+        if i < last:
+            good &= c.diagonal().square().amin() >= floor
+        cand = torch.where(good, torch.cholesky_solve(eye, c), nan)
         ok = torch.isfinite(inv).all()
         inv = torch.where(ok, inv, cand)
     return inv

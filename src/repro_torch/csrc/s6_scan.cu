@@ -16,10 +16,12 @@
 // Two routes, chosen by the Python wrapper from the shape alone:
 //
 // Both routes can keep, for the backward (csrc/s6_scan_bwd.cu), the state
-// at the entry of every chunk of Lc steps, (K, Bt, Di, N) fp32: the chunked
-// route's phase B forms them anyway, and the single pass writes them to
-// `hs` at a stride given by the wrapper (a multiple of its TC steps) when
-// `hs` is not null.
+// entering every SC = 8th step, its checkpoints `ck` (ceil(T / SC), Bt, N,
+// Di) fp32, when `ck` is not null: the single pass writes them as it walks,
+// the chunked route's phase C as it rescans (the backward then recomputes
+// only SC steps from each, and its local pass needs no forward recompute).
+// They take T / 8 · Bt · N · Di · 4 bytes: 268 MB at falcon-mamba's
+// training shape (2, 2048, 8192, 16).
 //
 // Single pass (atucker_s6_scan), for short scans and decode: one launch.
 // Each block owns CH channels of one batch row and walks all of T itself.
@@ -64,6 +66,7 @@ constexpr int CH = 32;             // channels per block
 constexpr int TC = 32;             // time steps per staged chunk
 constexpr int THREADS = L * CH;
 constexpr int kMaxN = 64;          // S <= 16 states per lane
+constexpr int SC = 8;              // steps between the backward's checkpoints
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float v) {
@@ -78,9 +81,8 @@ s6_scan_kernel(const E* __restrict__ x, const float* __restrict__ dt,
                const E* __restrict__ bm, const E* __restrict__ cm,
                const float* __restrict__ a, const float* __restrict__ h0,
                float* __restrict__ y, float* __restrict__ hf,
-               float* __restrict__ hs, int stride, int T, int Di,
-               int N, long long sbb, long long sbt, long long scb,
-               long long sct) {
+               float* __restrict__ ck, int T, int Di, int N, long long sbb,
+               long long sbt, long long scb, long long sct) {
   constexpr int NP = L * S;        // states per channel, padded
   __shared__ float xs[TC][CH];
   __shared__ float ds[TC][CH];
@@ -109,15 +111,6 @@ s6_scan_kernel(const E* __restrict__ x, const float* __restrict__ dt,
   const long long row0 = (long long)b * T;  // (b, t = 0) row of x, dt, y
   for (int t0 = 0; t0 < T; t0 += TC) {
     const int tl = min(TC, T - t0);
-    if (hs != nullptr && t0 % stride == 0 && dvalid) {
-      // the entry state of chunk t0 / stride, (K, Bt, Di, N)
-      const long long srow = ((long long)(t0 / stride) * gridDim.y + b) * Di + d;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const int n = lane * S + s;
-        if (n < N) hs[srow * N + n] = h[s];
-      }
-    }
     for (int e = tid; e < TC * CH; e += THREADS) {
       const int tt = e / CH, cc = e % CH;
       const bool ok = tt < tl && d0 + cc < Di;
@@ -136,6 +129,15 @@ s6_scan_kernel(const E* __restrict__ x, const float* __restrict__ dt,
     // the loop bound is uniform over the block, so every lane reaches the
     // shuffles; masked channels and states carry zeros through
     for (int tt = 0; tt < tl; ++tt) {
+      if (ck != nullptr && tt % SC == 0 && dvalid) {
+        // the state entering step t0 + tt, (T / SC, Bt, N, Di)
+        const long long crow = ((long long)(t0 + tt) / SC * gridDim.y + b) * N;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int n = lane * S + s;
+          if (n < N) ck[(crow + n) * Di + d] = h[s];
+        }
+      }
       const float dv = ds[tt][c];
       const float u = dv * xs[tt][c];
       float acc = 0.f;
@@ -168,24 +170,23 @@ s6_scan_kernel(const E* __restrict__ x, const float* __restrict__ dt,
 
 template <typename E, int S>
 cudaError_t launch(const void* x, const float* dt, const void* bm, const void* cm,
-                   const float* a, const float* h0, float* y, float* hf, float* hs,
-                   int stride, int B, int T, int Di, int N, long long sbb, long long sbt,
-                   long long scb, long long sct, cudaStream_t st) {
+                   const float* a, const float* h0, float* y, float* hf, float* ck, int B,
+                   int T, int Di, int N, long long sbb, long long sbt, long long scb,
+                   long long sct, cudaStream_t st) {
   dim3 grid(ceil_div(Di, CH), B);
   s6_scan_kernel<E, S><<<grid, THREADS, 0, st>>>(
       static_cast<const E*>(x), dt, static_cast<const E*>(bm), static_cast<const E*>(cm),
-      a, h0, y, hf, hs, stride, T, Di, N, sbb, sbt, scb, sct);
+      a, h0, y, hf, ck, T, Di, N, sbb, sbt, scb, sct);
   return cudaGetLastError();
 }
 
 template <typename E>
 cudaError_t dispatch(const void* x, const float* dt, const void* bm, const void* cm,
-                     const float* a, const float* h0, float* y, float* hf, float* hs,
-                     int stride, int B, int T, int Di, int N, long long sbb,
-                     long long sbt, long long scb, long long sct, cudaStream_t st) {
-#define S6_LAUNCH(S)                                                                  \
-  launch<E, S>(x, dt, bm, cm, a, h0, y, hf, hs, stride, B, T, Di, N, sbb, sbt, scb, sct, \
-               st)
+                     const float* a, const float* h0, float* y, float* hf, float* ck, int B,
+                     int T, int Di, int N, long long sbb, long long sbt, long long scb,
+                     long long sct, cudaStream_t st) {
+#define S6_LAUNCH(S) \
+  launch<E, S>(x, dt, bm, cm, a, h0, y, hf, ck, B, T, Di, N, sbb, sbt, scb, sct, st)
   if (N <= 1 * L) return S6_LAUNCH(1);
   if (N <= 2 * L) return S6_LAUNCH(2);
   if (N <= 4 * L) return S6_LAUNCH(4);
@@ -206,15 +207,16 @@ constexpr int MIN_BLOCKS = 8;
 
 // Phase A (EMIT_Y = false): scan chunk blockIdx.y of row blockIdx.z from a
 // zero state; write h_loc to hs and Σ dt to ssum.  Phase C (EMIT_Y = true):
-// scan it from the entry state in hs and write y.  NS >= N states per
-// thread; the states n >= N carry zeros (a = 0, B = C = 0).
+// scan it from the entry state in hs and write y, and, when ck is not null,
+// the state entering every SC-th step.  NS >= N states per thread; the
+// states n >= N carry zeros (a = 0, B = C = 0).
 template <typename E, int NS, bool EMIT_Y>
 __global__ void __launch_bounds__(CT, MIN_BLOCKS)
 s6_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
                 const E* __restrict__ bm, const E* __restrict__ cm,
                 const float* __restrict__ a, float* __restrict__ hs,
-                float* __restrict__ ssum, float* __restrict__ y, int T, int Di,
-                int N, int Lc, long long sbb, long long sbt, long long scb,
+                float* __restrict__ ssum, float* __restrict__ y, float* __restrict__ ck,
+                int T, int Di, int N, int Lc, long long sbb, long long sbt, long long scb,
                 long long sct) {
   __shared__ __align__(16) float bs[TS][NS];
   __shared__ __align__(16) float cs[EMIT_Y ? TS : 1][NS];
@@ -252,6 +254,13 @@ s6_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
       const long long off0 = (row0 + s0) * Di + d;
 #pragma unroll 4
       for (int tt = 0; tt < sl; ++tt) {
+        if (EMIT_Y && ck != nullptr && tt % SC == 0) {
+          // the state entering step t0 + s0 + tt (s0 is a multiple of SC)
+          float* dst = ck + ((long long)(t0 + s0 + tt) / SC * Bt + b) * N * Di + d;
+#pragma unroll
+          for (int n = 0; n < NS; ++n)
+            if (n < N) dst[(long long)n * Di] = h[n];
+        }
         const long long off = off0 + (long long)tt * Di;
         const float dv = dt[off];
         const float u = dv * to_f32(x[off]);
@@ -311,15 +320,16 @@ s6_chain_kernel(const float* __restrict__ a, const float* __restrict__ h0,
 template <typename E, int NS>
 cudaError_t launch_chunked(const void* x, const float* dt, const void* bm, const void* cm,
                            const float* a, const float* h0, float* y, float* hf, float* hs,
-                           float* ssum, int B, int T, int Di, int N, int Lc, long long sbb,
-                           long long sbt, long long scb, long long sct, cudaStream_t st) {
+                           float* ssum, float* ck, int B, int T, int Di, int N, int Lc,
+                           long long sbb, long long sbt, long long scb, long long sct,
+                           cudaStream_t st) {
   const int K = ceil_div(T, Lc);
   const dim3 grid(ceil_div(Di, CT), K, B);
   const E* xe = static_cast<const E*>(x);
   const E* be = static_cast<const E*>(bm);
   const E* ce = static_cast<const E*>(cm);
-  s6_chunk_kernel<E, NS, false><<<grid, CT, 0, st>>>(xe, dt, be, ce, a, hs, ssum, nullptr, T,
-                                                     Di, N, Lc, sbb, sbt, scb, sct);
+  s6_chunk_kernel<E, NS, false><<<grid, CT, 0, st>>>(xe, dt, be, ce, a, hs, ssum, nullptr,
+                                                     nullptr, T, Di, N, Lc, sbb, sbt, scb, sct);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long states = (long long)B * Di * N;
@@ -327,18 +337,19 @@ cudaError_t launch_chunked(const void* x, const float* dt, const void* bm, const
                                                                     N, K);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  s6_chunk_kernel<E, NS, true><<<grid, CT, 0, st>>>(xe, dt, be, ce, a, hs, nullptr, y, T, Di,
-                                                    N, Lc, sbb, sbt, scb, sct);
+  s6_chunk_kernel<E, NS, true><<<grid, CT, 0, st>>>(xe, dt, be, ce, a, hs, nullptr, y, ck, T,
+                                                    Di, N, Lc, sbb, sbt, scb, sct);
   return cudaGetLastError();
 }
 
 template <typename E>
 cudaError_t dispatch_chunked(const void* x, const float* dt, const void* bm, const void* cm,
                              const float* a, const float* h0, float* y, float* hf, float* hs,
-                             float* ssum, int B, int T, int Di, int N, int Lc, long long sbb,
-                             long long sbt, long long scb, long long sct, cudaStream_t st) {
-#define S6_CHUNKED(NS)                                                                   \
-  launch_chunked<E, NS>(x, dt, bm, cm, a, h0, y, hf, hs, ssum, B, T, Di, N, Lc, sbb, sbt, \
+                             float* ssum, float* ck, int B, int T, int Di, int N, int Lc,
+                             long long sbb, long long sbt, long long scb, long long sct,
+                             cudaStream_t st) {
+#define S6_CHUNKED(NS)                                                                       \
+  launch_chunked<E, NS>(x, dt, bm, cm, a, h0, y, hf, hs, ssum, ck, B, T, Di, N, Lc, sbb, sbt, \
                         scb, sct, st)
   if (N <= 4) return S6_CHUNKED(4);
   if (N <= 8) return S6_CHUNKED(8);
@@ -372,15 +383,14 @@ cudaError_t info(int B, int T, int Di, int N, int Lc, int chunked, int* out) {
 
 }  // namespace
 
-// hs: null, or (ceil(T / stride), B, Di, N) fp32 receiving the state at the
-// entry of every `stride` steps (stride a positive multiple of TC).
+// ck: null, or (ceil(T / 8), B, N, Di) fp32 receiving the state entering
+// every 8th step (both routes).
 extern "C" int atucker_s6_scan(const void* x, const void* dt, const void* bm,
                                const void* cm, const void* a, const void* h0, void* y,
-                               void* hf, void* hs, int stride, int B, int T, int Di, int N,
+                               void* hf, void* ck, int B, int T, int Di, int N,
                                long long sbb, long long sbt, long long scb, long long sct,
                                int dtype, void* stream) {
-  if (B <= 0 || B > 65535 || T <= 0 || Di <= 0 || N <= 0 || N > kMaxN ||
-      (hs != nullptr && (stride <= 0 || stride % TC != 0)))
+  if (B <= 0 || B > 65535 || T <= 0 || Di <= 0 || N <= 0 || N > kMaxN)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dtp = static_cast<const float*>(dt);
@@ -388,23 +398,24 @@ extern "C" int atucker_s6_scan(const void* x, const void* dt, const void* bm,
   const float* h0p = static_cast<const float*>(h0);
   float* yp = static_cast<float*>(y);
   float* hfp = static_cast<float*>(hf);
-  float* hsp = static_cast<float*>(hs);
+  float* ckp = static_cast<float*>(ck);
   if (dtype == kFloat32)
-    return (int)dispatch<float>(x, dtp, bm, cm, ap, h0p, yp, hfp, hsp, stride, B, T, Di, N,
-                                sbb, sbt, scb, sct, st);
+    return (int)dispatch<float>(x, dtp, bm, cm, ap, h0p, yp, hfp, ckp, B, T, Di, N, sbb, sbt,
+                                scb, sct, st);
   if (dtype == kBFloat16)
-    return (int)dispatch<__nv_bfloat16>(x, dtp, bm, cm, ap, h0p, yp, hfp, hsp, stride, B, T,
-                                        Di, N, sbb, sbt, scb, sct, st);
+    return (int)dispatch<__nv_bfloat16>(x, dtp, bm, cm, ap, h0p, yp, hfp, ckp, B, T, Di, N,
+                                        sbb, sbt, scb, sct, st);
   return cudaErrorInvalidValue;
 }
 
 extern "C" int atucker_s6_scan_chunked(const void* x, const void* dt, const void* bm,
                                        const void* cm, const void* a, const void* h0,
-                                       void* y, void* hf, void* hs, void* ssum, int B, int T,
-                                       int Di, int N, int chunk, long long sbb, long long sbt,
-                                       long long scb, long long sct, int dtype, void* stream) {
+                                       void* y, void* hf, void* hs, void* ssum, void* ck,
+                                       int B, int T, int Di, int N, int chunk, long long sbb,
+                                       long long sbt, long long scb, long long sct, int dtype,
+                                       void* stream) {
   if (B <= 0 || B > 65535 || T <= 0 || Di <= 0 || N <= 0 || N > kMaxN || chunk <= 0 ||
-      ceil_div(T, chunk) > 65535)
+      chunk % SC != 0 || ceil_div(T, chunk) > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dtp = static_cast<const float*>(dt);
@@ -414,12 +425,14 @@ extern "C" int atucker_s6_scan_chunked(const void* x, const void* dt, const void
   float* hfp = static_cast<float*>(hf);
   float* hsp = static_cast<float*>(hs);
   float* ssp = static_cast<float*>(ssum);
+  float* ckp = static_cast<float*>(ck);
   if (dtype == kFloat32)
-    return (int)dispatch_chunked<float>(x, dtp, bm, cm, ap, h0p, yp, hfp, hsp, ssp, B, T, Di,
-                                        N, chunk, sbb, sbt, scb, sct, st);
+    return (int)dispatch_chunked<float>(x, dtp, bm, cm, ap, h0p, yp, hfp, hsp, ssp, ckp, B, T,
+                                        Di, N, chunk, sbb, sbt, scb, sct, st);
   if (dtype == kBFloat16)
-    return (int)dispatch_chunked<__nv_bfloat16>(x, dtp, bm, cm, ap, h0p, yp, hfp, hsp, ssp, B,
-                                                T, Di, N, chunk, sbb, sbt, scb, sct, st);
+    return (int)dispatch_chunked<__nv_bfloat16>(x, dtp, bm, cm, ap, h0p, yp, hfp, hsp, ssp,
+                                                ckp, B, T, Di, N, chunk, sbb, sbt, scb, sct,
+                                                st);
   return cudaErrorInvalidValue;
 }
 

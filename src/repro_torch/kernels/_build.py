@@ -43,13 +43,11 @@ SIGNATURES = {
                "atucker_matmul_info": (_P, _P, _I, _I, _I, _I, _P)},
     "ttm": {"atucker_ttm_interior": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
             "atucker_ttm_interior_info": (_P, _I, _I, _I, _I, _I, _P)},
-    "s6_scan": {"atucker_s6_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _L, _L, _L, _L, _I, _P),
-                "atucker_s6_scan_chunked": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                            _P, _I, _I, _I, _I, _I, _L, _L, _L,
-                                            _L, _I, _P),
+    "s6_scan": {"atucker_s6_scan": (_P,) * 9 + (_I,) * 4 + (_L,) * 4 + (_I, _P),
+                "atucker_s6_scan_chunked": (_P,) * 11 + (_I,) * 5 + (_L,) * 4
+                + (_I, _P),
                 "atucker_s6_scan_info": (_I, _I, _I, _I, _I, _I, _I, _P)},
-    "s6_scan_bwd": {"atucker_s6_scan_bwd": (_P,) * 20 + (_I,) * 10 + (_P,),
+    "s6_scan_bwd": {"atucker_s6_scan_bwd": (_P,) * 21 + (_I,) * 10 + (_P,),
                     "atucker_s6_scan_bwd_info": (_I,) * 6 + (_P,)},
 }
 

@@ -42,22 +42,42 @@ def tf32_rna(v: torch.Tensor) -> torch.Tensor:
 
 
 def ttt_tf32x3_ref(x3: torch.Tensor, y3: torch.Tensor, products: int = 3,
-                   splits: int = 1) -> torch.Tensor:
+                   splits: int = 1, truncate: bool = False,
+                   scheme: str | None = None) -> torch.Tensor:
     """The split-TF32 arithmetic of the wide route of ``csrc/ttt.cu``
     written out in PyTorch, for the tests (the kernels never call it):
     every operand v becomes hi = rna_tf32(v) and
     lo = rna_tf32(v - hi), and z = hi_x·hi_yᵀ + hi_x·lo_yᵀ + lo_x·hi_yᵀ
     (products = 3; products = 1 keeps hi_x·hi_yᵀ alone, one TF32 product),
     each product exact in fp32 and summed in fp32 over ``splits`` equal
-    chunks of a, as the kernel's split reduction does."""
+    chunks of a, as the kernel's split reduction does.
+
+    With ``truncate`` or a ``scheme`` the sums are the card's: each split
+    runs :func:`matmul_tf32x3_ref`'s arithmetic on z = X·Yᵀ over the flat
+    k = a·B + b (the plain-load route's stages of 32), its accumulator
+    rounding toward zero when ``truncate``; ``scheme`` "stage" (the
+    default here) is ``ttt.cu``'s own -- hi = rna_tf32(v), every stage
+    summed from zero, its hi·lo and lo·hi products before its hi·hi --
+    and "grid" the wide GEMM's of ``csrc/wgmma.cuh``."""
     x, y = x3.float(), y3.float()
+    z = torch.zeros((x.shape[1], y.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    parts = torch.arange(x.shape[0]).tensor_split(splits)
+    if truncate or scheme is not None:
+        a, i, b = x.shape
+        xm = x.transpose(0, 1).reshape(i, a * b)
+        ym = y.transpose(0, 1).reshape(y.shape[1], a * b)
+        for part in parts:
+            ks = slice(int(part[0]) * b, (int(part[-1]) + 1) * b)
+            z += matmul_tf32x3_ref(xm[:, ks], ym[:, ks].T, products,
+                                   truncate=truncate,
+                                   scheme=scheme or "stage")
+        return z
     xh, yh = tf32_rna(x), tf32_rna(y)
     terms = [(xh, yh)]
     if products == 3:
         terms += [(xh, tf32_rna(y - yh)), (tf32_rna(x - xh), yh)]
-    z = torch.zeros((x.shape[1], y.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    for part in torch.arange(x.shape[0]).tensor_split(splits):
+    for part in parts:
         lo, hi = int(part[0]), int(part[-1]) + 1
         for p, q in terms:
             z += ttt_ref(p[lo:hi], q[lo:hi])
@@ -236,8 +256,8 @@ def s6_scan_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
 
 def s6_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
                         cmat: torch.Tensor, a: torch.Tensor,
-                        h0: torch.Tensor | None = None, *, chunk: int
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
+                        h0: torch.Tensor | None = None, *, chunk: int,
+                        checkpoints: int | None = None) -> tuple[torch.Tensor, ...]:
     """The chunked route of ``csrc/s6_scan.cu`` written out in PyTorch, for
     the tests: the same function as :func:`s6_scan_ref`, in three phases
     over chunks of ``chunk`` steps.
@@ -250,7 +270,12 @@ def s6_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
 
     Every exponent is dt·a ≤ 0 or a·S ≤ 0, so no factor exceeds 1 (the
     reference's ``_s6_scan`` forms exp(-cumsum), which overflows).  The
-    last chunk is padded with dt = x = 0, which leaves a state unchanged."""
+    last chunk is padded with dt = x = 0, which leaves a state unchanged.
+
+    With ``checkpoints`` (a divisor of ``chunk``) phase C also keeps the
+    state entering every ``checkpoints``-th step, as the kernel's phase C
+    does for the backward, and the result is (y, h_final, ck) with ck
+    (ceil(T / checkpoints), B, N, Di)."""
     x, dt, bmat, cmat, a = (v.float() for v in (x, dt, bmat, cmat, a))
     bsz, t, di = x.shape
     n = a.shape[1]
@@ -264,10 +289,18 @@ def s6_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     xs, dts, bs, cs = (chunks(v) for v in (x, dt, bmat, cmat))
     dxs = dts * xs
 
+    every = checkpoints or chunk
+    if chunk % every:
+        raise ValueError(f"checkpoints ({every}) must divide chunk ({chunk})")
+    ck = torch.empty((k, chunk // every, bsz, di, n), dtype=torch.float32,
+                     device=x.device)
+
     def scan(h, emit_y):
         ys = torch.empty((bsz, k, chunk, di), dtype=torch.float32,
                          device=x.device) if emit_y else None
         for i in range(chunk):
+            if emit_y and i % every == 0:
+                ck[:, i // every] = h.transpose(0, 1)
             h = (torch.exp(dts[:, :, i, :, None] * a) * h
                  + dxs[:, :, i, :, None] * bs[:, :, i, None, :])
             if emit_y:
@@ -284,7 +317,11 @@ def s6_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
         entry[:, j] = h
         h = decay[:, j] * h + h_loc[:, j]
     _, ys = scan(entry, True)                                  # phase C
-    return ys.reshape(bsz, k * chunk, di)[:, :t].contiguous(), h
+    y = ys.reshape(bsz, k * chunk, di)[:, :t].contiguous()
+    if checkpoints is None:
+        return y, h
+    ck = ck.reshape(-1, bsz, di, n)[:-(-t // every)]
+    return y, h, ck.transpose(2, 3).contiguous()
 
 
 def s6_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
@@ -332,3 +369,124 @@ def s6_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
         carry = dec * g
     return (dx.to(x.dtype), ddt, db.to(bmat.dtype), dc.to(cmat.dtype), da,
             carry)
+
+
+def s6_scan_bwd_chunked_ref(x: torch.Tensor, dt: torch.Tensor,
+                            bmat: torch.Tensor, cmat: torch.Tensor,
+                            a: torch.Tensor, h0: torch.Tensor | None,
+                            dy: torch.Tensor,
+                            dh_final: torch.Tensor | None = None, *,
+                            chunk: int, states: torch.Tensor | None = None,
+                            stride: int = 8, block: int = 128
+                            ) -> tuple[torch.Tensor, ...]:
+    """The algebra of ``csrc/s6_scan_bwd.cu`` written out in PyTorch, for
+    the tests: the gradient of :func:`s6_scan_ref` (as
+    :func:`s6_scan_bwd_ref` computes it) over chunks of ``chunk`` steps (a
+    multiple of ``stride``), from the forward's checkpoints ``states``
+    (ceil(T / stride), B, N, Di), the state entering every ``stride``-th
+    step (from :func:`s6_scan_chunked_ref` with ``checkpoints``; kept here
+    from the step recurrence when None).
+
+    1. local: every chunk walks back from a zero carry, c ← exp(dt a) ⊙ (C
+       dy + c): its carry out gl, and S = Σ dt (the chunk's decay
+       exp(a·S));
+    2. chain: G_in(k) = exp(a·S_{k+1}) ⊙ G_in(k+1) + gl_{k+1} from
+       dh_final, and dh0 the carry out of chunk 0;
+    3. chunk: from G_in(k), every sub-chunk of ``stride`` steps, last
+       first, recomputes h_{t-1} from its checkpoint and walks back: g = C
+       dy + c, dx, ddt, da's sum, dB and dC by blocks of ``block``
+       channels, c ← exp(dt a) ⊙ g;
+    4. the sums of dB and dC over the blocks and of da over (chunk, batch
+       row) in order.
+    The last chunk is padded with dt = x = dy = 0 and B = C = 0: a padded
+    step passes the carry on unchanged and adds nothing."""
+    xf, dtf, bf, cf, af = (v.float() for v in (x, dt, bmat, cmat, a))
+    dyf = dy.float()
+    bsz, t, di = xf.shape
+    n = af.shape[1]
+    if chunk % stride:
+        raise ValueError(f"chunk ({chunk}) must be a multiple of stride "
+                         f"({stride})")
+    if states is None:
+        h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=xf.device)
+             if h0 is None else h0.float())
+        kept = []
+        for i in range(t):
+            if i % stride == 0:
+                kept.append(h.transpose(1, 2))
+            h = (torch.exp(dtf[:, i, :, None] * af) * h
+                 + (dtf[:, i] * xf[:, i])[..., None] * bf[:, i, None, :])
+        states = torch.stack(kept)
+    k = -(-t // chunk)
+    pad = k * chunk - t
+
+    def chunks(v):   # (B, T, W) -> (B, K, chunk, W), zero-padded
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        return v.reshape(bsz, k, chunk, v.shape[-1])
+
+    xs, ds, ys, bs, cs = (chunks(v) for v in (xf, dtf, dyf, bf, cf))
+    # 1. local carries and step sums
+    c = torch.zeros((bsz, k, di, n), dtype=torch.float32, device=xf.device)
+    for i in range(chunk - 1, -1, -1):
+        c = torch.exp(ds[:, :, i, :, None] * af) * (
+            cs[:, :, i, None, :] * ys[:, :, i, :, None] + c)
+    decay = torch.exp(ds.sum(2)[..., None] * af)               # (B, K, Di, N)
+    # 2. the chain from the last chunk
+    g_in = torch.empty_like(c)
+    carry = (torch.zeros((bsz, di, n), dtype=torch.float32, device=xf.device)
+             if dh_final is None else dh_final.float())
+    for j in range(k - 1, -1, -1):
+        g_in[:, j] = carry
+        carry = decay[:, j] * carry + c[:, j]
+    dh0 = carry
+    # 3. the chunk pass, every chunk at once
+    ck = torch.zeros((k * chunk // stride, bsz, di, n), dtype=torch.float32,
+                     device=xf.device)
+    ck[:states.shape[0]] = states.transpose(2, 3)
+    ck = ck.reshape(k, chunk // stride, bsz, di, n).permute(2, 0, 1, 3, 4)
+    dx, ddt = (torch.empty((bsz, k, chunk, di), dtype=torch.float32,
+                           device=xf.device) for _ in range(2))
+    db, dc = (torch.empty((bsz, k, chunk, n), dtype=torch.float32,
+                          device=xf.device) for _ in range(2))
+    da = torch.zeros((bsz, k, di, n), dtype=torch.float32, device=xf.device)
+    nblk = -(-di // block)
+
+    def by_blocks(v):   # Σ over d of (B, K, Di, N) by blocks, then in order
+        v = torch.nn.functional.pad(v, (0, 0, 0, nblk * block - di))
+        part = v.reshape(bsz, k, nblk, block, n).sum(3)
+        out = part[:, :, 0]
+        for p in range(1, nblk):
+            out = out + part[:, :, p]
+        return out
+
+    c = g_in
+    for j in range(chunk // stride - 1, -1, -1):
+        h = ck[:, :, j]                                        # (B, K, Di, N)
+        hp = []
+        for i in range(j * stride, (j + 1) * stride):
+            hp.append(h)
+            h = (torch.exp(ds[:, :, i, :, None] * af) * h
+                 + (ds[:, :, i] * xs[:, :, i])[..., None] * bs[:, :, i, None, :])
+        for i in range((j + 1) * stride - 1, j * stride - 1, -1):
+            dv, xv, gy = ds[:, :, i], xs[:, :, i], ys[:, :, i]
+            bn, cn = bs[:, :, i, None, :], cs[:, :, i, None, :]
+            dec = torch.exp(dv[..., None] * af)
+            hprev = hp[i - j * stride]
+            g = cn * gy[..., None] + c
+            dh = dec * hprev
+            dx[:, :, i] = dv * (g * bn).sum(-1)
+            ddt[:, :, i] = (g * (af * dh + xv[..., None] * bn)).sum(-1)
+            da += g * dv[..., None] * dh
+            db[:, :, i] = by_blocks(g * (dv * xv)[..., None])
+            dc[:, :, i] = by_blocks(gy[..., None] * (dh + (dv * xv)[..., None] * bn))
+            c = dec * g
+    # 4. da over (chunk, batch row) in order
+    da_sum = da[0, 0]
+    for p in range(1, k * bsz):
+        da_sum = da_sum + da[p % bsz, p // bsz]
+
+    def steps(v):
+        return v.reshape(bsz, k * chunk, -1)[:, :t].contiguous()
+
+    return (steps(dx).to(x.dtype), steps(ddt), steps(db).to(bmat.dtype),
+            steps(dc).to(cmat.dtype), da_sum, dh0)

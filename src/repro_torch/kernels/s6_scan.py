@@ -35,11 +35,11 @@ A CPU tensor runs the plain version
 kernel or raises.
 
 Under autograd (grad enabled and an input that requires grad) the scan is
-:class:`S6Scan`: its forward is the kernel above, keeping the state at the
-entry of every chunk (the chunked route's phase B forms them; the single
-pass writes them every :data:`SAVE_STRIDE` steps), and its backward is the
-hand-written ``csrc/s6_scan_bwd.cu`` (:mod:`.s6_scan_bwd`), which
-recomputes the states in between.  On CPU tensors the backward is the
+:class:`S6Scan`: its forward is the kernel above, keeping the state entering
+every :data:`CHECKPOINT_STRIDE`-th step (both routes write these
+checkpoints as they walk), and its backward is the hand-written
+``csrc/s6_scan_bwd.cu`` (:mod:`.s6_scan_bwd`), which recomputes the states
+in between.  On CPU tensors the backward is the
 plain :func:`repro_torch.kernels.ref.s6_scan_bwd_ref`.
 """
 
@@ -53,9 +53,9 @@ from .ref import s6_scan_ref
 #: launches of the CUDA kernel (one per wrapper call on the card, whatever
 #: the number of CUDA kernels the route runs)
 LAUNCHES = 0
-#: steps between the states the single-pass route keeps for the backward
-#: (a multiple of the backward's sub-chunk, ``s6_scan_bwd.SUB_CHUNK``)
-SAVE_STRIDE = 64
+#: steps between the states both routes keep for the backward: its
+#: sub-chunk (csrc/s6_scan.cu and csrc/s6_scan_bwd.cu SC)
+CHECKPOINT_STRIDE = 8
 #: the kernel keeps at most 16 states per lane, 4 lanes per channel
 MAX_STATE = 64
 #: the chunked route runs from this B·T·Di on.  At (1, T, 8192, 16) on the
@@ -149,14 +149,19 @@ def _check(x, dt, bmat, cmat, a, h0) -> str:
 
 def _forward(x, dt, bmat, cmat, a, h0, force_route, keep_states: bool):
     """The CUDA forward: (y, h_final, states, stride), with ``states``
-    (K, B, Di, N) fp32, the state at the entry of every ``stride`` steps,
-    when ``keep_states`` (else None)."""
+    (ceil(T / stride), B, N, Di) fp32, the state entering every ``stride``
+    = :data:`CHECKPOINT_STRIDE` steps, when ``keep_states`` (else None)."""
     bsz, t, di = x.shape
     n = a.shape[1]
     dev = x.device
     chunked = (force_route or route(bsz, t, di)) == "chunked"
     states, stride = None, None
     with torch.cuda.device(dev):
+        if keep_states:
+            stride = CHECKPOINT_STRIDE
+            states = torch.empty((-(-t // stride), bsz, n, di),
+                                 dtype=torch.float32, device=dev)
+        ck = None if states is None else states.data_ptr()
         y = torch.empty((bsz, t, di), dtype=torch.float32, device=dev)
         hf = torch.empty((bsz, di, n), dtype=torch.float32, device=dev)
         lib = _build.load("s6_scan")
@@ -174,18 +179,10 @@ def _forward(x, dt, bmat, cmat, a, h0, force_route, keep_states: bool):
                                 device=dev)
             ssum = torch.empty((k, bsz, di), dtype=torch.float32, device=dev)
             err = lib.atucker_s6_scan_chunked(
-                *ptrs, h_loc.data_ptr(), ssum.data_ptr(), bsz, t, di, n, lc,
+                *ptrs, h_loc.data_ptr(), ssum.data_ptr(), ck, bsz, t, di, n, lc,
                 *tail)
-            if keep_states:
-                states, stride = h_loc, lc
         else:
-            if keep_states:
-                stride = SAVE_STRIDE
-                states = torch.empty((-(-t // stride), bsz, di, n),
-                                     dtype=torch.float32, device=dev)
-            err = lib.atucker_s6_scan(
-                *ptrs, None if states is None else states.data_ptr(),
-                stride or 0, bsz, t, di, n, *tail)
+            err = lib.atucker_s6_scan(*ptrs, ck, bsz, t, di, n, *tail)
         _build.check(lib, err, "s6_scan")
     global LAUNCHES
     LAUNCHES += 1
@@ -197,8 +194,9 @@ def forward_with_states(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
                         h0: torch.Tensor | None = None, *,
                         force_route: str | None = None):
     """The scan on the card keeping what its backward needs: (y, h_final,
-    states, stride), ``states`` (K, B, Di, N) fp32 being the state at the
-    entry of every ``stride`` steps (card only)."""
+    states, stride), ``states`` (ceil(T / stride), B, N, Di) fp32 being the
+    state entering every ``stride`` = :data:`CHECKPOINT_STRIDE` steps (card
+    only)."""
     if _check(x, dt, bmat, cmat, a, h0) != "cuda":
         raise ValueError("forward_with_states: the operands must be on the "
                          "card (the plain version keeps every state)")
@@ -214,8 +212,11 @@ def _check_route(force_route):
 
 class S6Scan(torch.autograd.Function):
     """The selective scan under autograd.  Forward: the kernel (or, on CPU
-    tensors, its plain version), keeping the chunk entry states on the
-    card; backward: :func:`.s6_scan_bwd.s6_scan_bwd`."""
+    tensors, its plain version), keeping the checkpoints on the card;
+    backward: :func:`.s6_scan_bwd.s6_scan_bwd`.  Under per-layer remat
+    (``models/lm.py``) the layer's first forward writes the checkpoints
+    too, and the remat's hooks drop them: at the training shape about
+    0.08 ms and a 268 MB transient a layer, 0.2% of the step."""
 
     @staticmethod
     def forward(ctx, x, dt, bmat, cmat, a, h0, force_route):

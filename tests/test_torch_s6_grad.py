@@ -174,6 +174,127 @@ class TestAgainstJaxGrad:
         assert rel(got["proj"], want["proj"]) <= REL
 
 
+def chunked_grads(d, n, *, h0, dhf, chunk, states=None):
+    """(dx, ddt, dB, dC, da, dh0) of ``ref.s6_scan_bwd_chunked_ref``."""
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    bm, cm = split(t["proj"], n)
+    return ref.s6_scan_bwd_chunked_ref(
+        t["x"], t["dt"], bm, cm, t["a"], t["h0"] if h0 else None, t["dy"],
+        t["dhf"] if dhf else None, chunk=chunk, states=states)
+
+
+#: (B, T, Di, N, backward chunk): T ragged against the chunk and the
+#: checkpoints' 8 steps, N one group (4, 16) and four (64), Di ragged
+#: against the kernel's 128-channel blocks
+CHUNKED_CASES = [(2, 37, 5, 4, 16), (1, 77, 130, 16, 24), (2, 29, 9, 64, 8),
+                 (3, 1, 6, 4, 8), (2, 50, 20, 16, 40)]
+
+
+class TestChunkedBackward:
+    """``ref.s6_scan_bwd_chunked_ref``, the algebra of the card's backward
+    (local carries, the chain, the recompute from 8-step checkpoints, the
+    fixed-order sums of dB, dC by 128-channel blocks and of da by chunk),
+    against the plain reverse recurrence and against jax.grad of the
+    reference's scan, at 1e-5 of each gradient's max|.| in fp32 (the
+    orders of the sums differ)."""
+
+    @pytest.mark.parametrize("shape", CHUNKED_CASES)
+    @pytest.mark.parametrize("h0,dhf", [(False, False), (True, True),
+                                        (True, False), (False, True)])
+    def test_matches_the_reverse_recurrence(self, shape, h0, dhf):
+        b, t, di, n, chunk = shape
+        d = inputs(b, t, di, n, seed=sum(shape))
+        ts = {k: torch.from_numpy(v) for k, v in d.items()}
+        bm, cm = split(ts["proj"], n)
+        want = ref.s6_scan_bwd_ref(ts["x"], ts["dt"], bm, cm, ts["a"],
+                                   ts["h0"] if h0 else None, ts["dy"],
+                                   ts["dhf"] if dhf else None)
+        got = chunked_grads(d, n, h0=h0, dhf=dhf, chunk=chunk)
+        for name, g, w in zip(("dx", "ddt", "dB", "dC", "da", "dh0"), got,
+                              want):
+            if name == "da" and t == 1 and not h0:
+                assert float(g.abs().max()) == float(w.abs().max()) == 0.0
+                continue
+            assert rel(g, w) <= REL, name
+
+    @pytest.mark.parametrize("shape", CHUNKED_CASES[:3])
+    @pytest.mark.parametrize("h0,dhf", [(False, False), (True, True)])
+    def test_matches_jax_grad(self, shape, h0, dhf):
+        b, t, di, n, chunk = shape
+        d = inputs(b, t, di, n, seed=7 + t)
+        want = TestAgainstJaxGrad.jax_grads(d, n, h0=h0, dhf=dhf)
+        dx, ddt, db, dc, da, dh0 = chunked_grads(d, n, h0=h0, dhf=dhf,
+                                                 chunk=chunk)
+        proj = torch.cat([torch.zeros(b, t, 3), db, dc], -1)
+        for name, g in (("x", dx), ("dt", ddt), ("proj", proj), ("a", da)):
+            assert rel(g, want[name]) <= REL, name
+        if h0:
+            assert rel(dh0, want["h0"]) <= REL
+
+    @pytest.mark.parametrize("t,chunk", [(37, 16), (77, 64), (8, 8),
+                                         (130, 128)])
+    def test_forward_checkpoints(self, t, chunk):
+        """``s6_scan_chunked_ref``'s phase C keeps the state entering every
+        8th step, as the kernel's does: it matches the step recurrence's
+        states, y and h_final are unchanged, and the backward run from
+        them matches the one from the recurrence's own."""
+        d = inputs(2, t, 12, 5, seed=t)
+        ts = {k: torch.from_numpy(v) for k, v in d.items()}
+        bm, cm = split(ts["proj"], 5)
+        ops = (ts["x"], ts["dt"], bm, cm, ts["a"], ts["h0"])
+        y, hf = ref.s6_scan_chunked_ref(*ops, chunk=chunk)
+        y2, hf2, ck = ref.s6_scan_chunked_ref(*ops, chunk=chunk,
+                                              checkpoints=8)
+        assert torch.equal(y, y2) and torch.equal(hf, hf2)
+        assert tuple(ck.shape) == (-(-t // 8), 2, 5, 12)
+        h, want = ts["h0"], []
+        for i in range(t):
+            if i % 8 == 0:
+                want.append(h.transpose(1, 2))
+            h = (torch.exp(ts["dt"][:, i, :, None] * ts["a"]) * h
+                 + (ts["dt"][:, i] * ts["x"][:, i])[..., None]
+                 * bm[:, i, None, :])
+        assert rel(ck, torch.stack(want)) <= REL
+        got = chunked_grads(d, 5, h0=True, dhf=True, chunk=16, states=ck)
+        base = chunked_grads(d, 5, h0=True, dhf=True, chunk=16)
+        for g, w in zip(got, base):
+            assert rel(g, w) <= REL
+
+
+class TestBackwardPlan:
+    """The card backward's chunking and buffers, pure functions of the
+    shape (``kernels/s6_scan_bwd.py``), at the training shape and around
+    its edges."""
+
+    def test_training_shape(self):
+        bwd = importlib.import_module("repro_torch.kernels.s6_scan_bwd")
+        lb = bwd.chunk_len(2, 2048, 8192, 16, 132)
+        assert lb == 344 and lb % bwd.SUB_CHUNK == 0
+        blocks = 64 * 2 * -(-2048 // lb)
+        assert blocks <= 2 * 132 * bwd._CHUNK_BLOCKS     # at most two waves
+        sizes = bwd._bwd_sizes(2, 2048, 8192, 16, lb)
+        assert sizes["checkpoints"] == 256 * 2 * 16 * 8192
+        assert sizes["partials_bc"] == 64 * 2 * 2048 * 16
+        assert sizes["partials_x"] == 0
+
+    @pytest.mark.parametrize("n,groups", [(1, 1), (4, 1), (16, 1), (17, 2),
+                                          (20, 2), (64, 4)])
+    def test_state_groups(self, n, groups):
+        bwd = importlib.import_module("repro_torch.kernels.s6_scan_bwd")
+        assert bwd.groups(n) == groups
+        partials = bwd._bwd_sizes(2, 37, 5, n, 8)["partials_x"]
+        assert partials == (0 if groups == 1 else groups * 2 * 37 * 5)
+
+    @pytest.mark.parametrize("t", [1, 7, 8, 9, 37, 8191])
+    def test_chunks_cover_t(self, t):
+        bwd = importlib.import_module("repro_torch.kernels.s6_scan_bwd")
+        lb = bwd.chunk_len(1, t, 8192, 16, 132)
+        k = -(-t // lb)
+        assert lb % bwd.SUB_CHUNK == 0 and (k - 1) * lb < t <= k * lb
+        fwd = importlib.import_module("repro_torch.kernels.s6_scan")
+        assert bwd.SUB_CHUNK == fwd.CHECKPOINT_STRIDE == 8
+
+
 class TestGuard:
     """ttt, matmul and ttm_interior have no backward: on the card they
     refuse an operand that requires grad while grad is enabled."""

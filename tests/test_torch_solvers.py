@@ -159,6 +159,48 @@ class TestSpdInverse:
                                    atol=TOL[dtype])
         np.testing.assert_allclose(got @ a, np.eye(6), atol=TOL[dtype] * 10)
 
+    @staticmethod
+    def _rung(a, jitter, floor=0.0):
+        eye = torch.eye(a.shape[0], dtype=a.dtype)
+        c = torch.linalg.cholesky(a + (jitter * torch.trace(a) + floor) * eye)
+        return torch.cholesky_solve(eye, c)
+
+    def test_regular_gram_keeps_the_first_rung(self):
+        """A well-conditioned Gram's Cholesky pivots² all clear eps·tr: its
+        inverse is the first rung's, bitwise, as the reference's ladder."""
+        g = torch.Generator().manual_seed(1)
+        m = torch.randn(64, 200, generator=g)
+        a = m @ m.T
+        assert torch.equal(PS._spd_inverse(a), self._rung(a, 1e-12))
+
+    @pytest.mark.parametrize("small,first", [(1e-6, True), (1e-9, False)])
+    def test_pivots_under_eps_trace_fail_their_rung(self, small, first):
+        """diag(1, small, ..., small) in fp32: every rung's Cholesky
+        succeeds exactly.  At small = 1e-6 its pivots² clear eps·tr and the
+        first rung stands; at 1e-9 the first two rungs' do not (1e-9 and
+        1e-9 + 1e-8·tr, under eps·tr = 1.2e-7·tr), so the last stands,
+        where the reference's ladder takes the first."""
+        a = torch.full((64,), small).diag()
+        a[0, 0] = 1.0
+        got = PS._spd_inverse(a)
+        want = self._rung(a, 1e-12) if first else self._rung(a, 1e-4, 1e-6)
+        assert torch.equal(got, want)
+
+    def test_broken_rank_one_gram_takes_the_last_rung(self):
+        """RᵀR of a near rank-1 R in fp32 (ALS at rank 64 on the codec's
+        a_log): the first rung's Cholesky breaks down among its rounding
+        noise, and the second's pivots² stay under eps·tr."""
+        g = torch.Generator().manual_seed(2)
+        r = torch.randn(256, 1, generator=g) @ torch.randn(1, 64, generator=g)
+        r += 1e-6 * torch.randn(256, 64, generator=g)
+        a = r.T @ r
+        c, info = torch.linalg.cholesky_ex(
+            a + 1e-12 * torch.trace(a) * torch.eye(64))
+        assert int(info) != 0
+        got = PS._spd_inverse(a)
+        assert torch.equal(got, self._rung(a, 1e-4, 1e-6))
+        assert bool(torch.isfinite(got).all())
+
 
 def test_unknown_backend_rejected():
     x = torch.zeros(3, 4, 5)

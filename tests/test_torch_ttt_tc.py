@@ -117,6 +117,18 @@ class TestSplitTf32Arithmetic:
         with pytest.raises(AssertionError):
             normalized_close(one, want, x3, x3)
 
+    @pytest.mark.parametrize("scheme", ["stage", "grid"])
+    @pytest.mark.parametrize("shape,mode", GRAM_CASES[:4])
+    def test_the_cards_sums_hold_the_limit(self, shape, mode, scheme):
+        """The sums as the card makes them (``truncate``: the tensor cores'
+        accumulator rounds toward zero; ``ttt.cu``'s stage scheme and the
+        wide GEMM's grid) stay within the limit of the reference's Gram."""
+        x3 = view3(rnd(shape, 16), mode)
+        xt = torch.from_numpy(x3)
+        got = ref.ttt_tf32x3_ref(xt, xt, truncate=True, scheme=scheme)
+        want = R_ref.gram_ref(jnp.asarray(x3))
+        assert entry_err(got, want, x3, x3).max() <= LIMIT
+
     def test_bf16_operands_need_one_product(self):
         """bf16 values are exact in TF32: lo is zero and the split adds
         nothing, which is why the bf16 route takes one product."""
@@ -306,3 +318,117 @@ class TestFittedTiles:
         assert split_plan(1021, 40, 64, 1, False, 132) == (1, 64)
         assert workspace_bytes(64, 1021, 40, 1, False, 132) == \
             2 * 2 * 64 * 128
+
+
+def _reference_ladder(a: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_spd_inverse`` ladder without the port's resolution
+    gate: the first jitter rung whose Cholesky succeeds, however small its
+    pivots."""
+    eye = torch.eye(a.shape[0], dtype=a.dtype)
+    scale = torch.trace(a)
+    nan = torch.full_like(a, float("nan"))
+    inv = nan
+    for i, jitter in enumerate((1e-12, 1e-8, 1e-4)):
+        reg = jitter * scale + (1e-6 if i == 2 else 0.0)
+        c, info = torch.linalg.cholesky_ex(a + reg * eye)
+        cand = torch.where(info == 0, torch.cholesky_solve(eye, c), nan)
+        inv = torch.where(torch.isfinite(inv).all(), inv, cand)
+    return inv
+
+
+class TestNearRankOneLeaf:
+    """The codec's stacked a_log at a cut width: log(1..16) on every channel
+    of (16 layers, 512 channels, 16 states) plus a rank-16 perturbation
+    whose norm is 1.5e-4 of the leaf's (entries ~3e-4; the trained leaf's
+    is 1.7e-4 of its norm), through the codec's schedule at ranks_for's
+    (16, 64, 4): EIG, ALS, EIG.  Mode 1's unfolding has numerical rank ~1
+    in fp32 squared terms, so ALS at rank 64 meets RᵀR whose trailing
+    eigenvalues are its own rounding noise.
+
+    The card's arithmetic is emulated: the TTT and Gram at R > 16 as
+    ``ttt.cu`` sums them (split TF32, each 32-deep stage from zero in the
+    truncating accumulator: ``ttt_tf32x3_ref(..., truncate=True)``), the
+    interior TTM at R > 16 as ``wgmma.cuh`` (``ttm_tf32x3_ref``), the rest
+    in fp32.  With the reference's ladder the Cholesky inverse amplifies
+    that noise, and whichever rung happens to succeed decides the subspace:
+    the emulated card and fp32 ``matfree`` alike lose the leading direction
+    itself (rel_error 4e-2 to 9 here, against 1e-4 in float64; on the H100
+    the trained leaf read 0.56 on ``hopper`` and 0.18 on ``matfree``).  With
+    the resolution gate of ``solvers._spd_inverse`` (a rung whose pivot² is
+    under eps·tr fails), the emulated card and fp32 ``matfree`` agree within
+    1e-5 and both stay within 1e-4 of float64 ``matfree``."""
+
+    RANKS = (16, 64, 4)
+    METHODS = ("eig", "als", "eig")
+
+    @pytest.fixture(autouse=True)
+    def one_thread(self):
+        """One thread: fp32 LAPACK's sums then come in one order."""
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(n)
+
+    @staticmethod
+    def leaf(seed: int) -> torch.Tensor:
+        rng = np.random.default_rng(seed)
+        x = np.broadcast_to(np.log(np.arange(1, 17.0)), (16, 512, 16)).copy()
+        p = np.einsum("lr,dr,nr->ldn", *(rng.standard_normal((s, 16))
+                                         for s in (16, 512, 16)))
+        x += 1.5e-4 * np.linalg.norm(x) / np.linalg.norm(p) * p
+        return torch.from_numpy(x.astype(np.float32))
+
+    @staticmethod
+    def card_ops():
+        """(ttm, gram, ttt) in the card's arithmetic at R > 16, else fp32."""
+        from repro_torch.core import tensor_ops as T
+
+        def as3(x, mode):
+            return x.reshape(math.prod(x.shape[:mode]), x.shape[mode], -1)
+
+        def ttm(x, u, mode):
+            if u.shape[0] <= 16 or mode in (0, x.ndim - 1):
+                return T.ttm(x, u, mode)
+            shape = list(x.shape)
+            shape[mode] = u.shape[0]
+            return ref.ttm_tf32x3_ref(u, as3(x, mode)).reshape(shape)
+
+        def ttt(x, y, mode):
+            if y.shape[mode] <= 16:
+                return T.ttt(x, y, mode)
+            return ref.ttt_tf32x3_ref(as3(x, mode), as3(y, mode),
+                                      truncate=True)
+
+        def gram(x, mode):
+            return ttt(x, x, mode)
+        return ttm, gram, ttt
+
+    def rel_error(self, x, ops) -> float:
+        from repro_torch.core import solvers
+        from repro_torch.core import tensor_ops as T
+        y, us = x, []
+        for mode, (meth, r) in enumerate(zip(self.METHODS, self.RANKS)):
+            u, y = solvers.SOLVERS[meth](y, mode, r, impl=ops)
+            us.append(u)
+        return float(T.rel_error(x.double(), y.double(),
+                                 [u.double() for u in us]))
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    @pytest.mark.parametrize("arith", ["card", "matfree"])
+    def test_the_references_ladder_loses_the_leaf(self, monkeypatch, arith,
+                                                  seed):
+        from repro_torch.core import solvers
+        x = self.leaf(seed)
+        exact = self.rel_error(x.double(), "matfree")
+        monkeypatch.setattr(solvers, "_spd_inverse", _reference_ladder)
+        ops = self.card_ops() if arith == "card" else "matfree"
+        assert self.rel_error(x, ops) > exact + 1e-3
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_the_gate_holds_the_leaf(self, seed):
+        x = self.leaf(seed)
+        exact = self.rel_error(x.double(), "matfree")
+        card = self.rel_error(x, self.card_ops())
+        fp32 = self.rel_error(x, "matfree")
+        assert abs(card - exact) <= 1e-4
+        assert abs(card - fp32) <= 1e-5
