@@ -36,6 +36,24 @@
     Two such samples against each other: the loss, the share of entries
     that differ, the sign flips among nonzero entries, and the relative
     difference of each layer's gradients (median over its parameters).
+
+``python3 chip_diag.py paths TREE TAG``
+    Two of ``chip_smoke.py``'s paths as the source tree ``TREE`` runs
+    them, to hold one tree against another in one call: the falcon-mamba-7b
+    ``serve`` phase of that tree's ``chip_smoke.py`` (its lines carry the
+    captured decode step's ms, ``decode_ms_median``, and the eager one's,
+    ``graphs.decode_ms_eager``), then ``TuckerBatchEngine(mesh=...)`` on
+    two gloo ranks with the ``sharded`` phase's engine requests (6 of
+    ``ENGINE_SHAPES`` at ranks (4, 4, 4), ``eig``): one cold run, then
+    ENGINE_REPS warm runs, each timed from a barrier to the card's
+    synchronize on every rank.  Prints ``engine_time`` lines tagged TAG,
+    with the wall ms and calls of the decision channel's collectives
+    (``core/distributed.py`` ``Decisions``, where the tree has it).
+
+``python3 chip_diag.py engine TREE TAG VARIANT``
+    The engine part of ``paths`` alone; VARIANT ``serial`` holds the
+    service to one wave in flight (``_max_inflight = 1``), ``default``
+    leaves it.
 """
 
 from __future__ import annotations
@@ -240,6 +258,139 @@ def grads_compare(a_path: str, b_path: str) -> None:
                                      for k, v in by_layer.items()}}))
 
 
+ENGINE_REPS = 10
+
+
+def _tree(tree: str) -> Path:
+    root = Path(tree).resolve()
+    sys.path[:0] = [str(root), str(root / "src")]
+    return root
+
+
+def paths(tree: str, tag: str) -> None:
+    import time
+    root = _tree(tree)
+    import torch
+
+    import chip_smoke as cs
+    cs.phase_env(torch)
+    cs.phase_build()
+    t = time.perf_counter()
+    cs.phase_serve(torch)
+    print(json.dumps({"phase": "paths", "tag": tag, "serve_s":
+                      time.perf_counter() - t}), flush=True)
+    torch.cuda.empty_cache()
+    _engine(root, tag, "default")
+
+
+def engine(tree: str, tag: str, variant: str) -> None:
+    root = _tree(tree)
+    import torch
+
+    import chip_smoke as cs
+    cs.phase_env(torch)
+    cs.phase_build()
+    _engine(root, tag, variant)
+
+
+def _engine(root: Path, tag: str, variant: str) -> None:
+    import os
+    import subprocess
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        store = str(Path(d) / "store")
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "engine-rank",
+             str(root), tag, variant, str(r), store],
+            env=dict(os.environ), stdout=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    print("".join(outs), end="", flush=True)
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        raise SystemExit(f"engine ranks exited {codes}")
+
+
+def _timed_decisions(dist_mod) -> dict:
+    """Wrap the decision channel's collectives (where the tree has one)
+    to add up their wall ms and calls, by method."""
+    spent: dict = {}
+    cls = getattr(dist_mod, "Decisions", None)
+    for name in ("send", "recv", "agree", "agree_lanes") if cls else ():
+        real = getattr(cls, name)
+
+        def timed(self, *a, _real=real, _name=name):
+            import time
+            t = time.perf_counter()
+            try:
+                return _real(self, *a)
+            finally:
+                ms, n = spent.get(_name, (0.0, 0))
+                spent[_name] = (ms + (time.perf_counter() - t) * 1e3, n + 1)
+        setattr(cls, name, timed)
+    return spent
+
+
+def engine_rank(tree: str, tag: str, variant: str, rank: int,
+                store: str) -> None:
+    import datetime
+    import time
+    _tree(tree)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import chip_smoke as cs
+    from repro_torch.core import TuckerConfig
+    from repro_torch.core import distributed as rdist
+    from repro_torch.serve import TuckerBatchEngine, TuckerRequest
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=240))
+    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("data",))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cfg = TuckerConfig(ranks=(4, 4, 4), methods="eig")
+    xs = [cs.lowrank(torch, s, (4, 4, 4), gen) for s in cs.ENGINE_SHAPES * 2]
+    spent = _timed_decisions(rdist)
+    eng = TuckerBatchEngine(mesh=mesh)
+    if variant == "serial":
+        eng.service._max_inflight = 1
+    ms, dec = [], []
+    for k in range(ENGINE_REPS + 1):
+        reqs = [TuckerRequest(x=x, config=cfg, rid=100 * k + i)
+                for i, x in enumerate(xs)]
+        dist.barrier()
+        torch.cuda.synchronize()
+        spent.clear()
+        t = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        dec.append(dict(spent))
+    st = eng.stats
+    getattr(eng, "close", lambda: None)()
+    dist.destroy_process_group()
+    warm = dec[1:]
+    print(json.dumps({
+        "phase": "engine_time", "tag": tag, "variant": variant, "rank": rank,
+        "requests": len(xs), "backends": st["backends"],
+        "batches": st["batches"], "cold_ms": ms[0], "warm_ms": ms[1:],
+        "warm_ms_median": statistics.median(ms[1:]),
+        "decision_ms_median": statistics.median(
+            sum(v[0] for v in d.values()) for d in warm),
+        "decision_calls": {k: v[1] for k, v in warm[-1].items()},
+        "decision_ms_by_call": {k: v[0] for k, v in warm[-1].items()}}),
+        flush=True)
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["alog"] and len(argv) == 1:
         alog()
@@ -249,6 +400,12 @@ def main(argv: list[str]) -> int:
         grads(argv[1], argv[2])
     elif argv[:1] == ["grads-compare"] and len(argv) == 3:
         grads_compare(argv[1], argv[2])
+    elif argv[:1] == ["paths"] and len(argv) == 3:
+        paths(argv[1], argv[2])
+    elif argv[:1] == ["engine"] and len(argv) == 4:
+        engine(argv[1], argv[2], argv[3])
+    elif argv[:1] == ["engine-rank"] and len(argv) == 6:
+        engine_rank(argv[1], argv[2], argv[3], int(argv[4]), argv[5])
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -37,8 +37,10 @@ ALIASES = {
     "internvl2-2b": "internvl2_2b",
 }
 
-#: architectures whose layers the port has (Mamba-1 only, so far)
-PORTED = ("falcon_mamba_7b",)
+#: architectures whose layers the port has: the Mamba-1 ssm family and the
+#: dense family
+PORTED = ("falcon_mamba_7b", "gemma2_9b", "gemma3_1b", "phi3_mini_3p8b",
+          "minitron_4b")
 
 
 def _mod(name: str):
@@ -47,9 +49,9 @@ def _mod(name: str):
         raise ValueError(f"unknown architecture {name!r}; known: {ARCHS}")
     if name not in PORTED:
         raise NotImplementedError(
-            f"{name}: its layers (attention, MLP, MoE, Mamba-2/SSD or "
-            "enc-dec) are not ported yet; ROADMAP.md Queue 1 item 11 brings "
-            "them")
+            f"{name}: its layers (MoE, Mamba-2/SSD with the hybrid block, "
+            "the vision projector or enc-dec) are not ported yet; ROADMAP.md "
+            "Queue 1 item 11 brings them")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -1,0 +1,14 @@
+"""phi3-mini-3.8b [dense]: 32L d_model=3072 32H (MHA kv=32) d_ff=8192
+vocab=32064 — RoPE SwiGLU.  [arXiv:2404.14219]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-mini-3.8b", family="dense",
+    n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32, head_dim=96,
+    d_ff=8192, vocab=32064,
+    act="silu", tie_embeddings=False, dtype="bfloat16",
+)
+
+SMOKE = CONFIG.with_(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+    d_ff=128, vocab=256, dtype="float32")

@@ -355,6 +355,68 @@ class _Link:
         return _agreed(sum(float(q[numel]) for q in parts))
 
 
+class Decisions:
+    """Rank 0's decisions for every rank of a mesh, and the ranks'
+    agreements on their own failures, over a gloo process group of their
+    own on CPU tensors (so a decision never queues behind a CUDA
+    collective of a sweep).
+
+    The group is created collectively by the constructor: every process
+    of the default group must construct its ``Decisions`` at the same
+    point of its program (``dist.new_group``'s rule).  Each of its
+    collectives gives up after ``timeout_s`` with an error, so a rank that
+    stops answering fails its peers instead of hanging them; :meth:`close`
+    releases the group (locally).  ``leader`` is the mesh's first rank.
+    :meth:`send` (the leader) and :meth:`recv` (every other rank) carry one
+    message, a list of ints, in two broadcasts (its length, then its body);
+    :meth:`agree` takes the largest of one code a rank, :meth:`agree_lanes`
+    the largest and the smallest of a vector a rank, elementwise."""
+
+    def __init__(self, mesh, timeout_s: float):
+        import datetime
+        ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+        self.group = dist.new_group(
+            ranks, backend="gloo",
+            timeout=datetime.timedelta(seconds=timeout_s))
+        self.root = ranks[0]
+        self.leader = dist.get_rank() == self.root
+
+    def close(self) -> None:
+        if self.group is not None:
+            dist.destroy_process_group(self.group)
+            self.group = None
+
+    def send(self, msg: list[int]) -> None:
+        n = torch.tensor([len(msg)], dtype=torch.int64)
+        dist.broadcast(n, src=self.root, group=self.group)
+        if msg:
+            dist.broadcast(torch.tensor(msg, dtype=torch.int64),
+                           src=self.root, group=self.group)
+
+    def recv(self) -> list[int]:
+        n = torch.zeros(1, dtype=torch.int64)
+        dist.broadcast(n, src=self.root, group=self.group)
+        if not int(n):
+            return []
+        body = torch.zeros(int(n), dtype=torch.int64)
+        dist.broadcast(body, src=self.root, group=self.group)
+        return body.tolist()
+
+    def agree(self, code: int) -> int:
+        """The largest ``code`` over the ranks (:data:`OK` when all are)."""
+        t = torch.tensor([code], dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return int(t)
+
+    def agree_lanes(self, codes: list[int]) -> tuple[list[int], list[int]]:
+        """(largest, smallest) of each entry of ``codes`` over the ranks,
+        in one collective."""
+        t = torch.tensor(list(codes) + [-c for c in codes], dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        n = len(codes)
+        return t[:n].tolist(), [-c for c in t[n:].tolist()]
+
+
 def _flagged(kind: str, payload: torch.Tensor, issue, read) -> None:
     """Run one collective of the sweep in progress: hold it to the plan,
     ``issue()`` it, then ``read()`` the sum of the ranks' codes and raise

@@ -1,10 +1,13 @@
 """Serving entry point: batched requests through the slot engine.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         [--smoke] --requests 6 --max-new 16 [--slots 4] [--max-len 256] \
         [--device cpu]
 
-Runs on ``cuda:0`` and raises without CUDA unless ``--device cpu`` is given.
+``--arch`` is any architecture the port has (``repro_torch.configs.PORTED``:
+falcon-mamba-7b, gemma2-9b, gemma3-1b, phi3-mini-3.8b, minitron-4b), at its
+full size or, with ``--smoke``, its SMOKE preset.  Runs on ``cuda:0`` and
+raises without CUDA unless ``--device cpu`` is given.
 Weights are random, from ``torch.Generator(device).manual_seed(0)``, or,
 with ``--ckpt <dir>``, the parameter tree of that directory's newest
 checkpoint (one written by ``Checkpointer.save`` of a parameter tree, by

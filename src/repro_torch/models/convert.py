@@ -2,7 +2,8 @@
 
 ``repro.models.lm.init_params`` returns a nested dict whose per-layer
 arrays are stacked on a leading layer axis (``params["layers"]["ssm"]
-["in_proj"]`` is (L, d, 2·Di)).  :func:`params_from_jax` takes that tree
+["in_proj"]`` is (L, d, 2·Di), ``params["layers"]["attn"]["wq"]`` (L, d,
+Hq·D)).  :func:`params_from_jax` takes that tree
 with numpy leaves (``np.asarray`` of each jax array; bf16 as ml_dtypes'
 bfloat16) or tensors and builds the port's
 :class:`~repro_torch.models.lm.LM`, splitting the stacked arrays into one
@@ -29,10 +30,25 @@ from torch import nn
 from ..core.api import _as_tensor, resolve_device
 from .config import ModelConfig
 from .layers import param
-from .lm import LM, Mamba1Block, require_mamba1
+from .lm import LM, Block, require_ported
 
 SSM_KEYS = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
             "a_log", "d_skip", "out_proj")
+
+
+def layer_keys(cfg: ModelConfig) -> dict[str, tuple[str, ...]]:
+    """The reference's per-layer tree for ``cfg``: {part: its leaf keys}."""
+    require_ported(cfg)
+    norm = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
+    if cfg.family == "ssm":
+        return {"norm_ssm": norm, "ssm": SSM_KEYS}
+    attn = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm
+                                       else ())
+    mlp = ("wi", "wo") if cfg.act == "relu2" else ("wi_gate", "wi_up", "wo")
+    out = {"norm_attn": norm, "attn": attn, "norm_mlp": norm, "mlp": mlp}
+    if cfg.post_norm:
+        out.update(post_attn=norm, post_mlp=norm)
+    return out
 
 
 def _pdict(tree: dict, keys, index=None, device=None) -> nn.ParameterDict:
@@ -49,20 +65,21 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
     without CUDA) from the reference's parameter tree for ``cfg`` (numpy
     leaves).  Raises on a missing or extra layer key and on a layer axis
     that is not ``cfg.n_layers`` long."""
-    require_mamba1(cfg)
+    want = layer_keys(cfg)
     device = resolve_device(device)
     layers = tree["layers"]
-    ssm = layers["ssm"]
-    if set(ssm) != set(SSM_KEYS):
-        raise ValueError(f"params_from_jax: layer keys {sorted(ssm)} are not "
-                         f"the Mamba-1 keys {sorted(SSM_KEYS)}")
-    norm_keys = tuple(layers["norm_ssm"])
-    for k, v in (*ssm.items(), *layers["norm_ssm"].items()):
-        if v.shape[0] != cfg.n_layers:
-            raise ValueError(f"params_from_jax: layers/{k} has {v.shape[0]} "
-                             f"layers, the config {cfg.n_layers}")
-    blocks = [Mamba1Block(_pdict(layers["norm_ssm"], norm_keys, i, device),
-                          _pdict(ssm, SSM_KEYS, i, device))
+    got = {part: tuple(sorted(v)) for part, v in layers.items()}
+    if got != {part: tuple(sorted(v)) for part, v in want.items()}:
+        raise ValueError(f"params_from_jax: layer keys {got} are not the "
+                         f"{cfg.family} keys {want}")
+    for part, keys in want.items():
+        for k in keys:
+            n = layers[part][k].shape[0]
+            if n != cfg.n_layers:
+                raise ValueError(f"params_from_jax: layers/{part}/{k} has "
+                                 f"{n} layers, the config {cfg.n_layers}")
+    blocks = [Block(**{part: _pdict(layers[part], keys, i, device)
+                       for part, keys in want.items()})
               for i in range(cfg.n_layers)]
     lm_head = tree.get("lm_head")
     return LM(_as_tensor(tree["embed"]).to(device), blocks,
@@ -82,10 +99,9 @@ def param_tree(lm: LM) -> dict:
     blocks = list(lm.layers)
     tree = {"embed": lm.embed,
             "final_norm": dict(lm.final_norm.items()),
-            "layers": {"norm_ssm": {k: [b.norm_ssm[k] for b in blocks]
-                                    for k in blocks[0].norm_ssm},
-                       "ssm": {k: [b.ssm[k] for b in blocks]
-                               for k in SSM_KEYS}}}
+            "layers": {part: {k: [getattr(b, part)[k] for b in blocks]
+                              for k in getattr(blocks[0], part)}
+                       for part in blocks[0].parts}}
     if lm.lm_head is not None:
         tree["lm_head"] = lm.lm_head
     return tree

@@ -2,9 +2,12 @@
 init_cache.
 
 ``build(cfg)`` returns a ModelBundle whose entry points close over the
-config, as in ``repro/models/registry.py``.  The port has the lm families'
-Mamba-1 (ssm) member only; ``encdec`` and ``input_specs`` wait for their
-slices (``ROADMAP.md`` Queue 1 item 11).
+config, as in ``repro/models/registry.py``, with its ``ring`` rule: a KV
+cache shorter than the context (``lm.cache_len``, pure sliding-window
+models) is a ring buffer; ``decode`` is told the context's total length
+(the serve engine passes its ``max_len``, as the reference's does).  The
+port has the lm families' dense and Mamba-1 (ssm) members; ``encdec`` and
+``input_specs`` wait for their slices (``ROADMAP.md`` Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ class ModelBundle:
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
-    lm.require_mamba1(cfg)
+    lm.require_ported(cfg)
+    ring = lambda seq: lm.cache_len(cfg, seq) < seq
 
     def init(seed: int = 0, device=None) -> lm.LM:
         """Random parameters from ``torch.Generator(device).manual_seed(seed)``
@@ -42,9 +46,11 @@ def build(cfg: ModelConfig) -> ModelBundle:
         cfg=cfg,
         init=init,
         loss=lambda p, b: lm.lm_loss(p, cfg, b),
-        prefill=lambda p, b, cache: lm.prefill(p, cfg, b["tokens"], cache),
-        decode=lambda p, tok, cache, pos: lm.decode_step(p, cfg, tok, cache,
-                                                         pos),
+        prefill=lambda p, b, cache: lm.prefill(
+            p, cfg, b["tokens"], cache, ring=ring(b["tokens"].shape[1])),
+        decode=lambda p, tok, cache, pos, total=None: lm.decode_step(
+            p, cfg, tok, cache, pos,
+            ring=ring(total) if total is not None else False),
         init_cache=lambda batch, seq, device=None: lm.init_cache(
             cfg, batch, seq, device=device),
     )

@@ -7,16 +7,23 @@ without stopping the batch.  The decode step always runs every slot
 (inactive slots decode a dummy token whose result is dropped), at one
 fixed ``(batch_slots, 1)`` shape: on the card it is captured once into a
 CUDA graph (the reference jits it) that reads static token and position
-buffers and writes the new conv/SSM state back into the engine's cache
-tensors, so one replay is one whole step.  Prefill runs eagerly per
-request (its length varies), on the slot's stripe of the batched cache,
-and the stripe is copied back; sampling stays outside the graph.
+buffers and writes into the engine's cache tensors, so one replay is one
+whole step.  A KV cache (the dense family) is written in place: each row's
+new key and value land at its slot (``index_put_``), and nothing else of
+the cache moves.  The ssm family's step returns a new conv/SSM state,
+which the graph copies back into the cache tensors.  The decode is told
+the context's total length, ``max_len``, as the reference's engine tells
+it (``ring`` caches of pure sliding-window models).  Prefill runs eagerly
+per request (its length varies); sampling stays outside the graph.
 
-One deliberate difference: an admitted request's prefill starts from a
-zeroed stripe.  The reference prefills from whatever the slot's previous
-occupant (and the dummy decodes since) left there, so for a state-space
-model a refilled slot continues the old request's state; see
-``ROADMAP.md`` Queue 3.
+A KV prefill writes slots 0 … T − 1 of the slot's stripe of the cache in
+place, as the reference's writes them (its stale tail is masked by every
+later decode until overwritten), so admission allocates nothing beside the
+prompt's own activations.  An ssm prefill runs on a zeroed copy of the
+slot's stripe, which is copied back.  That is one deliberate difference:
+the reference prefills from whatever the slot's previous occupant (and the
+dummy decodes since) left there, so for a state-space model a refilled
+slot continues the old request's state; see ``ROADMAP.md`` Queue 3.
 
 ``TuckerBatchEngine`` — the decomposition-serving counterpart: a thin
 synchronous wrapper over :class:`~repro_torch.serve.service.TuckerService`
@@ -36,6 +43,7 @@ import torch
 from .. import kernels
 from ..core.api import TuckerConfig, TuckerPlan
 from ..core.sthosvd import SthosvdResult
+from ..models.lm import in_place_cache
 from ..models.registry import ModelBundle
 
 
@@ -69,10 +77,11 @@ class ServeEngine:
         self.device = params.embed.device
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.cache = bundle.init_cache(batch_slots, max_len, device=self.device)
+        self.in_place = in_place_cache(bundle.cfg)
         self.pos = np.zeros(batch_slots, np.int64)
         self.slot_req: list[Request | None] = [None] * batch_slots
         self._eager_decode = lambda tok, cache, pos: bundle.decode(
-            params, tok, cache, pos)
+            params, tok, cache, pos, max_len)
         self._prefill = lambda tokens, cache: bundle.prefill(
             params, {"tokens": tokens}, cache)
         self.captured = self.device.type == "cuda"
@@ -83,12 +92,15 @@ class ServeEngine:
     def _capture_decode(self):
         """The decode step captured into a CUDA graph at ``(batch_slots,
         1)``: it reads static token and position buffers and the cache
-        tensors, and writes the new state back into the cache tensors with
-        ``copy_``.  Returns the replaying ``_decode``: it fills the static
-        buffers from its arguments (outside the graph), replays, and
-        returns the static logits (valid until the next replay) and the
-        cache.  The S6 wrapper's ticks during capture are taken back and
-        each replay adds them, so the launch counts stay true."""
+        tensors, and writes the cache tensors: a KV cache in place, a new
+        ssm state back with ``copy_``.  Returns the replaying ``_decode``:
+        it fills the static buffers from its arguments (outside the graph),
+        replays, and returns the static logits (valid until the next
+        replay) and the cache.  The warm-up decode leaves an ssm state as
+        it is; on a KV cache it writes slot 0 of every row, which each
+        admission's prefill overwrites before any decode reads it.  The S6
+        wrapper's ticks during capture are taken back and each replay adds
+        them, so the launch counts stay true."""
         dev, cache = self.device, self.cache
         tok = torch.zeros((self.b, 1), dtype=torch.long, device=dev)
         pos = torch.zeros(self.b, dtype=torch.long, device=dev)
@@ -102,7 +114,8 @@ class ServeEngine:
         with torch.cuda.device(dev), torch.cuda.graph(graph):
             logits, new = self._eager_decode(tok, cache, pos)
             for k, v in cache.items():
-                v.copy_(new[k])
+                if new[k] is not v:
+                    v.copy_(new[k])
         launches = kernels.launches_since(before)
         kernels.add_launches(launches, -1)     # the capture launched nothing
         del new
@@ -126,11 +139,16 @@ class ServeEngine:
     # -- slot management -----------------------------------------------------
     def _admit(self, req: Request, slot: int):
         toks = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
-        fresh = {k: torch.zeros_like(v[:, slot:slot + 1])
-                 for k, v in self.cache.items()}
-        logits, slot_cache = self._prefill(toks, fresh)
-        for k, v in self.cache.items():
-            v[:, slot:slot + 1].copy_(slot_cache[k])
+        if self.in_place:
+            # the prefill fills slots 0 … T - 1 of the stripe in place
+            logits, _ = self._prefill(toks, {k: v[:, slot:slot + 1]
+                                             for k, v in self.cache.items()})
+        else:
+            fresh = {k: torch.zeros_like(v[:, slot:slot + 1])
+                     for k, v in self.cache.items()}
+            logits, slot_cache = self._prefill(toks, fresh)
+            for k, v in self.cache.items():
+                v[:, slot:slot + 1].copy_(slot_cache[k])
         self.pos[slot] = len(req.prompt)
         self.slot_req[slot] = req
         first = self._sample(logits[:, -1], np.array([req.temperature]))
@@ -229,7 +247,12 @@ class TuckerBatchEngine:
     ``impl="sharded"``; requests carrying their own mesh keep it; a pinned
     single-device ``impl`` drops it.  Every rank runs its own engine on the
     same requests (global tensors); the engine runs them in submission
-    order, item by item through one cached eager sweep per group.
+    order, item by item through one cached eager sweep per group.  When
+    the plans keep the mesh, constructing the engine is a collective: its
+    service creates rank 0's decision group (``dist.new_group``), so every
+    process of the default group constructs its engine at the same point
+    of its program, and every rank calls :meth:`run` and :meth:`close`
+    alike (``close`` releases the group).
 
     ``record=True`` (optionally with a ``record_store``) runs requests
     through the eager timed path so engine traffic feeds the autotune
@@ -248,6 +271,16 @@ class TuckerBatchEngine:
             shard_axis=shard_axis, memory_cap_bytes=memory_cap_bytes,
             max_queue=None, record=record, record_store=record_store,
             device=device)
+
+    def close(self) -> None:
+        """Close the service (on a mesh, release its decision group)."""
+        self.service.close()
+
+    def __enter__(self) -> "TuckerBatchEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     @property
     def _plans(self) -> dict[tuple, TuckerPlan]:

@@ -47,16 +47,46 @@ CUDA, as :func:`repro_torch.core.api.plan`):
 reference does: a mesh with no explicit ``impl`` pins ``impl="sharded"``,
 requests that carry their own mesh keep it, and a pinned single-device
 ``impl`` drops it.  Every rank of the mesh runs its own service and submits
-the same requests (global tensors) in the same order; every rank must then
-run the same waves in the same order, or the collectives of different
-requests pair up and hang.  The synchronous pump forms waves from the
-submission order alone, so with a mesh the service runs synchronously:
-``start()`` (a worker forming waves by timing) and ``deadline_s`` (each
-rank's own clock) raise.  A failure on one rank inside a lane's sweep
-ends that sweep on every rank with the same classified error
-(:class:`~repro_torch.core.distributed.MeshError`): every rank's plan then
-takes the same fallback rung, or every rank keeps the same lane error, so
-quarantine and bisection split the wave alike on every rank.
+the same requests (global tensors) with the same ``rid``s; every rank must
+then run the same waves in the same order, or the collectives of different
+requests pair up and hang.  So on a mesh rank 0 decides and every rank
+follows, over a gloo group of the service's own
+(:class:`~repro_torch.core.distributed.Decisions`, created collectively by
+the constructor):
+
+  * rank 0 picks each wave (by its own timing, as a single service does),
+    expires the wave's requests whose deadline passed on its clock, routes
+    the wave through its breaker (the cooldown read on its clock) and
+    broadcasts the bucket, the ordered ``rid``s, the expired ``rid``s and
+    the route; every rank then dispatches exactly that wave.  A rank whose
+    own submissions lag waits for those ``rid``s up to
+    ``decision_timeout_s``; past it every rank fails the wave with an
+    agreed :class:`~repro_torch.core.distributed.MeshError` (a late
+    request fails with it on arrival).  Every collective of the decision
+    group gives up after twice ``decision_timeout_s``: a rank that stops
+    answering (its worker died, its process is gone) ends its peers'
+    workers, whose jobs then fail, instead of hanging them.  So in
+    ``drain()`` every rank must reach its drain within that time of rank
+    0's, and an idle worker on rank 0 sends a heartbeat every second.
+    The group is created only when the service's plans keep the mesh (a
+    pinned single-device ``impl`` drops it) and released by ``close()``.
+  * a rank's failure before a sweep's first collective (the wave's
+    stacking, the ``wave``/``wave_job`` chaos seams) is agreed before the
+    sweep: every rank leaves the wave with the same ``MeshError`` and
+    recovers it alike.  A failure inside a sweep ends it on every rank with
+    the same classified error (the sweep's own agreement), so every rank's
+    plan takes the same fallback rung or keeps the same lane error.  Which
+    lanes a wave recovers (quarantine, bisection) and each request's final
+    outcome are agreed too, so the breaker, the retries and the results
+    are the same on every rank.
+  * one wave is in flight at a time (``max_inflight_waves`` is 1).
+  * what cannot be agreed cheaply is refused or left to rank 0:
+    ``backpressure="reject"`` with a bounded queue raises at construction
+    (the default is ``"block"`` with a mesh); ``cancel`` takes effect on
+    rank 0 only and reaches the other ranks with its next decision (on
+    them it returns False); ``stop(force=True)`` and a worker that ends
+    are carried to every rank by rank 0's stop decision (``ROADMAP.md``
+    Queue 3).
 
 Failure isolation:
 
@@ -107,6 +137,8 @@ from .. import chaos as _chaos
 from ..core import tensor_ops as T
 from ..core.api import (CACHE_STATS, TuckerConfig, TuckerPlan, _as_tensor,
                         plan as make_plan, resolve_device)
+from ..core.distributed import (OK, OTHER, Decisions, MeshError,
+                                failure_code, mesh_error)
 from ..core.errors import (CancelledError, DeadlineError, InputError,
                            NumericalError, ResourceError, check_finite,
                            coerce_exception)
@@ -123,6 +155,14 @@ VALIDATE_MODES = ("finite", "none")
 #: errors that a retry budget never retries: the request itself is the
 #: problem (bad input), or the caller already gave up (deadline, cancel)
 _NO_RETRY = (InputError, DeadlineError, CancelledError)
+
+#: the kinds of rank 0's decisions on a mesh (the first int of a message)
+_WAVE, _CANCEL, _IDLE, _STOP, _END = 1, 2, 3, 4, 5
+_ROUTES = ("fused", "isolated", "probe")
+#: rank 0's worker tells an idle mesh it is alive this often (seconds)
+_HEARTBEAT_S = 1.0
+_FORCED = ("service stopped with force=True; request was abandoned before "
+           "completing")
 
 
 class RejectedError(RuntimeError):
@@ -237,6 +277,14 @@ class _Breaker:
             self.opened_at = now
             self.reopens += 1
 
+    def follow(self, route: str) -> None:
+        """Take the route rank 0 decided on a mesh: a probe claims the
+        probe slot (the outcomes that follow are agreed, so every other
+        transition happens alike on every rank)."""
+        if route == "probe":
+            self.probing = True
+            self.state = "half_open"
+
     def snapshot(self) -> dict:
         return {"state": self.state, "trips": self.trips,
                 "reopens": self.reopens,
@@ -298,12 +346,15 @@ class TuckerService:
                  shard_axis: str | None = None,
                  memory_cap_bytes: int | None = None,
                  max_queue: int | None = 1024,
-                 backpressure: str = "reject",
+                 backpressure: str | None = None,
                  max_inflight_waves: int = 2,
                  breaker_threshold: int = 3,
                  breaker_cooldown_s: float = 5.0,
                  record: bool = False, record_store=None,
-                 trace_path=None, device=None):
+                 trace_path=None, device=None,
+                 decision_timeout_s: float = 60.0):
+        if backpressure is None:
+            backpressure = "reject" if mesh is None else "block"
         if backpressure not in BACKPRESSURE_MODES:
             raise ValueError(f"backpressure {backpressure!r} not in "
                              f"{BACKPRESSURE_MODES}")
@@ -316,16 +367,31 @@ class TuckerService:
             raise ValueError("breaker_threshold must be >= 1")
         if breaker_cooldown_s <= 0:
             raise ValueError("breaker_cooldown_s must be > 0")
+        from ..core.backend import get_backend
+        impl = "sharded" if impl is None and mesh is not None else impl
+        # the plans keep the mesh unless a single-device impl is pinned
+        on_mesh = mesh is not None and (
+            impl == "auto" or get_backend(impl).requires_mesh)
+        if on_mesh and decision_timeout_s < _HEARTBEAT_S:
+            raise ValueError(f"decision_timeout_s must be >= {_HEARTBEAT_S}"
+                             " s, the idle worker's heartbeat")
+        if on_mesh and backpressure == "reject" and max_queue is not None:
+            raise ValueError(
+                "backpressure='reject' with a mesh: a full queue would drop "
+                "a request on one rank only, by that rank's timing; use "
+                "'block' or max_queue=None (ROADMAP.md Queue 3)")
         self.device = resolve_device(device, mesh=mesh)
         self._selector = selector
         self._policy = policy if policy is not None else BucketPolicy()
-        self._impl = "sharded" if impl is None and mesh is not None else impl
+        self._impl = impl
         self._mesh = mesh
         self._shard_axis = shard_axis
         self._cap = memory_cap_bytes
         self._max_queue = max_queue
         self._backpressure = backpressure
-        self._max_inflight = int(max_inflight_waves)
+        # a mesh keeps one wave in flight: its agreements run in order
+        self._max_inflight = 1 if on_mesh else int(max_inflight_waves)
+        self._decision_timeout = float(decision_timeout_s)
         self._breaker_threshold = int(breaker_threshold)
         self._breaker_cooldown = float(breaker_cooldown_s)
         self._record = record
@@ -353,6 +419,14 @@ class TuckerService:
         self._running = False
         self._worker_failed = False
         self._closed = False
+        # on a mesh: rank 0's decision channel, the cancels rank 0 has yet
+        # to announce, the requests a decision failed before they arrived
+        # here, and whether rank 0's stop abandons unfinished work
+        self._chan = (Decisions(mesh, 2 * self._decision_timeout)
+                      if on_mesh else None)
+        self._cancel_out: list[int] = []
+        self._orphans: dict[int, Exception] = {}
+        self._stop_force = False
 
     # -- tracing -------------------------------------------------------------
     def _emit(self, kind: str, **fields) -> None:
@@ -448,10 +522,6 @@ class TuckerService:
             raise ValueError(f"validate {validate!r} not in {VALIDATE_MODES}")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError("deadline_s must be > 0 (or None)")
-        if deadline_s is not None and self._mesh is not None:
-            raise ValueError("deadline_s with a mesh: each rank would expire "
-                             "requests by its own clock, and ranks must run "
-                             "the same waves")
         if retries < 0:
             raise ValueError("retries must be >= 0")
         t_adm = time.perf_counter()
@@ -486,10 +556,17 @@ class TuckerService:
                     self._next_rid = max(self._next_rid, rid) + 1
                     job = _Job(rid, x, pinned, shape, key,
                                deadline=deadline, retries=retries)
-                    bs.queue.append(job)
                     bs.metrics.submitted += 1
-                    self._pending += 1
                     self._counters["submitted"] += 1
+                    if rid in self._orphans:
+                        # rank 0's decision on this rid came before it
+                        job.error = self._orphans.pop(rid)
+                        bs.metrics.failed += 1
+                        self._counters["failed"] += 1
+                        job.event.set()
+                        break
+                    bs.queue.append(job)
+                    self._pending += 1
                     self._work.notify_all()
                     break
                 if self._backpressure == "reject":
@@ -500,7 +577,9 @@ class TuckerService:
                     raise RejectedError(
                         f"admission queue full ({self._max_queue} pending); "
                         "retry later or use backpressure='block'")
-                if deadline is not None and time.perf_counter() >= deadline:
+                if deadline is not None and self._chan is None and \
+                        time.perf_counter() >= deadline:
+                    # (on a mesh rank 0 expires it before its wave instead)
                     bs.metrics.rejected += 1
                     self._counters["rejected"] += 1
                     raise DeadlineError(
@@ -545,26 +624,39 @@ class TuckerService:
         request was removed from its queue: its waiters unblock and
         ``poll``/``wait`` raise :class:`~repro_torch.core.errors.CancelledError`.
         Returns False when the request already dispatched or completed —
-        in-flight work is never interrupted."""
+        in-flight work is never interrupted.  On a mesh only rank 0 cancels
+        (its next decision cancels the request on every rank); on the other
+        ranks this returns False."""
         job = ticket._job
         with self._lock:
+            if self._chan is not None and not self._chan.leader:
+                return False
             bs = self._buckets.get(job.key)
             if bs is None or job not in bs.queue:
                 return False
             bs.queue.remove(job)
-            job.result = None
-            job.error = CancelledError(
-                f"request {job.rid} was cancelled before dispatch")
-            self._pending -= 1
-            self._counters["failed"] += 1
-            bs.metrics.failed += 1
-            bs.metrics.cancelled += 1
-            self._res["cancelled"] += 1
-            job.event.set()
-            self._space.notify_all()
-            self._idle.notify_all()
+            self._cancel_locked(job)
+            if self._chan is not None:
+                self._cancel_out.append(job.rid)
         self._emit("cancel", rid=job.rid, bucket=list(job.key[0]))
         return True
+
+    def _cancel_locked(self, job: _Job) -> None:
+        """Fail a job taken off its queue with CancelledError (caller holds
+        the lock)."""
+        bs = self._buckets[job.key]
+        self._inflight_jobs.discard(job)
+        job.result = None
+        job.error = CancelledError(
+            f"request {job.rid} was cancelled before dispatch")
+        self._pending -= 1
+        self._counters["failed"] += 1
+        bs.metrics.failed += 1
+        bs.metrics.cancelled += 1
+        self._res["cancelled"] += 1
+        job.event.set()
+        self._space.notify_all()
+        self._idle.notify_all()
 
     @property
     def pending(self) -> int:
@@ -600,6 +692,30 @@ class TuckerService:
             xb = xb * float("nan")
         return xb
 
+    def _stack_wave(self, jobs: list[_Job], bshape) -> torch.Tensor:
+        """The lanes' blocks stacked, agreed on a mesh."""
+        return self._agreed(lambda: torch.stack(
+            [self._job_block(j, bshape) for j in jobs]), "the wave's sweep")
+
+    def _agreed(self, fn, what: str):
+        """``fn()``, with its outcome agreed on a mesh before any
+        collective follows: every rank returns fn's value when every rank's
+        ``fn`` succeeded, else every rank raises the same
+        :class:`~repro_torch.core.distributed.MeshError` (of the largest
+        failure code, chaining this rank's own failure).  Without a mesh,
+        just ``fn()``."""
+        if self._chan is None:
+            return fn()
+        out, exc = None, None
+        try:
+            out = fn()
+        except Exception as e:  # noqa: BLE001 - agreed below
+            exc = e
+        code = self._chan.agree(OK if exc is None else failure_code(exc))
+        if code != OK:
+            raise mesh_error(code, what) from exc
+        return out
+
     def _wave_event(self):
         """A CUDA event recorded on the service device's current stream
         after a wave's work (None on the CPU, where the work is done)."""
@@ -610,7 +726,7 @@ class TuckerService:
         return evt
 
     def _dispatch_wave(self, bs: _BucketState, jobs: list[_Job],
-                       inflight: int = 0):
+                       inflight: int = 0, decided=None):
         """Enqueue one wave on the device and hand back a ``finish()``
         closure that waits on the wave's event, completes the tickets, and
         updates metrics.  The pump keeps up to ``max_inflight_waves``
@@ -623,7 +739,11 @@ class TuckerService:
         results never materialized (wave exception, asynchronous device
         failure, or a non-finite fused lane) are recovered — fused groups
         by bisection, everything else by an exact isolated re-run — and
-        whatever still fails comes back as a *classified* error."""
+        whatever still fails comes back as a *classified* error.
+
+        ``decided`` is rank 0's decision on a mesh, ``(expired rids,
+        route)``: the wave takes it instead of reading this rank's clock
+        and breaker."""
         bshape, dtype, cfg = bs.key
         t_start = time.perf_counter()
         done: list[tuple[_Job, SthosvdResult | None, TuckerPlan | None,
@@ -632,7 +752,8 @@ class TuckerService:
         # wave is stacked, so they never occupy a lane
         live: list[_Job] = []
         for j in jobs:
-            if j.deadline is not None and t_start >= j.deadline:
+            if (j.rid in decided[0] if decided is not None else
+                    j.deadline is not None and t_start >= j.deadline):
                 done.append((j, None, None, DeadlineError(
                     f"request {j.rid} missed its deadline before dispatch "
                     f"(queued {t_start - j.t_submit:.3f}s)")))
@@ -642,13 +763,14 @@ class TuckerService:
         fused_group: list[_Job] = []   # jobs sharing ONE stacked dispatch
         failed_lanes: list[_Job] = []  # fused lanes whose own solve raised
         wave_exc: Exception | None = None
-        tune = sys.modules.get("repro_torch.tune")
-        record = self._record or (
-            tune is not None and tune.active_sink() is not None)
+        record = self._recording()
         with self._lock:
             self._active_bucket = bs.key
-            route = bs.breaker.route(t_start) if (live and not record) \
-                else "fused"
+            if decided is not None:
+                route = decided[1]
+            else:
+                route = bs.breaker.route(t_start) if (live and not record) \
+                    else "fused"
             if route == "isolated":
                 self._res["isolated_waves"] += 1
             elif route == "probe":
@@ -671,9 +793,11 @@ class TuckerService:
                 # the factors' slack rows come back zero, so each lane
                 # trims to its true shape afterwards
                 p = self._plan_cached(bshape, dtype, cfg)
-                _chaos.fire("wave", bucket=bshape, n=len(live))
+                self._agreed(lambda: _chaos.fire("wave", bucket=bshape,
+                                                 n=len(live)),
+                             "the wave's sweep")
                 fused_group = list(live)
-                stack = torch.stack([self._job_block(j, bshape) for j in live])
+                stack = self._stack_wave(live, bshape)
                 for j, r in zip(live, p._execute_lanes(stack,
                                                        keep_errors=True)):
                     if isinstance(r, Exception):
@@ -686,16 +810,18 @@ class TuckerService:
                 padded = [j for j in live if j.shape != bshape]
                 if exact:
                     p = self._plan_cached(bshape, dtype, cfg)
-                    _chaos.fire("wave", bucket=bshape, n=len(exact))
+                    self._agreed(lambda: _chaos.fire("wave", bucket=bshape,
+                                                     n=len(exact)),
+                                 "the wave's sweep")
                     if len(exact) == 1:
                         # singleton: share the unbatched cached sweep
-                        _chaos.fire("wave_job", rid=exact[0].rid)
+                        self._agreed(lambda: _chaos.fire(
+                            "wave_job", rid=exact[0].rid), "the wave's sweep")
                         res = p.execute(exact[0].x)
                         done.append((exact[0], res, p, None))
                     else:
                         fused_group = list(exact)
-                        stack = torch.stack([self._job_block(j, bshape)
-                                             for j in exact])
+                        stack = self._stack_wave(exact, bshape)
                         for j, r in zip(exact, p._execute_lanes(
                                 stack, keep_errors=True)):
                             if isinstance(r, Exception):
@@ -714,7 +840,9 @@ class TuckerService:
                     slots = torch.stack([pad_block(j.x, bshape)
                                          for j in padded])
                     for i, j in enumerate(padded):
-                        _chaos.fire("wave_job", rid=j.rid)
+                        self._agreed(lambda: _chaos.fire("wave_job",
+                                                         rid=j.rid),
+                                     f"request {j.rid}'s sweep")
                         tp = self._plan_cached(j.shape, dtype, cfg, base=base)
                         res = tp.execute(slice_valid(slots[i], j.shape))
                         done.append((j, res, tp, None))
@@ -729,12 +857,12 @@ class TuckerService:
             fused_ids = {id(j) for j in fused_group}
             # a fused lane whose solve raised (e.g. eigh refusing a NaN
             # Gram) is quarantined like one that came back non-finite
-            recover: list[_Job] = list(failed_lanes)
-            quarantined = len(failed_lanes)
+            quarantine: list[_Job] = list(failed_lanes)
+            other: list[_Job] = []
             if wave_exc is not None:
                 executed = {id(j) for j, *_ in done}
                 executed.update(id(j) for j in failed_lanes)
-                recover.extend(j for j in live if id(j) not in executed)
+                other.extend(j for j in live if id(j) not in executed)
             synced = True
             if evt is not None:
                 try:
@@ -747,15 +875,26 @@ class TuckerService:
                     final.append((j, res, p, err))
                     continue
                 if not synced:
-                    recover.append(j)
+                    other.append(j)
                     continue
                 if id(j) in fused_ids and not _finite(res.tucker.core):
                     # poisoned lane quarantine: re-derive THIS lane alone;
                     # every other lane keeps its fused result untouched
-                    quarantined += 1
-                    recover.append(j)
+                    quarantine.append(j)
                     continue
                 final.append((j, res, p, err))
+            if self._chan is not None:
+                # every rank recovers the lanes any rank must recover
+                flags = {id(j): 1 for j in quarantine}
+                flags.update((id(j), 2) for j in other)
+                agreed, _ = self._chan.agree_lanes(
+                    [flags.get(id(j), 0) for j in live])
+                quarantine = [j for j, f in zip(live, agreed) if f == 1]
+                other = [j for j, f in zip(live, agreed) if f == 2]
+                final = [e for e in final if not any(
+                    e[0] is j for j in quarantine + other)]
+            recover = quarantine + other
+            quarantined = len(quarantine)
             wave_ok = not recover
             if quarantined:
                 with self._lock:
@@ -771,6 +910,8 @@ class TuckerService:
                     final.extend(self._bisect(bs, fused_rec))
                 for j in other_rec:
                     final.append(self._run_isolated(j, bs))
+            if self._chan is not None:
+                final = self._agree_outcomes(jobs, final)
             # 3) breaker bookkeeping (fused waves only; recorded and
             #    already-isolated waves say nothing about the fused path)
             breaker_events = []
@@ -881,6 +1022,35 @@ class TuckerService:
 
         return finish
 
+    def _recording(self) -> bool:
+        tune = sys.modules.get("repro_torch.tune")
+        return self._record or (tune is not None
+                                and tune.active_sink() is not None)
+
+    def _agree_outcomes(self, jobs: list[_Job], final: list) -> list:
+        """On a mesh: each request's outcome agreed across the ranks, in
+        the wave's order.  A request whose outcome class (a result, an
+        error that never retries, or another error's failure code) differs
+        between ranks fails on every rank with the agreed
+        :class:`~repro_torch.core.distributed.MeshError`."""
+        by_job = {id(e[0]): e for e in final}
+        entries = [by_job[id(j)] for j in jobs]
+
+        def status(err):
+            if err is None:
+                return 0
+            return 1 if isinstance(err, _NO_RETRY) else 2 + failure_code(err)
+        hi, lo = self._chan.agree_lanes([status(e[3]) for e in entries])
+        out = []
+        for (j, res, p, err), h, l in zip(entries, hi, lo):
+            if h != l:
+                agreed = mesh_error(OTHER if h < 3 else h - 2,
+                                    f"request {j.rid} completed")
+                agreed.__cause__ = err
+                j, res, p, err = j, None, None, agreed
+            out.append((j, res, p, err))
+        return out
+
     # -- failure recovery ----------------------------------------------------
     def _fused_sync(self, bs: _BucketState, group: list[_Job]) -> list:
         """Re-run ``group`` as one fused wave on the bucket plan's batched
@@ -890,17 +1060,19 @@ class TuckerService:
         comes back non-finite (the bisection then halves the group)."""
         bshape, dtype, cfg = bs.key
         p = self._plan_cached(bshape, dtype, cfg)
-        stack = torch.stack([self._job_block(j, bshape) for j in group])
-        results = p.execute_batch(stack)
-        out = []
-        for j, r in zip(group, results):
-            if not _finite(r.tucker.core):
-                raise NumericalError(
-                    f"request {j.rid}: fused lane produced a non-finite "
-                    "core (poisoned wave member)")
-            rr = trim_result(r, j.shape) if j.shape != bshape else r
-            out.append((j, rr, p, None))
-        return out
+        stack = self._stack_wave(group, bshape)
+
+        def run():
+            out = []
+            for j, r in zip(group, p.execute_batch(stack)):
+                if not _finite(r.tucker.core):
+                    raise NumericalError(
+                        f"request {j.rid}: fused lane produced a non-finite "
+                        "core (poisoned wave member)")
+                rr = trim_result(r, j.shape) if j.shape != bshape else r
+                out.append((j, rr, p, None))
+            return out
+        return self._agreed(run, "a bisected wave completed")
 
     def _bisect(self, bs: _BucketState, group: list[_Job]) -> list:
         """Wave bisection: retry the failed group fused; on failure halve
@@ -929,7 +1101,8 @@ class TuckerService:
         failures come back classified, never raw."""
         bshape, dtype, cfg = bs.key
         try:
-            _chaos.fire("wave_job", rid=j.rid)
+            self._agreed(lambda: _chaos.fire("wave_job", rid=j.rid),
+                         f"request {j.rid}'s isolated sweep")
             base = self._plans.get((bshape, dtype, cfg))
             tp = self._plan_cached(j.shape, dtype, cfg, base=base)
             res = tp.execute(j.x, validate="finite")
@@ -981,6 +1154,8 @@ class TuckerService:
     # -- pumping -------------------------------------------------------------
     def _pump_once(self) -> bool:
         """Run one wave to completion inline; False when nothing is queued."""
+        if self._chan is not None:
+            return self._mesh_round(once=True)
         wave = self._take_wave()
         if wave is None:
             return False
@@ -996,6 +1171,9 @@ class TuckerService:
             with self._lock:
                 while self._pending > 0 and self._running:
                     self._idle.wait(timeout=0.1)
+            return
+        if self._chan is not None:
+            self._mesh_round()
             return
         inflight: deque = deque()
         while True:
@@ -1014,18 +1192,171 @@ class TuckerService:
         while inflight:
             inflight.popleft()()
 
+    # -- rank 0's decisions on a mesh -----------------------------------------
+    def _announce_cancels(self) -> None:
+        """Rank 0: send the cancels made since its last decision."""
+        with self._lock:
+            rids, self._cancel_out = self._cancel_out, []
+        if rids:
+            self._chan.send([_CANCEL, len(rids), *rids])
+
+    def _lead_wave(self, bs: _BucketState, jobs: list[_Job]) -> None:
+        """Rank 0: decide a taken wave (its expired requests and its route,
+        on this rank's clock and breaker), send the decision, run it."""
+        t = time.perf_counter()
+        expired = [j.rid for j in jobs
+                   if j.deadline is not None and t >= j.deadline]
+        live = len(expired) < len(jobs)
+        record = self._recording()
+        with self._lock:
+            route = bs.breaker.route(t) if live and not record else "fused"
+        bshape = list(bs.key[0])
+        self._chan.send([_WAVE, _ROUTES.index(route), len(bshape), *bshape,
+                         len(jobs), *(j.rid for j in jobs), len(expired),
+                         *expired])
+        self._run_decided(bs, jobs, set(expired), route, [])
+
+    def _follow(self, msg: list[int]) -> None:
+        """Another rank: act on one of rank 0's decisions."""
+        if msg[0] == _CANCEL:
+            jobs, missing = self._hold(msg[2:2 + msg[1]])
+            with self._lock:
+                for j in jobs:
+                    self._cancel_locked(j)
+                for rid in missing:
+                    self._orphans[rid] = CancelledError(
+                        f"request {rid} was cancelled before dispatch")
+            return
+        route = _ROUTES[msg[1]]
+        nb = msg[2]
+        bshape = tuple(msg[3:3 + nb])
+        rest = msg[3 + nb:]
+        rids = rest[1:1 + rest[0]]
+        rest = rest[1 + rest[0]:]
+        expired = set(rest[1:1 + rest[0]])
+        jobs, missing = self._hold(rids, bshape)
+        bs = self._buckets[jobs[0].key] if jobs else None
+        self._run_decided(bs, jobs, expired, route, missing)
+
+    def _hold(self, rids: list[int], bshape=None):
+        """Take the queued jobs of ``rids`` (in that order) off their
+        queues, waiting up to ``decision_timeout_s`` for the ones this
+        rank has not been submitted yet.  Returns (jobs, missing rids); a
+        job of another bucket than ``bshape`` counts as missing."""
+        stop = time.monotonic() + self._decision_timeout
+        with self._lock:
+            while True:
+                found = {}
+                for b in self._buckets.values():
+                    for j in b.queue:
+                        if j.rid in rids and j.rid not in found and (
+                                bshape is None or tuple(j.key[0]) == bshape):
+                            found[j.rid] = j
+                if len(found) == len(set(rids)) or \
+                        time.monotonic() >= stop:
+                    break
+                self._work.wait(timeout=0.01)
+            jobs = [found[r] for r in dict.fromkeys(rids) if r in found]
+            for j in jobs:
+                self._buckets[j.key].queue.remove(j)
+            if len({j.key for j in jobs}) > 1:
+                missing = list(rids)   # not one bucket: the wave cannot run
+            else:
+                missing = [r for r in rids if r not in found]
+            self._inflight_jobs.update(jobs)
+            return jobs, missing
+
+    def _run_decided(self, bs, jobs: list[_Job], expired: set, route: str,
+                     missing: list[int]) -> None:
+        """Every rank: agree that every rank holds the decided wave, then
+        dispatch and finish it.  When a rank does not, every rank fails the
+        jobs it holds with the same MeshError (a missing request fails with
+        it on arrival), and a probe counts as failed."""
+        code = self._chan.agree(OTHER if missing else OK)
+        if code != OK:
+            err = MeshError(
+                f"a rank did not hold the wave's requests within "
+                f"{self._decision_timeout}s of rank 0's decision")
+            with self._lock:
+                self._fail_locked(jobs, err)
+                for rid in missing:
+                    self._orphans[rid] = err
+                if bs is not None and route == "probe":
+                    bs.breaker.on_probe(False, time.perf_counter())
+            return
+        if not self._chan.leader:
+            with self._lock:
+                bs.breaker.follow(route)
+        self._dispatch_wave(bs, jobs, decided=(expired, route))()
+
+    def _lead_once(self) -> bool:
+        """Rank 0: send the cancels made since its last decision, then
+        decide and run one wave; False when none is queued."""
+        self._announce_cancels()
+        wave = self._take_wave()
+        if wave is None:
+            return False
+        self._lead_wave(*wave)
+        return True
+
+    def _follow_until(self, end: int) -> tuple[list[int], bool]:
+        """Another rank: act on rank 0's decisions (skipping its
+        heartbeats) until its message of kind ``end``.  Returns that
+        message and whether a wave ran."""
+        ran = False
+        while True:
+            msg = self._chan.recv()
+            if msg[0] == end:
+                return msg, ran
+            if msg[0] != _IDLE:
+                self._follow(msg)
+                ran = ran or msg[0] == _WAVE
+
+    def _mesh_round(self, once: bool = False) -> bool:
+        """The synchronous pump on a mesh: rank 0 decides waves (one when
+        ``once``) until its queue is empty, then sends the round's end;
+        the other ranks follow until it.  True when a wave ran."""
+        if not self._chan.leader:
+            return self._follow_until(_END)[1]
+        ran = False
+        while not (once and ran) and self._lead_once():
+            ran = True
+        self._chan.send([_END])
+        return ran
+
+    def _lead_pump(self) -> None:
+        """Rank 0's worker: decide waves as they form; tell an idle mesh
+        it is alive every ``_HEARTBEAT_S``; return when stopped."""
+        last = time.monotonic()
+        while True:
+            if _chaos.active():
+                _chaos.fire("worker")
+            with self._lock:
+                if not self._running:
+                    return
+            if self._lead_once():
+                last = time.monotonic()
+                continue
+            if time.monotonic() - last >= _HEARTBEAT_S:
+                self._chan.send([_IDLE])
+                last = time.monotonic()
+            with self._lock:
+                if self._running and not any(
+                        b.queue for b in self._buckets.values()):
+                    self._work.wait(timeout=0.05)
+
+    def _follow_pump(self) -> None:
+        """Another rank's worker: follow rank 0's decisions until its
+        stop, which says whether unfinished work is abandoned."""
+        msg, _ = self._follow_until(_STOP)
+        self._stop_force = bool(msg[1])
+
     # -- background worker (async mode) --------------------------------------
     def start(self) -> "TuckerService":
         """Spawn the background wave pump; ``submit`` becomes fire-and-
-        forget and ``poll``/``wait`` observe completions as they land.
-        Raises with a mesh: the ranks' workers would form waves by their
-        own timing (ROADMAP Queue 1 item 10b)."""
-        if self._mesh is not None:
-            raise NotImplementedError(
-                "a background worker on a mesh: every rank must dispatch the "
-                "same waves in the same order, which needs rank 0's wave "
-                "choice broadcast to the others (not ported yet); drive a "
-                "mesh service synchronously with drain()")
+        forget and ``poll``/``wait`` observe completions as they land.  On
+        a mesh every rank starts its worker: rank 0's decides the waves,
+        the others' follow."""
         with self._lock:
             if self._running:
                 return self
@@ -1044,15 +1375,22 @@ class TuckerService:
         unblock immediately.  If the worker thread does not join within
         ``join_timeout`` seconds (a wedged wave), a ``RuntimeWarning``
         names the bucket it was last dispatching instead of returning
-        silently; the daemonic thread is then abandoned."""
+        silently; the daemonic thread is then abandoned.
+
+        On a mesh rank 0's stop ends every rank's worker: its worker sends
+        the stop (with ``force``, every rank then abandons its unfinished
+        jobs, once the wave in flight has finished on every rank).  The
+        other ranks' ``stop`` waits for it."""
         if self._running and drain and not force:
             self.drain()
+        follower = self._chan is not None and not self._chan.leader
         with self._lock:
-            self._running = False
-            if force:
-                self._abandon_unfinished_locked(
-                    "service stopped with force=True; request was "
-                    "abandoned before completing")
+            if not follower:
+                self._running = False
+            if force and self._chan is not None:
+                self._stop_force = self._stop_force or not follower
+            elif force:
+                self._abandon_unfinished_locked(_FORCED)
             self._work.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=join_timeout)
@@ -1061,6 +1399,8 @@ class TuckerService:
                     stuck = self._active_bucket
                 where = ("bucket " + "x".join(str(s) for s in stuck[0])
                          if stuck else "an unknown bucket")
+                if follower:
+                    where += " (or waiting for rank 0's stop)"
                 warnings.warn(
                     f"service worker did not stop within {join_timeout}s; "
                     f"it was last dispatching {where} — abandoning the "
@@ -1072,15 +1412,18 @@ class TuckerService:
         """Fail every queued and in-flight job with a ResourceError (caller
         holds the lock).  The finish() of a still-running wave skips jobs
         whose event is already set, so nothing is completed twice."""
-        err = ResourceError(reason)
         stranded: list[_Job] = []
         for bs in self._buckets.values():
             while bs.queue:
                 stranded.append(bs.queue.popleft())
-        stranded.extend(j for j in self._inflight_jobs
-                        if not j.event.is_set())
-        self._inflight_jobs.clear()
-        for j in stranded:
+        stranded.extend(self._inflight_jobs)
+        self._fail_locked(stranded, ResourceError(reason))
+
+    def _fail_locked(self, jobs: list[_Job], err: Exception) -> None:
+        """Complete unfinished ``jobs`` (off their queues) with ``err``
+        (caller holds the lock)."""
+        for j in jobs:
+            self._inflight_jobs.discard(j)
             if j.event.is_set():
                 continue
             j.result, j.error = None, err
@@ -1093,13 +1436,17 @@ class TuckerService:
 
     def close(self) -> None:
         """Refuse new submissions, drain what's queued, stop the worker,
-        and close the trace file."""
+        release a mesh's decision group and close the trace file.  On a
+        mesh every rank closes (its drain is a round of rank 0's); after
+        a mesh worker died its peers may be gone, so nothing is drained."""
         with self._lock:
             self._closed = True
         if self._running:
             self.stop(drain=True)
-        else:
+        elif self._chan is None or not self._worker_failed:
             self.drain()
+        if self._chan is not None:
+            self._chan.close()
         if self._trace:
             self._trace.close()
 
@@ -1113,6 +1460,10 @@ class TuckerService:
         inflight: deque = deque()
         died: Exception | None = None
         try:
+            if self._chan is not None:
+                (self._lead_pump if self._chan.leader else
+                 self._follow_pump)()
+                return
             while True:
                 if _chaos.active():
                     _chaos.fire("worker")
@@ -1138,7 +1489,12 @@ class TuckerService:
                 inflight.popleft()()
             # a dying pump must not strand waiters: fail whatever remains
             with self._lock:
-                if self._running:   # left the loop on an unexpected error
+                if self._chan is not None and died is None:
+                    # a mesh worker's orderly end: rank 0 stopped
+                    self._running = False
+                    if self._stop_force:
+                        self._abandon_unfinished_locked(_FORCED)
+                elif self._running:   # left the loop on an unexpected error
                     self._running = False
                     self._worker_failed = True
                     reason = "service worker died; request was never executed"
@@ -1147,6 +1503,14 @@ class TuckerService:
                     self._abandon_unfinished_locked(reason)
                 self._idle.notify_all()
                 self._space.notify_all()
+            if self._chan is not None and self._chan.leader:
+                # every rank's worker ends with rank 0's (after its own
+                # waiters were released: a dead peer times this out)
+                try:
+                    self._chan.send([_STOP, int(self._stop_force
+                                                or died is not None)])
+                except Exception:  # noqa: BLE001 - the channel itself failed
+                    pass
 
     # -- observability -------------------------------------------------------
     def _bucket_label(self, key, taken: set) -> str:

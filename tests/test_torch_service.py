@@ -365,15 +365,6 @@ class TestAdmission:
         assert not res.tucker.core.requires_grad
         assert bitwise_equal(res, decompose(x.detach(), CFG, device=CPU))
 
-    def test_mesh_is_a_later_slice(self):
-        # a mesh service runs synchronously; the background worker, whose
-        # waves would need agreeing across ranks, is the part still to come
-        svc = service(mesh=object())
-        with pytest.raises(NotImplementedError):
-            svc.start()
-        with pytest.raises(ValueError):
-            svc.submit(np.ones((4, 4, 4), np.float32), CFG, deadline_s=1.0)
-
 
 # ---------------------------------------------------------------------------
 # async worker

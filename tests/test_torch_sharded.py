@@ -519,6 +519,7 @@ reqs = [TuckerRequest(x=z, config=ecfg, rid=i)
         for i, z in enumerate(data["reqs"])]
 eng.run(reqs)
 st = eng.stats
+eng.close()
 out["engine"] = dict(backends=st["backends"], plans=st["plans_built"],
                      batches=st["batches"],
                      results=[res(r.result) for r in reqs])
