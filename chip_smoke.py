@@ -8,7 +8,8 @@ adaptive Tucker path (error targets, the fallback ladder's rand->eig hop,
 the schedule search under a memory cap), serving falcon-mamba-7b and
 training it -- through five hand-written Hopper kernels: TTT/Gram,
 boundary GEMM, interior TTM, the Mamba-1 selective scan (S6) and its
-backward; then the streaming Tucker service
+backward; serving the dense, MoE, hybrid and vlm LM families, whose
+checkpoints go through the Tucker kernels; then the streaming Tucker service
 (``repro_torch.serve.TuckerService``) over those kernels, and the tune
 flywheel that trains the solver selector ``methods="auto"`` loads on the
 card.
@@ -191,6 +192,40 @@ Phases, each printing one JSON line (any failure exits non-zero):
             launch), each within 1e-4 of ``matfree``'s rel_error, with its
             ``codec_diag`` (and ``als_gate``) lines; then restored and
             serving 4 requests x 32 tokens.
+6e. families the MoE, hybrid and vlm families (no hand kernel on their
+            serve paths: the experts, the SSD scan and the vision
+            projector are plain PyTorch, as the reference's are jnp), each
+            through :func:`serve_lm_case` (dense's checks, the captured
+            step bitwise the eager one, a replayed step's top kernels).
+            serve_moe: granite-moe-3b-a800m at its published size (32
+            layers, 40 experts top-8, 3.30e9 parameters, bf16) with
+            serve_dense's 6 requests, and mixtral-8x22b at full width cut
+            to 8 of its 56 layers (280 GB in bf16; 8 are 40.9 GB) on its
+            4096-position ring cache, 4 requests (37, 4097, 6000, 8191
+            tokens); each prefill's entries dropped by capacity, by layer.
+            serve_hybrid: zamba2-1.2b at its 38 layers with the 6 requests,
+            the shared block at its 6 sites a step.  serve_vlm:
+            internvl2-2b at its 24 layers, the 6 text requests through the
+            engine, then 4 image requests (1024 fp32 patches, seed 0, and
+            prompts of 37, 1021, 3000 and 6000 tokens) prefilled by
+            ``bundle.prefill`` into a 4-slot cache of 1024 + 6000 + 32
+            positions and decoded 32 steps at n_patches + len(prompt) + i
+            by the engine's captured ``bundle.decode`` (32 valid tokens,
+            finite logits, the captured step bitwise the eager one).
+            family_cache: granite and mixtral cut to 2 layers, zamba2 to 6
+            (one site; 20 SSD chunks, the last ragged) and internvl2 to 2
+            (1024 patches + 3976 tokens), fp32: 5000 positions prefilled,
+            16 decoded, the 17 positions' logits against the no-cache
+            forward within 1e-4 of max|logits| -- for an MoE model only
+            where the forward dropped no entry by capacity (both drop
+            counts printed by layer); its layer-0 KV cache (mixtral's
+            ring slots included) is held against a no-cache computation
+            from the embeddings either way.  ckpt_codec_moe: granite uncut
+            through the Tucker codec: the 4-way expert leaves (32, 40,
+            1536, 512) x 2 and (32, 40, 512, 1536) at ranks (32, 10, 64,
+            64), the router (32, 1536, 40) and the attention leaves, as
+            ckpt_codec_dense, and on the 4-way leaves rows 2b, 3, 3b and
+            2c's routes must launch; restored and serving 4 x 32 tokens.
 6b. tucker_serve the streaming Tucker service with ``impl="auto"`` (every
             plan must resolve to ``hopper``; gc frozen for the phase), in
             three parts.  stream_ref: the reference's serve bench stream
@@ -332,6 +367,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
             ``launches_sharded`` the sharded phase's ranks,
             ``launches_train`` and ``launches_ckpt_codec`` phase 6d's,
             ``launches_ckpt_codec_dense`` phase 6a's codec,
+            ``launches_ckpt_codec_moe`` phase 6e's,
             ``launches_service`` the sharded phase's service cases; the
             ``s6_scan_bwd`` row's launches are the train phase's), after a
             ``run`` line with the whole run's seconds; then the
@@ -343,8 +379,9 @@ check after a kernel edit), ``--only tune`` phases 1, 2 and 7 (the
 command that trains the shipped cuda models), ``--only tucker_serve``
 phases 1, 2 and 6b, ``--only sharded`` phases 1, 2 and 6c, ``--only
 train`` phases 1, 2, the S6 scan's and its backward's checks of phase 3
-and 6d, and ``--only dense`` phases 1, 2 and 6a; none prints the kernels
-line.
+and 6d, ``--only dense`` phases 1, 2 and 6a, and ``--only families``
+phases 1, 2 and 6e; none prints the kernels line.  The whole script runs
+6e after 6a.
 
 Imports nothing of JAX nor of the JAX package ``repro``.
 """
@@ -3000,9 +3037,12 @@ def carry_stats(torch, bundle, params, req, dec) -> dict:
 #: serve_dense's traffic: two prompts cross gemma2's 4096 window
 DENSE_PROMPTS = (37, 1021, 3000, 4097, 6000, 8191)
 DENSE_MAX_LEN = 8224
-#: (architecture, layers it is cut to (None: all), requests); full width
-DENSE_SERVE = (("gemma2-9b", None, 6), ("gemma3-1b", None, 6),
-               ("phi3-mini-3.8b", 4, 2), ("minitron-4b", 4, 2))
+#: (architecture, layers it is cut to (None: all), prompt lengths); full
+#: width
+DENSE_SERVE = (("gemma2-9b", None, DENSE_PROMPTS),
+               ("gemma3-1b", None, DENSE_PROMPTS),
+               ("phi3-mini-3.8b", 4, (DENSE_PROMPTS[0], DENSE_PROMPTS[-1])),
+               ("minitron-4b", 4, (DENSE_PROMPTS[0], DENSE_PROMPTS[-1])))
 #: dense_cache: (architecture, layers = one local:global period), a prompt
 #: past gemma2's window, then decode steps through the cache
 DENSE_CACHE = (("gemma2-9b", 2), ("gemma3-1b", 6))
@@ -3014,18 +3054,24 @@ CACHE_TOL = 1e-4
 CODEC_DENSE_LAYERS = 8
 
 
-def serve_dense_case(torch, arch: str, layers, n_req: int) -> dict:
+def serve_lm_case(torch, arch: str, layers, lens, *, phase="serve_dense",
+                  bitwise=False, keep=False):
     """``arch`` at full width (cut to ``layers``), bf16, random weights from
-    seed 0, on 4 slots with ``max_len`` DENSE_MAX_LEN: ``n_req`` requests
-    of DENSE_PROMPTS tokens (the first and last when 2), MAX_NEW new tokens
-    each.  Checks 32 valid tokens a request and finite logits; prints
-    prefill ms by prompt length, captured decode ms, tokens/s and the peak;
-    then one decode step eager and one replayed on the same tokens,
-    positions and cache (the replay rewrites the slots the eager step
-    wrote, with the same values): their logits must agree (bitwise is
-    reported), and the host launches of each are counted."""
+    seed 0, on 4 slots with ``max_len`` DENSE_MAX_LEN: one request a prompt
+    length of ``lens``, MAX_NEW new tokens each.  Checks 32 valid tokens a
+    request and finite logits; prints prefill ms by prompt length (and,
+    for an MoE model, the entries each prefill dropped by capacity),
+    captured decode ms, tokens/s, the peak and a replayed step's top
+    device kernels; then one decode step eager
+    and one replayed on the same tokens, positions and cache (the replay
+    rewrites the slots the eager step wrote, with the same values): their
+    logits must agree, bitwise where ``bitwise`` (else same argmax and
+    within CACHE_TOL; bitwise is reported), and the host launches of each
+    are counted.  A hybrid model's eager step counts the shared block's
+    calls, which must be its sites.  ``keep``: also return the bundle,
+    the parameters and the engine, for the caller's own requests."""
     from repro_torch import configs
-    from repro_torch.models import build
+    from repro_torch.models import build, lm, moe
     from repro_torch.serve import Request, ServeEngine
     cfg = configs.get(arch)
     if layers:
@@ -3043,17 +3089,15 @@ def serve_dense_case(torch, arch: str, layers, n_req: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(bundle, params, batch_slots=4, max_len=DENSE_MAX_LEN)
-    require(eng.captured, f"serve_dense {arch}: the engine did not capture "
+    require(eng.captured, f"{phase} {arch}: the engine did not capture "
             "its decode step")
     cache_bytes = sum(v.numel() * v.element_size() for v in eng.cache.values())
-    lens = DENSE_PROMPTS if n_req == len(DENSE_PROMPTS) else \
-        (DENSE_PROMPTS[0], DENSE_PROMPTS[-1])
     g = torch.Generator(device="cuda").manual_seed(1)
     reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,), generator=g,
                                          device="cuda").tolist(),
                     max_new_tokens=MAX_NEW, rid=i)
             for i, n in enumerate(lens)]
-    prefill_ms, decode_ms, active = {}, [], []
+    prefill_ms, decode_ms, active, dropped = {}, [], [], {}
     finite = [True]
     inner_prefill, inner_decode = eng._prefill, eng._decode
 
@@ -3065,8 +3109,11 @@ def serve_dense_case(torch, arch: str, layers, n_req: int) -> dict:
         return out, (time.perf_counter() - t) * 1e3
 
     def timed_prefill(tokens, cache):
-        (logits, c), ms = synced(inner_prefill, tokens, cache)
+        with moe.count_drops() as drops:
+            (logits, c), ms = synced(inner_prefill, tokens, cache)
         prefill_ms[int(tokens.shape[1])] = ms
+        if cfg.n_experts:
+            dropped[int(tokens.shape[1])] = [int(d) for d in drops]
         finite[0] &= bool(torch.isfinite(logits).all())
         return logits, c
 
@@ -3083,18 +3130,29 @@ def serve_dense_case(torch, arch: str, layers, n_req: int) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    require(finite[0], f"serve_dense {arch}: non-finite logits")
+    require(finite[0], f"{phase} {arch}: non-finite logits")
     for r in reqs:
         require(len(r.output) == MAX_NEW and all(0 <= v < cfg.vocab
                                                  for v in r.output),
-                f"serve_dense {arch}: request {r.rid} got {len(r.output)} "
+                f"{phase} {arch}: request {r.rid} got {len(r.output)} "
                 f"tokens (want {MAX_NEW} in [0, {cfg.vocab}))")
-    # one step eager, then replayed, on the same inputs
+    # one step eager, then replayed, on the same inputs; the eager step
+    # counts the hybrid's shared-block calls
     tok = torch.randint(0, cfg.vocab, (eng.b, 1), generator=g,
                         device="cuda")
     pos = torch.from_numpy(eng.pos.copy())
+    shared_calls, shared_block = [], lm._shared_attn_block
+
+    def counted(*a, **kw):
+        shared_calls.append(1)
+        return shared_block(*a, **kw)
+    lm._shared_attn_block = counted
+    try:
+        with torch.no_grad():
+            eager = eng._eager_decode(tok, eng.cache, pos)[0].clone()
+    finally:
+        lm._shared_attn_block = shared_block
     with torch.no_grad():
-        eager = eng._eager_decode(tok, eng.cache, pos)[0].clone()
         replayed = inner_decode(tok, eng.cache, pos)[0].clone()
     diff = float((eager - replayed)[..., :cfg.vocab].abs().max())
     scale = float(eager[..., :cfg.vocab].abs().max())
@@ -3107,11 +3165,15 @@ def serve_dense_case(torch, arch: str, layers, n_req: int) -> dict:
             tok, eng.cache, pos), wall)
         prof_e = profile_enqueues(torch, lambda: eng._eager_decode(
             tok, eng.cache, pos), t_e)
+        top = profile_call(torch, lambda: inner_decode(tok, eng.cache, pos),
+                           wall)["top_device_ms"]
     row = dict(
-        model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-        heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd], d_ff=cfg.d_ff,
-        act=cfg.act, vocab=cfg.vocab, dtype=cfg.dtype, params=n_params,
-        init_s=init_s, slots=eng.b, max_len=DENSE_MAX_LEN,
+        model=cfg.name, family=cfg.family, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+        d_ff=cfg.d_ff, act=cfg.act, vocab=cfg.vocab, dtype=cfg.dtype,
+        params=n_params, init_s=init_s, slots=eng.b, max_len=DENSE_MAX_LEN,
+        cache_len=lm.cache_len(cfg, DENSE_MAX_LEN),
+        ring=lm.cache_len(cfg, DENSE_MAX_LEN) < DENSE_MAX_LEN,
         cache_bytes=cache_bytes, requests=len(reqs), prompt_lens=list(lens),
         max_new_tokens=MAX_NEW,
         prefill_ms={str(k): v for k, v in sorted(prefill_ms.items())},
@@ -3126,80 +3188,202 @@ def serve_dense_case(torch, arch: str, layers, n_req: int) -> dict:
         host_launches_eager=prof_e["host_launches"],
         device_busy_ms_captured=prof_g["device_busy_ms"],
         idle_share_captured=prof_g["idle_share"],
+        top_device_ms_captured=top,
         outputs={q.rid: q.output[:8] for q in reqs})
-    emit("serve_dense", **row)
+    if cfg.n_experts:
+        row.update(experts=[cfg.n_experts, cfg.top_k],
+                   capacity_factor=cfg.capacity_factor,
+                   dropped_by_prefill={str(k): v for k, v in
+                                       sorted(dropped.items())})
+    if cfg.family == "hybrid":
+        row.update(shared_calls_per_step=len(shared_calls),
+                   sites=[i for i, v in enumerate(cfg.shared_attn_sites())
+                          if v])
+    emit(phase, **row)
+    if bitwise:
+        require(diff == 0.0, f"{phase} {arch}: the captured decode is not "
+                f"bitwise the eager one: max|d| {diff} of {scale}")
     require(same_argmax and diff <= CACHE_TOL * scale,
-            f"serve_dense {arch}: the captured decode differs from the eager "
+            f"{phase} {arch}: the captured decode differs from the eager "
             f"one: max|d| {diff} of {scale}")
-    del eng, params, eager, replayed
+    if cfg.family == "hybrid":
+        require(len(shared_calls) == sum(cfg.shared_attn_sites()),
+                f"{phase} {arch}: the shared block ran {len(shared_calls)} "
+                f"times in a step, want {sum(cfg.shared_attn_sites())}")
+    del eager, replayed
+    if keep:
+        return row, (bundle, params, eng)
+    del eng, params
     torch.cuda.empty_cache()
     return row
 
 
 def phase_serve_dense(torch) -> dict:
-    return {arch: serve_dense_case(torch, arch, layers, n)
-            for arch, layers, n in DENSE_SERVE}
+    return {arch: serve_lm_case(torch, arch, layers, lens)
+            for arch, layers, lens in DENSE_SERVE}
+
+
+def layer0_kv(torch, params, cfg, seq, patches):
+    """Layer 0's keys and values over the whole sequence, computed without
+    a cache from its inputs (the embeddings; no expert or state before
+    it): (k, v) of (1, T, Hkv, D) in fp32."""
+    from repro_torch.models import layers, lm
+    lp = params.layers[0]
+    x = layers.norm_apply(lp.norm_attn, lm.embed_tokens(params, cfg, seq,
+                                                        patches), cfg)
+    t = x.shape[1]
+    window, theta = lm.layer_schedule(cfg)[0]
+    pos = torch.arange(t, device=x.device)[None]
+    k = (x @ lp.attn["wk"]).reshape(1, t, cfg.n_kv_heads, cfg.hd)
+    v = (x @ lp.attn["wv"]).reshape(1, t, cfg.n_kv_heads, cfg.hd)
+    return layers.rope(k, pos, theta), v
+
+
+def layer0_router_stats(torch, params, cfg, seq) -> dict:
+    """Layer 0's routing of ``seq`` as one group: each expert's load
+    (entries routed to it) against the capacity, for the router's input
+    as it is and with its mean over the tokens taken out; and that mean's
+    share of the input's energy, ||mean||² / mean ||x||²."""
+    from repro_torch.models import layers, lm, moe
+    lp = params.layers[0]
+    t = seq.shape[1]
+    h = lm.embed_tokens(params, cfg, seq)
+    h, _ = lm._attn_block(lp, h, cfg, positions=torch.arange(
+        t, device=h.device)[None], window=lm.layer_schedule(cfg)[0][0],
+        theta=lm.layer_schedule(cfg)[0][1])
+    x = layers.norm_apply(lp.norm_mlp, h, cfg)[0].float()
+
+    def loads(v):
+        top = torch.topk(torch.softmax(v @ lp.moe["router"], -1),
+                         cfg.top_k, -1).indices.reshape(-1)
+        return torch.zeros(cfg.n_experts, device=v.device).scatter_add_(
+            0, top, torch.ones_like(top, dtype=torch.float32))
+
+    mean = x.mean(0)
+    raw, centred = loads(x), loads(x - mean)
+    return dict(capacity=moe.capacity(t, cfg), mean_load=t * cfg.top_k
+                / cfg.n_experts, max_load=float(raw.max()),
+                max_load_centred=float(centred.max()),
+                mean_energy_share=float(mean.square().sum()
+                                        / x.square().sum(-1).mean()))
+
+
+def cache_case(torch, phase: str, arch: str, layers: int,
+               prompt: int) -> dict:
+    """Cached decode against the no-cache forward at full width in fp32:
+    ``arch`` cut to ``layers`` prefills CACHE_PROMPT positions (``prompt``
+    tokens, with a vlm's patches before them), then decodes CACHE_STEPS
+    tokens of the same random sequence through the cache (a ring wraps in
+    the prefill and the decode; zamba2's SSD runs 20 chunks, the last
+    ragged, then its recurrence); the last prompt position's and every
+    decoded position's logits against the no-cache forward over all
+    CACHE_PROMPT + CACHE_STEPS positions, within CACHE_TOL of max|logits|.
+
+    An MoE model's comparison holds only where the no-cache forward drops
+    no entry by capacity (a prefill of T tokens is one group at capacity
+    ⌈T·k/E·cf⌉, and an overloaded expert drops its latest tokens: those
+    the decode steps, groups of one, never drop).  The entries dropped by
+    the prefill and by the forward are printed by layer; where the forward
+    dropped some, the logits are printed, not held, and the KV cache is
+    held instead where no expert reaches it: layer 0's keys and values
+    (ring slots included) against a no-cache computation from the
+    embeddings, within CACHE_TOL of their max.  Layer 0's expert loads
+    are printed (:func:`layer0_router_stats`)."""
+    from repro_torch import configs
+    from repro_torch.models import build, lm, moe
+    cfg = configs.get(arch).with_(n_layers=layers, dtype="float32")
+    bundle = build(cfg)
+    params = bundle.init(0, "cuda")
+    n_pat = cfg.n_patches if cfg.family == "vlm" else 0
+    total = prompt + CACHE_STEPS
+    g = torch.Generator(device="cuda").manual_seed(4)
+    seq = torch.randint(0, cfg.vocab, (1, total), generator=g,
+                        device="cuda")
+    pats = (torch.randn((1, n_pat, cfg.d_model), generator=g,
+                        device="cuda") if n_pat else None)
+    batch = {"tokens": seq[:, :prompt]}
+    if n_pat:
+        batch["patches"] = pats
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache = bundle.init_cache(1, n_pat + total, device="cuda")
+        with moe.count_drops() as drops_prefill:
+            first, cache = bundle.prefill(params, batch, cache)
+        got = [first[:, 0]]
+        for s in range(prompt, total):
+            logits, cache = bundle.decode(
+                params, seq[:, s:s + 1], cache,
+                torch.tensor([n_pat + s]), n_pat + total)
+            got.append(logits[:, 0])
+        torch.cuda.synchronize()
+        cached_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with moe.count_drops() as drops_forward:
+            h = lm.forward_hidden(params, cfg, seq, patches=pats)[0]
+        want = lm.logits_from_hidden(params, cfg, h[:, n_pat + prompt - 1:])
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+    got = torch.stack(got, 1)[..., :cfg.vocab]
+    want = want[..., :cfg.vocab]
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    dropped = [int(d) for d in drops_forward]
+    s_c = lm.cache_len(cfg, n_pat + total)
+    row = dict(model=cfg.name, family=cfg.family, layers=layers,
+               kinds=list(cfg.layer_kinds()), window=cfg.sliding_window,
+               prompt=prompt, n_patches=n_pat, decode_steps=CACHE_STEPS,
+               positions=got.shape[1], cache_len=s_c,
+               ring=s_c < n_pat + total,
+               max_abs_diff=diff, max_abs_logit=scale, rel=diff / scale,
+               tol=CACHE_TOL, argmax_equal=bool(torch.equal(
+                   got.argmax(-1), want.argmax(-1))),
+               cached_s=cached_s, full_forward_s=full_s,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if cfg.family == "hybrid":
+        row.update(ssd_chunks=-(-prompt // cfg.ssm_chunk),
+                   sites=[i for i, v in enumerate(cfg.shared_attn_sites())
+                          if v])
+    held = not cfg.n_experts or sum(dropped) == 0
+    if cfg.n_experts:
+        row.update(capacity_factor=cfg.capacity_factor,
+                   capacity_prefill=moe.capacity(prompt, cfg),
+                   capacity_forward=moe.capacity(total, cfg),
+                   dropped_prefill=[int(d) for d in drops_prefill],
+                   dropped_forward=dropped, logits_held=held)
+        with torch.no_grad():
+            k0, v0 = layer0_kv(torch, params, cfg, seq, pats)
+            row["layer0_router"] = layer0_router_stats(torch, params,
+                                                       cfg, seq)
+        n = n_pat + total
+        p_kept = torch.arange(max(0, n - s_c), n, device="cuda")
+        slots = p_kept % s_c
+        kv_err = max(
+            float((cache[c][0, 0, slots].float() - r[0, p_kept]).abs()
+                  .max() / r[0, p_kept].abs().max())
+            for c, r in (("k", k0), ("v", v0)))
+        row.update(layer0_kv_rel=kv_err, layer0_kv_positions=[
+            int(p_kept[0]), int(p_kept[-1])])
+        require(kv_err <= CACHE_TOL, f"{phase} {arch}: layer 0's KV cache "
+                f"against the no-cache keys and values: {kv_err} > "
+                f"{CACHE_TOL}")
+    emit(phase, **row)
+    require(bool(torch.isfinite(got).all()),
+            f"{phase} {arch}: non-finite cached logits")
+    if held:
+        require(diff <= CACHE_TOL * scale,
+                f"{phase} {arch}: cached decode vs the full forward "
+                f"max|d| {diff} > {CACHE_TOL} x {scale}")
+    del params, cache, h, want, got
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_dense_cache(torch) -> dict:
-    """The KV cache against the full forward at full width in fp32: each
-    DENSE_CACHE model (one whole local:global period) prefills a
-    CACHE_PROMPT-token prompt, then decodes the next CACHE_STEPS tokens of
-    the same random sequence through the cache; the last prompt position's
-    and every decoded position's logits against the no-cache forward over
-    all CACHE_PROMPT + CACHE_STEPS tokens, within CACHE_TOL of
-    max|logits|."""
-    from repro_torch import configs
-    from repro_torch.models import build, lm
-    out = {}
-    for arch, layers in DENSE_CACHE:
-        cfg = configs.get(arch).with_(n_layers=layers, dtype="float32")
-        bundle = build(cfg)
-        params = bundle.init(0, "cuda")
-        total = CACHE_PROMPT + CACHE_STEPS
-        g = torch.Generator(device="cuda").manual_seed(4)
-        seq = torch.randint(0, cfg.vocab, (1, total), generator=g,
-                            device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            cache = bundle.init_cache(1, total, device="cuda")
-            first, cache = bundle.prefill(
-                params, {"tokens": seq[:, :CACHE_PROMPT]}, cache)
-            got = [first[:, 0]]
-            for s in range(CACHE_PROMPT, total):
-                logits, cache = bundle.decode(
-                    params, seq[:, s:s + 1], cache,
-                    torch.tensor([s]), total)
-                got.append(logits[:, 0])
-            torch.cuda.synchronize()
-            cached_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            h = lm.forward_hidden(params, cfg, seq)[0]
-            want = lm.logits_from_hidden(params, cfg, h[:, CACHE_PROMPT - 1:])
-            torch.cuda.synchronize()
-            full_s = time.perf_counter() - t0
-        got = torch.stack(got, 1)[..., :cfg.vocab]
-        want = want[..., :cfg.vocab]
-        diff = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        row = dict(model=cfg.name, layers=layers,
-                   kinds=list(cfg.layer_kinds()),
-                   window=cfg.sliding_window, prompt=CACHE_PROMPT,
-                   decode_steps=CACHE_STEPS, positions=got.shape[1],
-                   max_abs_diff=diff, max_abs_logit=scale, rel=diff / scale,
-                   tol=CACHE_TOL, argmax_equal=bool(torch.equal(
-                       got.argmax(-1), want.argmax(-1))),
-                   cached_s=cached_s, full_forward_s=full_s,
-                   peak_bytes=torch.cuda.max_memory_allocated())
-        emit("dense_cache", **row)
-        require(torch.isfinite(got).all() and diff <= CACHE_TOL * scale,
-                f"dense_cache {arch}: cached decode vs the full forward "
-                f"max|d| {diff} > {CACHE_TOL} x {scale}")
-        out[arch] = row
-        del params, cache, h, want, got
-        torch.cuda.empty_cache()
-    return out
+    """:func:`cache_case` for each DENSE_CACHE model (one whole
+    local:global period) at a CACHE_PROMPT-token prompt."""
+    return {arch: cache_case(torch, "dense_cache", arch, layers, CACHE_PROMPT)
+            for arch, layers in DENSE_CACHE}
 
 
 def phase_ckpt_codec_dense(torch) -> dict:
@@ -3315,6 +3499,269 @@ def phase_dense(torch) -> dict:
     phase_serve_dense(torch)
     phase_dense_cache(torch)
     return phase_ckpt_codec_dense(torch)
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: the MoE, hybrid and vlm families -- serving granite-moe,
+# mixtral (on its ring cache), zamba2 and internvl2 (with images), their
+# caches against the full forward, and the Tucker codec on granite's 4-way
+# expert leaves
+# ---------------------------------------------------------------------------
+
+#: serve_moe / serve_hybrid / serve_vlm: (architecture, layers it is cut to
+#: (None: all), prompt lengths); full width.  mixtral's 56 layers are 280
+#: GB in bf16: 8 of them with the untied embedding and head are 40.9 GB.
+#: Its window and ring cache are 4096: three prompts pass it.
+FAMILY_SERVE = {"serve_moe": (("granite-moe-3b-a800m", None, DENSE_PROMPTS),
+                              ("mixtral-8x22b", 8, (37, 4097, 6000, 8191))),
+                "serve_hybrid": (("zamba2-1.2b", None, DENSE_PROMPTS),),
+                "serve_vlm": (("internvl2-2b", None, DENSE_PROMPTS),)}
+#: serve_vlm's image requests: internvl2's 1024 patches (fp32, seed 0) and
+#: these prompts, decoded MAX_NEW steps at n_patches + len(prompt) + i
+VLM_IMAGE_PROMPTS = (37, 1021, 3000, 6000)
+#: family_cache: (architecture, layers, prompt tokens) at full width in
+#: fp32; the prompt, with internvl2's 1024 patches before it, fills
+#: CACHE_PROMPT positions (mixtral's 4096 ring wraps in the prefill);
+#: zamba2's 6 layers hold one shared-block site (layer 5)
+FAMILY_CACHE = (("granite-moe-3b-a800m", 2, CACHE_PROMPT),
+                ("mixtral-8x22b", 2, CACHE_PROMPT),
+                ("zamba2-1.2b", 6, CACHE_PROMPT),
+                ("internvl2-2b", 2, CACHE_PROMPT - 1024))
+
+
+def serve_vlm_images(torch, bundle, params) -> dict:
+    """internvl2's image requests: a cache of 4 slots sized to n_patches +
+    the longest prompt + MAX_NEW (an engine's, for its captured decode
+    step); each prompt of VLM_IMAGE_PROMPTS with 1024 random fp32 patches
+    (seed 0) prefilled by ``bundle.prefill`` into its slot's stripe, then
+    MAX_NEW decode steps of all four rows at their own positions
+    n_patches + len(prompt) + i through the engine's captured
+    ``bundle.decode``; 32 valid tokens a request, finite logits; one more
+    step eager and replayed must be bitwise equal.  Prints prefill ms with
+    patches, decode ms, the peak."""
+    from repro_torch.serve import ServeEngine
+    cfg = bundle.cfg
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n_pat = cfg.n_patches
+    pats = torch.randn((len(VLM_IMAGE_PROMPTS), n_pat, cfg.d_model),
+                       generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(bundle, params, batch_slots=len(VLM_IMAGE_PROMPTS),
+                      max_len=n_pat + max(VLM_IMAGE_PROMPTS) + MAX_NEW)
+    prefill_ms, last, finite = {}, [], True
+    with torch.no_grad():
+        for row, n in enumerate(VLM_IMAGE_PROMPTS):
+            toks = torch.randint(0, cfg.vocab, (1, n), generator=g,
+                                 device="cuda")
+            stripe = {k: v[:, row:row + 1] for k, v in eng.cache.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = bundle.prefill(params, {"tokens": toks,
+                                                "patches": pats[row:row + 1]},
+                                       stripe)
+            torch.cuda.synchronize()
+            prefill_ms[str(n)] = (time.perf_counter() - t0) * 1e3
+            finite &= bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+            last.append(int(logits[0, -1, :cfg.vocab].argmax()))
+        tok = torch.tensor(last, device="cuda")[:, None]
+        base = torch.tensor([n_pat + n for n in VLM_IMAGE_PROMPTS])
+        outs, decode_ms = [[] for _ in VLM_IMAGE_PROMPTS], []
+        for i in range(MAX_NEW):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = eng._decode(tok, eng.cache, base + i)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            finite &= bool(torch.isfinite(logits[:, 0, :cfg.vocab]).all())
+            tok = logits[:, :, :cfg.vocab].argmax(-1)
+            for row, t in enumerate(tok[:, 0].tolist()):
+                outs[row].append(t)
+        pos = base + MAX_NEW
+        eager = eng._eager_decode(tok, eng.cache, pos)[0].clone()
+        replayed = eng._decode(tok, eng.cache, pos)[0].clone()
+    diff = float((eager - replayed)[..., :cfg.vocab].abs().max())
+    row = dict(model=cfg.name, n_patches=n_pat, prompt_lens=list(
+        VLM_IMAGE_PROMPTS), max_len=eng.max_len,
+        prefill_ms_with_patches=prefill_ms,
+        decode_steps=MAX_NEW, decode_ms=statistics.median(decode_ms),
+        decode_ms_all=decode_ms,
+        decode_tokens_per_s=len(VLM_IMAGE_PROMPTS) * MAX_NEW
+        / (sum(decode_ms) / 1e3),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        eager_vs_captured=dict(max_abs_diff=diff, bitwise=diff == 0.0),
+        outputs={i: o[:8] for i, o in enumerate(outs)})
+    emit("serve_vlm_images", **row)
+    require(finite, "serve_vlm images: non-finite logits")
+    for i, o in enumerate(outs):
+        require(len(o) == MAX_NEW and all(0 <= v < cfg.vocab for v in o),
+                f"serve_vlm images: request {i} got {o}")
+    require(diff == 0.0, f"serve_vlm images: the captured decode is not "
+            f"bitwise the eager one: max|d| {diff}")
+    del eng, eager, replayed
+    return row
+
+
+def phase_family_serve(torch) -> dict:
+    """serve_moe, serve_hybrid and serve_vlm (FAMILY_SERVE) through
+    :func:`serve_lm_case`, the captured step bitwise the eager one; then
+    internvl2's image requests (:func:`serve_vlm_images`)."""
+    out = {}
+    for phase, cases in FAMILY_SERVE.items():
+        for arch, layers, lens in cases:
+            vlm = phase == "serve_vlm"
+            got = serve_lm_case(torch, arch, layers, lens, phase=phase,
+                                bitwise=True, keep=vlm)
+            if vlm:
+                out[arch], (bundle, params, eng) = got
+                del eng
+                torch.cuda.empty_cache()
+                out[arch + "/images"] = serve_vlm_images(torch, bundle,
+                                                         params)
+                del bundle, params
+                torch.cuda.empty_cache()
+            else:
+                out[arch] = got
+    return out
+
+
+def phase_family_cache(torch) -> dict:
+    """:func:`cache_case` for each FAMILY_CACHE model."""
+    return {arch: cache_case(torch, "family_cache", arch, layers, prompt)
+            for arch, layers, prompt in FAMILY_CACHE}
+
+
+def phase_ckpt_codec_moe(torch) -> dict:
+    """granite-moe-3b-a800m uncut (bf16, random weights from seed 0) saved
+    with the Tucker codec (``CompressionConfig()``): its eligible stacked
+    leaves -- the 4-way expert leaves w_gate, w_up (32, 40, 1536, 512) and
+    w_down (32, 40, 512, 1536) at ranks (32, 10, 64, 64), the fp32 router
+    (32, 1536, 40) at (32, 64, 10) and the four attention leaves -- through
+    ``sthosvd(methods="auto", impl="auto")``, which must resolve to
+    ``hopper`` and launch ttt, matmul and ttm_interior; on the 4-way
+    leaves the first-mode wide GEMM (row 2b), the interior TTM at R <= 16
+    (row 3) and on its wide route (3b) and the last-mode wide GEMM (2c)
+    must launch (:func:`codec_diag`'s routes).  Each leaf's ms, bytes and
+    rel_error, within CODEC_REL_TOL of the same methods on ``matfree``,
+    its ``codec_diag`` and ``als_gate`` lines; then restored into a fresh
+    model that serves 4 requests x 32 tokens."""
+    import tempfile
+    from repro_torch import configs, kernels
+    from repro_torch.checkpoint.checkpointer import (Checkpointer,
+                                                     tree_flatten)
+    from repro_torch.core.sthosvd import sthosvd
+    from repro_torch.models import build
+    from repro_torch.models.convert import load_tree, tree_from_params
+    from repro_torch.optim.grad_compress import CompressionConfig
+    from repro_torch.serve import Request, ServeEngine
+    cfg = configs.get("granite-moe-3b-a800m")
+    bundle = build(cfg)
+    comp = CompressionConfig()
+    with tempfile.TemporaryDirectory(prefix="ckpt_moe_") as d:
+        tree = tree_from_params(bundle.init(0, "cuda"))
+        flat = tree_flatten(tree)
+        eligible = [i for i, v in enumerate(flat)
+                    if comp.ranks_for(tuple(v.shape)) is not None]
+        four_way = [i for i in eligible if flat[i].dim() == 4]
+        require(len(four_way) == 3 and len(eligible) == 8,
+                f"ckpt_codec_moe: eligible leaves "
+                f"{[tuple(flat[i].shape) for i in eligible]}")
+        ck = Checkpointer(d)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ck.save(1, tree, compress_cfg=comp, blocking=True)
+        save_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        routes = dict(ttt_routes=kernels.ttt_route_counts(),
+                      matmul_routes=kernels.matmul_route_counts(),
+                      ttm_routes=kernels.ttm_route_counts())
+        log = ck.tucker_log
+        require([r["index"] for r in log] == eligible,
+                f"ckpt_codec_moe: Tucker leaves {[r['index'] for r in log]}"
+                f", eligible {eligible}")
+        require(all(r["backend"] == "hopper" for r in log),
+                f"ckpt_codec_moe: backends {[r['backend'] for r in log]}")
+        for k in ("ttt", "matmul", "ttm_interior"):
+            require(counts[k] > 0, f"ckpt_codec_moe: {k} never launched")
+        four_routes = {}
+        for r in log:
+            x = flat[r["index"]].float()
+            ref = sthosvd(x, r["ranks"], methods=tuple(r["methods"]),
+                          impl="matfree", device=x.device,
+                          block_until_ready=True)
+            r["rel_error_matfree"] = float(ref.tucker.rel_error(x))
+            r["d_rel_error"] = r["rel_error"] - r["rel_error_matfree"]
+            del ref
+            emit("ckpt_codec_moe_leaf", **r)
+            diag = codec_diag(torch, x, r)
+            if r["index"] in four_way:
+                for md in diag["modes"]:
+                    for key, v in md["routes"].items():
+                        four_routes[key] = four_routes.get(key, 0) + v
+            if "als" in r["methods"]:
+                als_gate(torch, "ckpt_codec_moe", f"leaf{r['index']}", x,
+                         r["ranks"], r["methods"], range(len(r["ranks"])))
+            del x, diag
+            torch.cuda.empty_cache()
+            require(abs(r["d_rel_error"]) <= CODEC_REL_TOL,
+                    f"ckpt_codec_moe: leaf {r['index']} rel_error "
+                    f"{r['rel_error']} vs matfree {r['rel_error_matfree']}")
+        emit("ckpt_codec_moe_routes", four_way=four_routes)
+        want = {"2b": ("matmul:wide",), "2c": ("matmul:wide/last",),
+                "3": ("ttm_interior:slab", "ttm_interior:plain"),
+                "3b": ("ttm_interior:wide",)}
+        for row, keys in want.items():
+            require(any(four_routes.get(k, 0) for k in keys),
+                    f"ckpt_codec_moe: row {row}'s route {keys} never "
+                    f"launched on the 4-way leaves: {four_routes}")
+        disk = sum(p.stat().st_size for p in Path(d).rglob("*") if p.is_file())
+        del tree, flat
+        torch.cuda.empty_cache()
+        fresh = bundle.init(1, "cuda")
+        restored, step = Checkpointer(d).restore(tree_from_params(fresh,
+                                                                  "cpu"))
+        load_tree(fresh, restored)
+        del restored
+    eng = ServeEngine(bundle, fresh, batch_slots=4, max_len=64)
+    finite = [True]
+    inner_prefill, inner_decode = eng._prefill, eng._decode
+
+    def watch(fn):
+        def run(*args):
+            logits, c = fn(*args)
+            finite[0] &= bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+            return logits, c
+        return run
+    eng._prefill, eng._decode = watch(inner_prefill), watch(inner_decode)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (8,), generator=g,
+                                         device="cuda").tolist(),
+                    max_new_tokens=32, rid=i) for i in range(4)]
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    require(finite[0], "ckpt_codec_moe: non-finite logits from the "
+            "restored model")
+    for r in reqs:
+        require(len(r.output) == 32 and all(0 <= v < cfg.vocab
+                                            for v in r.output),
+                f"ckpt_codec_moe: request {r.rid} got {r.output}")
+    out = dict(leaves=len(log), four_way=len(four_way), save_s=save_s,
+               disk_bytes=disk, bytes_raw=sum(r["bytes_raw"] for r in log),
+               bytes_tucker=sum(r["bytes_tucker"] for r in log),
+               launches={k: v for k, v in counts.items() if v}, **routes,
+               four_way_routes=four_routes, restored_step=step,
+               served_tokens=sum(len(r.output) for r in reqs), ok=True)
+    emit("ckpt_codec_moe", **out)
+    del eng, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(torch) -> dict:
+    """serve_moe, serve_hybrid, serve_vlm, family_cache and
+    ckpt_codec_moe; returns the codec's kernel launches."""
+    phase_family_serve(torch)
+    phase_family_cache(torch)
+    return phase_ckpt_codec_moe(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -5363,7 +5810,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "tune", "tucker_serve",
                                        "sharded", "profiler", "train",
-                                       "dense"),
+                                       "dense", "families"),
                     help="kernels: run env, build and the kernel phases "
                          "(small and full-size shapes) only: no large "
                          "operands, main path or serve run; tune: env, "
@@ -5376,7 +5823,9 @@ def main(argv=None) -> int:
                          "backward's timed row, then "
                          "train, ckpt_codec and train_resume; dense: env, "
                          "build, serve_dense, dense_cache and "
-                         "ckpt_codec_dense; none prints the kernels line")
+                         "ckpt_codec_dense; families: env, build, "
+                         "serve_moe, serve_hybrid, serve_vlm, family_cache "
+                         "and ckpt_codec_moe; none prints the kernels line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -5401,12 +5850,13 @@ def main(argv=None) -> int:
             print(smi, flush=True)
             return 0
         if args.only in ("tune", "tucker_serve", "sharded", "profiler",
-                         "dense"):
+                         "dense", "families"):
             {"tune": lambda: phase_tune(torch, smi),
              "tucker_serve": lambda: phase_tucker_serve(torch),
              "sharded": lambda: phase_sharded(torch),
              "profiler": lambda: phase_profiler_probe(torch),
-             "dense": lambda: phase_dense(torch)}[args.only]()
+             "dense": lambda: phase_dense(torch),
+             "families": lambda: phase_families(torch)}[args.only]()
             emit("run", seconds=time.perf_counter() - t_run)
             print(smi, flush=True)
             return 0
@@ -5423,6 +5873,7 @@ def main(argv=None) -> int:
         adaptive = phase_adaptive(torch)
         launched["s6_scan"] = phase_serve(torch)
         dense_codec = phase_dense(torch)
+        moe_codec = phase_families(torch)
         tucker_serve = phase_tucker_serve(torch)
         sharded = phase_sharded(torch)
         training = phase_training(torch)
@@ -5445,6 +5896,7 @@ def main(argv=None) -> int:
                    launches_ckpt_codec=training["ckpt_codec"].get(name, 0),
                    launches_ckpt_codec_dense=dense_codec["launches"].get(
                        name, 0),
+                   launches_ckpt_codec_moe=moe_codec["launches"].get(name, 0),
                    launches_service=sharded["service"].get(name),
                    max_abs_err=m["max_abs_err"], ms=m["ms"],
                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],

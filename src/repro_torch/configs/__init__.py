@@ -2,8 +2,9 @@
 ``get_smoke(name)`` → reduced same-family config for CPU smoke tests.
 
 The names and aliases are the reference's (``repro.configs``).  Only the
-architectures whose layers the port has are importable; the others raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
+architectures whose layers the port has are importable; the other one
+(seamless-m4t-medium, enc-dec) raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings it.
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ ALIASES = {
     "internvl2-2b": "internvl2_2b",
 }
 
-#: architectures whose layers the port has: the Mamba-1 ssm family and the
-#: dense family
+#: architectures whose layers the port has: the Mamba-1 ssm, dense, moe,
+#: hybrid (Mamba-2 with shared attention) and vlm families
 PORTED = ("falcon_mamba_7b", "gemma2_9b", "gemma3_1b", "phi3_mini_3p8b",
-          "minitron_4b")
+          "minitron_4b", "granite_moe_3b_a800m", "mixtral_8x22b",
+          "zamba2_1p2b", "internvl2_2b")
 
 
 def _mod(name: str):
@@ -49,9 +51,8 @@ def _mod(name: str):
         raise ValueError(f"unknown architecture {name!r}; known: {ARCHS}")
     if name not in PORTED:
         raise NotImplementedError(
-            f"{name}: its layers (MoE, Mamba-2/SSD with the hybrid block, "
-            "the vision projector or enc-dec) are not ported yet; ROADMAP.md "
-            "Queue 1 item 11 brings them")
+            f"{name}: its layers (the enc-dec family) are not ported yet; "
+            "ROADMAP.md Queue 1 item 11.4 brings them")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -5,8 +5,10 @@
         [--device cpu]
 
 ``--arch`` is any architecture the port has (``repro_torch.configs.PORTED``:
-falcon-mamba-7b, gemma2-9b, gemma3-1b, phi3-mini-3.8b, minitron-4b), at its
-full size or, with ``--smoke``, its SMOKE preset.  Runs on ``cuda:0`` and
+falcon-mamba-7b, gemma2-9b, gemma3-1b, phi3-mini-3.8b, minitron-4b,
+granite-moe-3b-a800m, mixtral-8x22b, zamba2-1.2b, internvl2-2b; text
+prompts only, as the reference's engine serves them), at its full size
+or, with ``--smoke``, its SMOKE preset.  Runs on ``cuda:0`` and
 raises without CUDA unless ``--device cpu`` is given.
 Weights are random, from ``torch.Generator(device).manual_seed(0)``, or,
 with ``--ckpt <dir>``, the parameter tree of that directory's newest

@@ -5,7 +5,8 @@ arrays are stacked on a leading layer axis (``params["layers"]["ssm"]
 ["in_proj"]`` is (L, d, 2·Di), ``params["layers"]["attn"]["wq"]`` (L, d,
 Hq·D)).  :func:`params_from_jax` takes that tree
 with numpy leaves (``np.asarray`` of each jax array; bf16 as ml_dtypes'
-bfloat16) or tensors and builds the port's
+bfloat16) or tensors (the hybrid family's top-level ``shared`` tree and the
+vlm family's ``vis_proj`` included) and builds the port's
 :class:`~repro_torch.models.lm.LM`, splitting the stacked arrays into one
 block per layer.  With it, both packages compute with the same weights.
 :func:`tree_from_params` is its inverse: it stacks the layers' parameters
@@ -34,21 +35,41 @@ from .lm import LM, Block, require_ported
 
 SSM_KEYS = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
             "a_log", "d_skip", "out_proj")
+SSM2_KEYS = ("in_proj", "conv_w", "conv_b", "bc_proj", "dt_proj", "dt_bias",
+             "a_log", "d_skip", "out_proj")
+MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
+
+
+def _attn_keys(cfg: ModelConfig) -> dict[str, tuple[str, ...]]:
+    norm = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
+    attn = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm
+                                       else ())
+    mlp = ("wi", "wo") if cfg.act == "relu2" else ("wi_gate", "wi_up", "wo")
+    return {"norm_attn": norm, "attn": attn, "norm_mlp": norm, "mlp": mlp}
 
 
 def layer_keys(cfg: ModelConfig) -> dict[str, tuple[str, ...]]:
     """The reference's per-layer tree for ``cfg``: {part: its leaf keys}."""
     require_ported(cfg)
     norm = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
-    if cfg.family == "ssm":
-        return {"norm_ssm": norm, "ssm": SSM_KEYS}
-    attn = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm
-                                       else ())
-    mlp = ("wi", "wo") if cfg.act == "relu2" else ("wi_gate", "wi_up", "wo")
-    out = {"norm_attn": norm, "attn": attn, "norm_mlp": norm, "mlp": mlp}
+    if cfg.family in ("ssm", "hybrid"):
+        return {"norm_ssm": norm,
+                "ssm": SSM_KEYS if cfg.ssm_version == 1 else SSM2_KEYS}
+    out = _attn_keys(cfg)
+    if cfg.n_experts:
+        del out["mlp"]
+        out["moe"] = MOE_KEYS
     if cfg.post_norm:
         out.update(post_attn=norm, post_mlp=norm)
     return out
+
+
+def shared_keys(cfg: ModelConfig) -> dict[str, tuple[str, ...]] | None:
+    """The hybrid family's top-level ``shared`` tree ({part: its leaf
+    keys}), or None where the config has none."""
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        return _attn_keys(cfg)
+    return None
 
 
 def _pdict(tree: dict, keys, index=None, device=None) -> nn.ParameterDict:
@@ -81,11 +102,26 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
     blocks = [Block(**{part: _pdict(layers[part], keys, i, device)
                        for part, keys in want.items()})
               for i in range(cfg.n_layers)]
-    lm_head = tree.get("lm_head")
+    skeys = shared_keys(cfg)
+    got = {part: tuple(sorted(v)) for part, v in tree.get("shared", {}).items()}
+    if got != {part: tuple(sorted(v)) for part, v in (skeys or {}).items()}:
+        raise ValueError(f"params_from_jax: shared keys {got} are not the "
+                         f"{cfg.family} keys {skeys}")
+    shared = None if skeys is None else Block(**{
+        part: _pdict(tree["shared"][part], keys, device=device)
+        for part, keys in skeys.items()})
+    want_vis = cfg.family == "vlm" and bool(cfg.n_patches)
+    if want_vis != ("vis_proj" in tree):
+        raise ValueError(f"params_from_jax: vis_proj is "
+                         f"{'missing' if want_vis else 'not'} a key of the "
+                         f"{cfg.family} tree")
+    lm_head, vis = tree.get("lm_head"), tree.get("vis_proj")
     return LM(_as_tensor(tree["embed"]).to(device), blocks,
               _pdict(tree["final_norm"], tuple(tree["final_norm"]),
                      device=device),
-              None if lm_head is None else _as_tensor(lm_head).to(device))
+              None if lm_head is None else _as_tensor(lm_head).to(device),
+              shared=shared,
+              vis_proj=None if vis is None else _as_tensor(vis).to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +140,11 @@ def param_tree(lm: LM) -> dict:
                        for part in blocks[0].parts}}
     if lm.lm_head is not None:
         tree["lm_head"] = lm.lm_head
+    if lm.shared is not None:
+        tree["shared"] = {part: dict(getattr(lm.shared, part).items())
+                          for part in lm.shared.parts}
+    if lm.vis_proj is not None:
+        tree["vis_proj"] = lm.vis_proj
     return tree
 
 

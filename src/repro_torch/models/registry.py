@@ -5,9 +5,11 @@ init_cache.
 config, as in ``repro/models/registry.py``, with its ``ring`` rule: a KV
 cache shorter than the context (``lm.cache_len``, pure sliding-window
 models) is a ring buffer; ``decode`` is told the context's total length
-(the serve engine passes its ``max_len``, as the reference's does).  The
-port has the lm families' dense and Mamba-1 (ssm) members; ``encdec`` and
-``input_specs`` wait for their slices (``ROADMAP.md`` Queue 1 item 11).
+(the serve engine passes its ``max_len``, as the reference's does);
+``prefill`` passes the batch's ``patches`` (vlm) when it has them.  The
+port has the lm families (dense, moe, Mamba-1 ssm, Mamba-2 hybrid, vlm);
+``encdec`` and ``input_specs`` wait for their slices (``ROADMAP.md`` Queue 1
+items 11.4 and 11.5).
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
         init=init,
         loss=lambda p, b: lm.lm_loss(p, cfg, b),
         prefill=lambda p, b, cache: lm.prefill(
-            p, cfg, b["tokens"], cache, ring=ring(b["tokens"].shape[1])),
+            p, cfg, b["tokens"], cache, patches=b.get("patches"),
+            ring=ring(b["tokens"].shape[1])),
         decode=lambda p, tok, cache, pos, total=None: lm.decode_step(
             p, cfg, tok, cache, pos,
             ring=ring(total) if total is not None else False),

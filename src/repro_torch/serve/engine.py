@@ -16,14 +16,19 @@ the context's total length, ``max_len``, as the reference's engine tells
 it (``ring`` caches of pure sliding-window models).  Prefill runs eagerly
 per request (its length varies); sampling stays outside the graph.
 
-A KV prefill writes slots 0 … T − 1 of the slot's stripe of the cache in
-place, as the reference's writes them (its stale tail is masked by every
-later decode until overwritten), so admission allocates nothing beside the
-prompt's own activations.  An ssm prefill runs on a zeroed copy of the
-slot's stripe, which is copied back.  That is one deliberate difference:
-the reference prefills from whatever the slot's previous occupant (and the
-dummy decodes since) left there, so for a state-space model a refilled
-slot continues the old request's state; see ``ROADMAP.md`` Queue 3.
+The rule is per cache key (``lm.state_keys``).  A KV prefill writes slots
+0 … T − 1 of the slot's stripe of ``k`` and ``v`` in place, as the
+reference's writes them (its stale tail is masked by every later decode
+until overwritten), so admission allocates nothing for them beside the
+prompt's own activations.  A state-space layer's ``conv`` and ``ssm``
+prefill from a zeroed copy of the slot's stripe, and what the prefill
+returns is copied back; a hybrid model's cache has both kinds.  That is
+one deliberate difference: the reference prefills from whatever the
+slot's previous occupant (and the dummy decodes since) left there, so for
+a state-space layer a refilled slot continues the old request's state;
+see ``ROADMAP.md`` Queue 3.  The engine admits text only, as the
+reference's does: a vlm model's image prefill goes through
+``bundle.prefill`` with ``patches``.
 
 ``TuckerBatchEngine`` — the decomposition-serving counterpart: a thin
 synchronous wrapper over :class:`~repro_torch.serve.service.TuckerService`
@@ -43,7 +48,7 @@ import torch
 from .. import kernels
 from ..core.api import TuckerConfig, TuckerPlan
 from ..core.sthosvd import SthosvdResult
-from ..models.lm import in_place_cache
+from ..models.lm import state_keys
 from ..models.registry import ModelBundle
 
 
@@ -77,7 +82,7 @@ class ServeEngine:
         self.device = params.embed.device
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.cache = bundle.init_cache(batch_slots, max_len, device=self.device)
-        self.in_place = in_place_cache(bundle.cfg)
+        self.state_keys = state_keys(bundle.cfg)
         self.pos = np.zeros(batch_slots, np.int64)
         self.slot_req: list[Request | None] = [None] * batch_slots
         self._eager_decode = lambda tok, cache, pos: bundle.decode(
@@ -139,16 +144,14 @@ class ServeEngine:
     # -- slot management -----------------------------------------------------
     def _admit(self, req: Request, slot: int):
         toks = torch.tensor([req.prompt], dtype=torch.long, device=self.device)
-        if self.in_place:
-            # the prefill fills slots 0 … T - 1 of the stripe in place
-            logits, _ = self._prefill(toks, {k: v[:, slot:slot + 1]
-                                             for k, v in self.cache.items()})
-        else:
-            fresh = {k: torch.zeros_like(v[:, slot:slot + 1])
-                     for k, v in self.cache.items()}
-            logits, slot_cache = self._prefill(toks, fresh)
-            for k, v in self.cache.items():
-                v[:, slot:slot + 1].copy_(slot_cache[k])
+        # the prefill fills slots 0 … T - 1 of a KV stripe in place; a state
+        # starts from zeros and comes back
+        stripe = {k: torch.zeros_like(v[:, slot:slot + 1])
+                  if k in self.state_keys else v[:, slot:slot + 1]
+                  for k, v in self.cache.items()}
+        logits, slot_cache = self._prefill(toks, stripe)
+        for k in self.state_keys:
+            self.cache[k][:, slot:slot + 1].copy_(slot_cache[k])
         self.pos[slot] = len(req.prompt)
         self.slot_req[slot] = req
         first = self._sample(logits[:, -1], np.array([req.temperature]))
