@@ -226,6 +226,45 @@ Phases, each printing one JSON line (any failure exits non-zero):
             64), the router (32, 1536, 40) and the attention leaves, as
             ckpt_codec_dense, and on the 4-way leaves rows 2b, 3, 3b and
             2c's routes must launch; restored and serving 4 x 32 tokens.
+6f. encdec the enc-dec family (seamless-m4t-medium; no hand kernel on its
+            serve path: its attention is plain PyTorch, as the reference's
+            is jnp).  serve_encdec: uncut (12 + 12 layers, d_model 1024,
+            bf16, random weights from seed 0), frames (1, T_enc, 1024)
+            fp32 made on the card: one request at each T_enc of 37, 1021,
+            3000, 4097, 6000 and 8191 with a 16-token decoder prompt, one
+            at T_enc 4097 with a 4097-token prompt (the registry's
+            init_cache(batch, seq) layout), and 4 rows sharing T_enc 3000;
+            32 decode steps each through the step captured as the serve
+            engine captures it.  Prints the encoder, cross-K/V and decoder
+            prefill ms, captured and eager decode ms, host launches a
+            step and the peak; 32 valid tokens, finite logits and the
+            captured step bitwise the eager one.  encdec_cache: uncut in
+            fp32, T_enc 5000, a 64-token prompt and 16 decode steps, each
+            position's logits within 1e-4 of max|logits| of the
+            teacher-forced decoder without a cache.  ckpt_codec_encdec:
+            the uncut model's 18 stacked leaves ((12, 1024, 1024) x 12,
+            (12, 1024, 4096) x 4, (12, 4096, 1024) x 2) at ranks (12, 64,
+            64) through the Tucker codec on hopper, each within 1e-4 of
+            matfree; the Gram and the TTT on the tensor cores (rows 1b,
+            1c), the last-mode wide GEMM (2c) and the interior wide TTM
+            (3b) must launch; restored, it serves one request.
+6g. roofline ``repro_torch.roofline.op_walk`` on real steps on the card:
+            seamless's encoder and decoder prefill at T_enc 4097, its
+            captured decode step (walked eagerly), gemma3-1b's decode step
+            on 4 slots; per step the walker's FLOPs (by dtype) and
+            essential bytes, the bound max(Σ FLOPs ÷ the dtype's peak,
+            bytes ÷ HBM) at the card's variant, the measured device ms and
+            their ratio: the measured time must reach 0.95 x the bound.
+    dryrun the dry run (``repro_torch.launch.dryrun``) in child processes
+            on the host with CUDA hidden (each its own fake process group,
+            apart from the sharded phase's), started before 6f and joined
+            after 6g: the dry-run-lite matrix (gemma3-1b, mixtral-8x22b,
+            falcon-mamba-7b, zamba2-1.2b, seamless-m4t-medium and
+            internvl2-2b x train / prefill / decode at SMOKE size on a (2,
+            2, 2) fake mesh: FLOPs and collectives > 0 in every cell) and
+            seamless-m4t-medium x prefill_32k on the (16, 16) mesh of 256
+            fake ranks, its artifact written to
+            ``chiprun_out/dryrun/pod16x16/`` and its roofline printed.
 6b. tucker_serve the streaming Tucker service with ``impl="auto"`` (every
             plan must resolve to ``hopper``; gc frozen for the phase), in
             three parts.  stream_ref: the reference's serve bench stream
@@ -368,6 +407,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
             ``launches_train`` and ``launches_ckpt_codec`` phase 6d's,
             ``launches_ckpt_codec_dense`` phase 6a's codec,
             ``launches_ckpt_codec_moe`` phase 6e's,
+            ``launches_ckpt_codec_encdec`` phase 6f's,
             ``launches_service`` the sharded phase's service cases; the
             ``s6_scan_bwd`` row's launches are the train phase's), after a
             ``run`` line with the whole run's seconds; then the
@@ -379,9 +419,10 @@ check after a kernel edit), ``--only tune`` phases 1, 2 and 7 (the
 command that trains the shipped cuda models), ``--only tucker_serve``
 phases 1, 2 and 6b, ``--only sharded`` phases 1, 2 and 6c, ``--only
 train`` phases 1, 2, the S6 scan's and its backward's checks of phase 3
-and 6d, ``--only dense`` phases 1, 2 and 6a, and ``--only families``
-phases 1, 2 and 6e; none prints the kernels line.  The whole script runs
-6e after 6a.
+and 6d, ``--only dense`` phases 1, 2 and 6a, ``--only families`` phases
+1, 2 and 6e, ``--only encdec`` phases 1, 2 and 6f, and ``--only
+roofline`` phases 1, 2, 6g and dryrun; none prints the kernels line.  The
+whole script runs 6e after 6a, then 6f, 6g and dryrun.
 
 Imports nothing of JAX nor of the JAX package ``repro``.
 """
@@ -408,11 +449,16 @@ TOL = 1e-4          # max|kernel - plain| <= TOL * max|plain| (fp32 sums, reorde
 #: this depth: its own error is reported beside the kernel's.
 ENTRY_TOL = 2e-4
 WARM_RUNS = 7
-#: (HBM bytes/s, fp32 non-tensor FLOP/s, dense TF32 tensor FLOP/s) from
-#: NVIDIA's H100 data sheets (TF32 dense is half the sheets' rate with
-#: sparsity: SXM 989, NVL 835, PCIe 756 TFLOP/s)
-PEAKS = {"sxm": (3.35e12, 67e12, 495e12), "pcie": (2.0e12, 51e12, 378e12),
-         "nvl": (3.9e12, 60e12, 417.5e12)}
+
+
+def peaks_table() -> dict:
+    """(HBM bytes/s, fp32 non-tensor FLOP/s, dense TF32 tensor FLOP/s) per
+    H100 variant, from the datasheet table of ``repro_torch.launch.mesh``
+    (``H100``), where the roofline reads its figures too."""
+    from repro_torch.launch.mesh import H100
+    return {v: (f["hbm"], f["fp32"], f["tf32"]) for v, f in H100.items()}
+
+
 #: SFU exponentials per clock per SM on compute capability 9.0 (the CUDA C++
 #: Programming Guide's arithmetic-instruction throughput table)
 SFU_PER_CLOCK_SM = 16
@@ -518,9 +564,9 @@ def phase_env(torch):
         timeout=60, check=True).stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sfu = SFU_PER_CLOCK_SM * sms * clock_mhz * 1e6
+    from repro_torch.launch.mesh import variant_of
     name = torch.cuda.get_device_name(0)
-    low = name.lower()
-    variant = "pcie" if "pcie" in low else "nvl" if "nvl" in low else "sxm"
+    variant = variant_of(name)
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=name,
          count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -528,7 +574,7 @@ def phase_env(torch):
          sfu_exp_per_s=sfu,
          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
-    return smi, (*PEAKS[variant], sfu)
+    return smi, (*peaks_table()[variant], sfu)
 
 
 # ---------------------------------------------------------------------------
@@ -3765,6 +3811,576 @@ def phase_families(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6f: the enc-dec family -- seamless-m4t-medium uncut, served with a
+# captured decode step; its cache against the teacher-forced decoder; the
+# Tucker codec on its stacked leaves.  Phase 6g: the roofline (the op
+# walker's count of real steps against their measured device time) and the
+# dry run on a fake 256-rank mesh
+# ---------------------------------------------------------------------------
+
+ENCDEC = "seamless-m4t-medium"
+#: serve_encdec: the frames' lengths (T_enc) of the single requests (the
+#: dense family's prompt lengths), the decoder prompt; the long request's
+#: T_enc and decoder prompt (the registry's init_cache(batch, seq) layout,
+#: dec_len = enc_len = seq); the batch's rows and their shared T_enc
+ENCDEC_FRAMES = DENSE_PROMPTS
+ENCDEC_PROMPT = 16
+ENCDEC_LONG = 4097
+ENCDEC_BATCH = (4, 3000)
+#: encdec_cache: T_enc, decoder prompt, decode steps (fp32, uncut)
+ENCDEC_CACHE = (5000, 64, 16)
+#: roofline: a measured device time below this share of the walker's
+#: bound means the count is wrong
+ROOF_SHARE = 0.95
+
+
+def capture_step(torch, step, tok, pos):
+    """``step(tok, pos) -> logits`` captured into a CUDA graph as
+    ``serve/engine.py`` captures its decode step: one warm-up call on a
+    side stream, then the capture, reading static token and position
+    buffers (``gc`` collected before and off during the capture).
+    Returns ``replay(tok, pos)``, which fills the buffers and replays: the
+    static logits, valid until the next replay.  The warm-up and the
+    capture write the cache at ``pos`` with ``tok``'s key and value, as
+    the first replay on the same inputs does."""
+    import gc
+    stok, spos = tok.clone(), pos.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        step(stok, spos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    gc.collect()
+    gc.disable()
+    try:
+        with torch.no_grad(), torch.cuda.graph(graph):
+            logits = step(stok, spos)
+    finally:
+        gc.enable()
+
+    def replay(t, p):
+        stok.copy_(t)
+        spos.copy_(p)
+        graph.replay()
+        return logits
+    return replay
+
+
+def encdec_request(torch, bundle, params, t_enc: int, prompt_len: int,
+                   rows: int, g, *, cache=None, new: int = MAX_NEW) -> dict:
+    """One request of ``rows`` rows sharing ``t_enc`` frames ((rows, t_enc,
+    d) fp32 from ``g``) and a ``prompt_len``-token decoder prompt: the
+    encoder, the cross K/V and the decoder's prefill timed one by one
+    (together they are ``encdec_prefill``), then ``new`` greedy decode
+    steps through the step captured as the engine captures it; one step
+    eager and one replayed on the same inputs (bitwise equal required),
+    the eager step's ms, host launches of each; the peak."""
+    from repro_torch.models import encdec
+    cfg = bundle.cfg
+    frames = torch.randn((rows, t_enc, cfg.d_model), generator=g,
+                         device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (rows, prompt_len), generator=g,
+                           device="cuda")
+    if cache is None:
+        cache = bundle.init_cache(rows, prompt_len + new + 1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    with torch.no_grad():
+        memory, enc_ms = synced(lambda: encdec.encode(params, cfg, frames))
+        ckv, kv_ms = synced(lambda: encdec.cross_kv(params, cfg, memory))
+        del memory
+        first, dec_ms = synced(lambda: encdec.logits_from_hidden(
+            params, cfg, encdec.decode_hidden(
+                params, cfg, prompt, ckv,
+                cache={"k": cache["k"], "v": cache["v"]})[0][:, -1:]))
+    cache = dict(cache, ck=ckv[0], cv=ckv[1])
+    del ckv
+    finite = bool(torch.isfinite(first[..., :cfg.vocab]).all())
+    step = lambda t, p: bundle.decode(params, t, cache, p)[0]
+    tok = first[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+    pos = torch.full((rows,), prompt_len, dtype=torch.long, device="cuda")
+    t0 = time.perf_counter()
+    replay = capture_step(torch, step, tok, pos)
+    capture_s = time.perf_counter() - t0
+    out, ms = [], []
+    for i in range(new):
+        lg, m = synced(lambda: replay(tok, pos))
+        ms.append(m)
+        finite &= bool(torch.isfinite(lg[..., :cfg.vocab]).all())
+        tok = lg[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+        out.append(tok[:, 0].tolist())
+        pos = pos + 1
+    with torch.no_grad():
+        eager = step(tok, pos).clone()
+        replayed = replay(tok, pos).clone()
+        eager_ms = statistics.median(synced(lambda: step(tok, pos))[1]
+                                     for _ in range(3))
+        wall = statistics.median(ms)
+        prof_g = profile_enqueues(torch, lambda: replay(tok, pos), wall)
+        prof_e = profile_enqueues(torch, lambda: step(tok, pos), eager_ms)
+    diff = float((eager - replayed).abs().max())
+    tokens = [[o[r] for o in out] for r in range(rows)]
+    row = dict(rows=rows, t_enc=t_enc, prompt=prompt_len,
+               dec_len=int(cache["k"].shape[2]),
+               enc_len=int(cache["ck"].shape[2]),
+               encoder_ms=enc_ms, cross_kv_ms=kv_ms, decoder_prefill_ms=dec_ms,
+               prefill_ms=enc_ms + kv_ms + dec_ms, capture_s=capture_s,
+               decode_steps=new, decode_ms_captured=wall,
+               decode_ms_eager=eager_ms, decode_ms_all=ms,
+               decode_tokens_per_s=rows * new / (sum(ms) / 1e3),
+               eager_vs_captured=dict(max_abs_diff=diff,
+                                      bitwise=diff == 0.0),
+               host_launches_captured=prof_g["host_launches"],
+               host_launches_eager=prof_e["host_launches"],
+               device_busy_ms_captured=prof_g["device_busy_ms"],
+               idle_share_captured=prof_g["idle_share"],
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               outputs=[t[:8] for t in tokens])
+    emit("serve_encdec", **row)
+    require(finite, f"serve_encdec T_enc {t_enc}: non-finite logits")
+    for t in tokens:
+        require(len(t) == new and all(0 <= v < cfg.vocab for v in t),
+                f"serve_encdec T_enc {t_enc}: tokens {t}")
+    require(diff == 0.0, f"serve_encdec T_enc {t_enc}: the captured decode "
+            f"is not bitwise the eager one: max|d| {diff}")
+    del replay, cache, eager, replayed
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_encdec(torch) -> dict:
+    """seamless-m4t-medium uncut (12 + 12 layers, d_model 1024, 256,256
+    padded vocab, bf16, random weights from seed 0): one request at each
+    T_enc of ENCDEC_FRAMES with an ENCDEC_PROMPT-token decoder prompt, one
+    at T_enc = ENCDEC_LONG with as long a decoder prompt on the registry's
+    cache layout, and a batch of ENCDEC_BATCH rows; MAX_NEW decode steps
+    each (:func:`encdec_request`)."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    cfg = configs.get(ENCDEC)
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():   # cuBLAS handles and first launches, off the clock
+        bundle.prefill(params, {
+            "frames": torch.zeros((1, 16, cfg.d_model), device="cuda"),
+            "tokens": torch.zeros((1, 4), dtype=torch.long, device="cuda")},
+            bundle.init_cache(1, 8, device="cuda"))
+    reqs = [encdec_request(torch, bundle, params, t, ENCDEC_PROMPT, 1, g)
+            for t in ENCDEC_FRAMES]
+    seq = ENCDEC_LONG + MAX_NEW + 1
+    reqs.append(encdec_request(torch, bundle, params, ENCDEC_LONG,
+                               ENCDEC_LONG, 1, g, cache=bundle.init_cache(
+                                   1, seq, device="cuda")))
+    rows, t_enc = ENCDEC_BATCH
+    reqs.append(encdec_request(torch, bundle, params, t_enc, ENCDEC_PROMPT,
+                               rows, g))
+    out = dict(model=cfg.name, enc_layers=cfg.enc_layers,
+               dec_layers=cfg.n_layers, d_model=cfg.d_model,
+               heads=[cfg.n_heads, cfg.n_kv_heads, cfg.hd], d_ff=cfg.d_ff,
+               vocab=cfg.vocab, vocab_padded=cfg.vocab_padded,
+               dtype=cfg.dtype, params=n_params,
+               param_count_config=cfg.param_count(), init_s=init_s,
+               requests=len(reqs),
+               prefill_ms={f"{r['rows']}x{r['t_enc']}+{r['prompt']}":
+                           r["prefill_ms"] for r in reqs},
+               decode_ms_captured={f"{r['rows']}x{r['t_enc']}+{r['prompt']}":
+                                   r["decode_ms_captured"] for r in reqs},
+               peak_bytes=max(r["peak_bytes"] for r in reqs), ok=True)
+    emit("serve_encdec_summary", **out)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encdec_cache(torch) -> dict:
+    """seamless-m4t-medium uncut in fp32: T_enc = ENCDEC_CACHE[0] frames,
+    a decoder prompt, then decode steps through the cache; the prefill's
+    last logits and every decoded position's against the teacher-forced
+    ``decode_hidden`` over the whole sequence without a cache, within
+    CACHE_TOL of max|logits| (the card's form of the reference's
+    ``tests/test_models.py`` cache check)."""
+    from repro_torch import configs
+    from repro_torch.models import build, encdec
+    cfg = configs.get(ENCDEC).with_(dtype="float32")
+    bundle = build(cfg)
+    params = bundle.init(0, "cuda")
+    t_enc, prompt, steps = ENCDEC_CACHE
+    total = prompt + steps
+    g = torch.Generator(device="cuda").manual_seed(4)
+    frames = torch.randn((1, t_enc, cfg.d_model), generator=g, device="cuda")
+    seq = torch.randint(0, cfg.vocab, (1, total), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache = bundle.init_cache(1, total, device="cuda")
+        first, cache = bundle.prefill(params, {"frames": frames,
+                                               "tokens": seq[:, :prompt]},
+                                      cache)
+        got = [first[:, 0]]
+        for s in range(prompt, total):
+            logits, cache = bundle.decode(params, seq[:, s:s + 1], cache,
+                                          torch.tensor([s]))
+            got.append(logits[:, 0])
+        torch.cuda.synchronize()
+        cached_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckv = encdec.cross_kv(params, cfg, encdec.encode(params, cfg, frames))
+        h, _ = encdec.decode_hidden(params, cfg, seq, ckv)
+        want = encdec.logits_from_hidden(params, cfg, h[:, prompt - 1:])
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+    got = torch.stack(got, 1)[..., :cfg.vocab]
+    want = want[..., :cfg.vocab]
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    row = dict(model=cfg.name, dtype=cfg.dtype, t_enc=t_enc, prompt=prompt,
+               decode_steps=steps, positions=got.shape[1],
+               max_abs_diff=diff, max_abs_logit=scale, rel=diff / scale,
+               tol=CACHE_TOL, argmax_equal=bool(torch.equal(
+                   got.argmax(-1), want.argmax(-1))),
+               cached_s=cached_s, teacher_forced_s=full_s,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    emit("encdec_cache", **row)
+    require(bool(torch.isfinite(got).all()),
+            "encdec_cache: non-finite cached logits")
+    require(diff <= CACHE_TOL * scale, f"encdec_cache: cached decode vs the "
+            f"teacher-forced decoder max|d| {diff} > {CACHE_TOL} x {scale}")
+    del params, cache, h, want, got, ckv
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ckpt_codec_encdec(torch) -> dict:
+    """seamless-m4t-medium uncut (bf16, random weights from seed 0) saved
+    with the Tucker codec (``CompressionConfig()``): its 18 stacked 3-D
+    leaves -- the four attention matrices of the encoder, the decoder's
+    self-attention and its cross-attention, (12, 1024, 1024), and the
+    MLPs' (12, 1024, 4096) and (12, 4096, 1024) -- at ranks (12, 64, 64)
+    through ``sthosvd(methods="auto", impl="auto")``, which must resolve
+    to ``hopper``; the embedding and norms stay dense.  Each leaf's ms,
+    bytes and rel_error, within CODEC_REL_TOL of the same methods on
+    ``matfree``, its ``codec_diag`` and ``als_gate`` lines; the launches by
+    route, of which the Gram on the tensor cores (row 1b), the TTT on them
+    (1c), the last-mode wide GEMM (2c) and the interior wide TTM (3b) must
+    be; then restored into a fresh model that serves one request."""
+    import tempfile
+    from repro_torch import configs, kernels
+    from repro_torch.checkpoint.checkpointer import (Checkpointer,
+                                                     tree_flatten)
+    from repro_torch.core.sthosvd import sthosvd
+    from repro_torch.models import build
+    from repro_torch.models.convert import load_tree, tree_from_params
+    from repro_torch.optim.grad_compress import CompressionConfig
+    cfg = configs.get(ENCDEC)
+    bundle = build(cfg)
+    comp = CompressionConfig()
+    with tempfile.TemporaryDirectory(prefix="ckpt_encdec_") as d:
+        tree = tree_from_params(bundle.init(0, "cuda"))
+        flat = tree_flatten(tree)
+        eligible = [i for i, v in enumerate(flat)
+                    if comp.ranks_for(tuple(v.shape)) is not None]
+        require(len(eligible) == 18 and all(
+            flat[i].dim() == 3 and flat[i].shape[0] == 12 for i in eligible),
+            f"ckpt_codec_encdec: eligible leaves "
+            f"{[tuple(flat[i].shape) for i in eligible]}")
+        ck = Checkpointer(d)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ck.save(1, tree, compress_cfg=comp, blocking=True)
+        save_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        routes = dict(ttt_routes=kernels.ttt_route_counts(),
+                      matmul_routes=kernels.matmul_route_counts(),
+                      ttm_routes=kernels.ttm_route_counts())
+        log = ck.tucker_log
+        require([r["index"] for r in log] == eligible,
+                f"ckpt_codec_encdec: Tucker leaves "
+                f"{[r['index'] for r in log]}, eligible {eligible}")
+        require(all(r["backend"] == "hopper" for r in log),
+                f"ckpt_codec_encdec: backends {[r['backend'] for r in log]}")
+        require(all(tuple(r["ranks"]) == (12, 64, 64) for r in log),
+                f"ckpt_codec_encdec: ranks {[r['ranks'] for r in log]}")
+        for k in ("ttt", "matmul", "ttm_interior"):
+            require(counts[k] > 0, f"ckpt_codec_encdec: {k} never launched")
+        tt, mm, tm = (routes["ttt_routes"], routes["matmul_routes"],
+                      routes["ttm_routes"])
+        rows = {"1b": sum(v for k, v in tt.items()
+                          if k.startswith("wgmma") and k.endswith("/gram")),
+                "1c": sum(v for k, v in tt.items()
+                          if k.startswith("wgmma") and k.endswith("/ttt")),
+                "2c": mm.get("wide/last", 0), "3b": tm.get("wide", 0)}
+        emit("ckpt_codec_encdec_rows", launches=rows, **routes)
+        for k, v in rows.items():
+            require(v > 0, f"ckpt_codec_encdec: row {k} never launched: "
+                    f"{routes}")
+        for r in log:
+            x = flat[r["index"]].float()
+            ref = sthosvd(x, r["ranks"], methods=tuple(r["methods"]),
+                          impl="matfree", device=x.device,
+                          block_until_ready=True)
+            r["rel_error_matfree"] = float(ref.tucker.rel_error(x))
+            r["d_rel_error"] = r["rel_error"] - r["rel_error_matfree"]
+            del ref
+            emit("ckpt_codec_encdec_leaf", **r)
+            codec_diag(torch, x, r)
+            if "als" in r["methods"]:
+                als_gate(torch, "ckpt_codec_encdec", f"leaf{r['index']}", x,
+                         r["ranks"], r["methods"], range(len(r["ranks"])))
+            del x
+            require(abs(r["d_rel_error"]) <= CODEC_REL_TOL,
+                    f"ckpt_codec_encdec: leaf {r['index']} rel_error "
+                    f"{r['rel_error']} vs matfree {r['rel_error_matfree']}")
+        disk = sum(p.stat().st_size for p in Path(d).rglob("*") if p.is_file())
+        del tree, flat
+        torch.cuda.empty_cache()
+        fresh = bundle.init(1, "cuda")
+        restored, step = Checkpointer(d).restore(tree_from_params(fresh,
+                                                                  "cpu"))
+        load_tree(fresh, restored)
+        del restored
+    served = encdec_request(torch, bundle, fresh, ENCDEC_FRAMES[1],
+                            ENCDEC_PROMPT, 1,
+                            torch.Generator(device="cuda").manual_seed(2))
+    out = dict(leaves=len(log), save_s=save_s, disk_bytes=disk,
+               bytes_raw=sum(r["bytes_raw"] for r in log),
+               bytes_tucker=sum(r["bytes_tucker"] for r in log),
+               launches={k: v for k, v in counts.items() if v}, **routes,
+               row_launches=rows, restored_step=step,
+               served_tokens=served["decode_steps"], ok=True)
+    emit("ckpt_codec_encdec", **out)
+    del fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encdec(torch) -> dict:
+    """serve_encdec, encdec_cache and ckpt_codec_encdec; returns the
+    codec's kernel launches."""
+    phase_serve_encdec(torch)
+    phase_encdec_cache(torch)
+    return phase_ckpt_codec_encdec(torch)
+
+
+def roofline_case(torch, name: str, walk, measure, variant: str) -> dict:
+    """``walk()`` once under ``roofline.op_walk.OpWalk`` (one device's
+    FLOPs by dtype, essential and upper-bound bytes), its bound at this
+    card's variant -- the larger of Σ FLOPs ÷ the dtype's peak (bf16 on
+    the tensor cores; fp32 on FFMA, TF32 being off) and essential bytes ÷
+    HBM bandwidth -- against ``measure()``'s device time (the kernels'
+    summed durations) and CUDA-event ms.  The device time must reach
+    ROOF_SHARE of the bound: above it, the count would be wrong."""
+    from repro_torch.launch.mesh import H100
+    from repro_torch.roofline.op_walk import OpWalk
+    fig = H100[variant]
+    with torch.no_grad(), OpWalk() as w:
+        walk()
+        torch.cuda.synchronize()
+    r, by = w.result(), dict(w.flops_by_dtype)
+    peak = {"bfloat16": fig["bf16"], "float16": fig["bf16"],
+            "float32": fig["fp32"]}
+    compute_ms = sum(f / peak.get(dt, fig["fp32"]) for dt, f in by.items()) \
+        * 1e3
+    memory_ms = r["traffic_ess"] / fig["hbm"] * 1e3
+    bound = max(compute_ms, memory_ms)
+    with torch.no_grad():
+        dev = device_ms(torch, measure)
+        ev = time_ms(torch, measure, runs=5)
+    row = dict(case=name, flops=r["flops"], flops_by_dtype=by,
+               traffic_ess=r["traffic_ess"], traffic=r["traffic"],
+               ops=r["ops"], compute_ms=compute_ms, memory_ms=memory_ms,
+               bound_ms=bound,
+               bound_by="operations" if compute_ms >= memory_ms else "bytes",
+               device_ms=dev, ms=ev, device_over_bound=dev / bound,
+               variant=variant)
+    emit("roofline", **row)
+    require(dev >= ROOF_SHARE * bound, f"roofline {name}: measured "
+            f"{dev:.4f} ms < {ROOF_SHARE} x the bound {bound:.4f} ms: the "
+            "walker counts more than the step does")
+    return row
+
+
+def phase_roofline(torch) -> dict:
+    """The op walker on real steps on the card: seamless-m4t-medium's
+    encoder and decoder prefill at T_enc = ENCDEC_LONG (uncut, bf16), its
+    decode step (walked eagerly, measured as the captured graph's replay),
+    and gemma3-1b's decode step on 4 slots of DENSE_MAX_LEN positions
+    (uncut, bf16; measured eagerly)."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import variant_of
+    from repro_torch.models import build, encdec
+    variant = variant_of(torch.cuda.get_device_name(0))
+    out = {}
+    cfg = configs.get(ENCDEC)
+    bundle = build(cfg)
+    params = bundle.init(0, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    t = ENCDEC_LONG
+    frames = torch.randn((1, t, cfg.d_model), generator=g, device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (1, t), generator=g, device="cuda")
+    cache = bundle.init_cache(1, t + 8, device="cuda")
+    enc = lambda: encdec.encode(params, cfg, frames)
+    out["encode"] = roofline_case(torch, "seamless_encode", enc, enc,
+                                  variant)
+    with torch.no_grad():
+        ckv = encdec.cross_kv(params, cfg, enc())
+    dec = lambda: encdec.logits_from_hidden(params, cfg, encdec.decode_hidden(
+        params, cfg, prompt, ckv, cache={"k": cache["k"],
+                                         "v": cache["v"]})[0][:, -1:])
+    out["decoder_prefill"] = roofline_case(torch, "seamless_decoder_prefill",
+                                           dec, dec, variant)
+    cache = dict(cache, ck=ckv[0], cv=ckv[1])
+    tok = prompt[:, -1:].clone()
+    pos = torch.full((1,), t, dtype=torch.long, device="cuda")
+    step = lambda a, b: bundle.decode(params, a, cache, b)[0]
+    replay = capture_step(torch, step, tok, pos)
+    out["decode"] = roofline_case(torch, "seamless_decode_captured",
+                                  lambda: step(tok, pos),
+                                  lambda: replay(tok, pos), variant)
+    del replay, cache, ckv, params
+    torch.cuda.empty_cache()
+    gcfg = configs.get("gemma3-1b")
+    gb = build(gcfg)
+    gp = gb.init(0, "cuda")
+    gcache = gb.init_cache(4, DENSE_MAX_LEN, device="cuda")
+    gtok = torch.randint(0, gcfg.vocab, (4, 1), generator=g, device="cuda")
+    gpos = torch.tensor([37, 1021, 3000, 8191], device="cuda")
+    gstep = lambda: gb.decode(gp, gtok, gcache, gpos, DENSE_MAX_LEN)
+    out["gemma3_decode"] = roofline_case(torch, "gemma3_1b_decode", gstep,
+                                         gstep, variant)
+    del gp, gcache
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the dry run's child: dry-run-lite (one architecture of each family x
+#: train / prefill / decode at SMOKE size on a (2, 2, 2) fake mesh) for
+#: the architectures in argv, or with "full" seamless-m4t-medium x
+#: prefill_32k on the (16, 16) production mesh of 256 fake ranks
+DRYRUN_CHILD = r"""
+import json, sys, time, warnings
+warnings.filterwarnings("ignore")
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import _mesh, make_production_mesh
+from repro_torch.models import shardings as sm
+from repro_torch.models.config import ShapeConfig
+if sys.argv[1] == "full":
+    dryrun.fake_world(256)
+    rec = dryrun.run_cell("seamless-m4t-medium", "prefill_32k",
+                          make_production_mesh(), "pod16x16", sys.argv[2],
+                          force=True)
+    print(json.dumps(dict(full=rec)))
+    sys.exit(0)
+dryrun.fake_world(8)
+mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
+shapes = {"train": ShapeConfig("t", 32, 8, "train"),
+          "prefill": ShapeConfig("p", 64, 4, "prefill"),
+          "decode": ShapeConfig("d", 64, 4, "decode")}
+for arch in sys.argv[1:]:
+    for kind, sh in shapes.items():
+        sm.set_activation_mesh(mesh)
+        step, args, cfg, shape = dryrun.build_cell(
+            arch, "train_4k", mesh, smoke=True, shape_override=sh)
+        walked, secs = dryrun.walk_cell(step, args["arg_bytes"])
+        sm.set_activation_mesh(None)
+        print(json.dumps(dict(arch=arch, kind=kind, seconds=secs,
+                              flops=walked["flops"],
+                              coll_total=walked["coll_total"],
+                              coll_count=walked["coll_count"],
+                              traffic_ess=walked["traffic_ess"])),
+              flush=True)
+"""
+DRYRUN_LITE = (("gemma3_1b", "falcon_mamba_7b", "seamless_m4t_medium"),
+               ("mixtral_8x22b", "zamba2_1p2b", "internvl2_2b"))
+DRYRUN_LIMIT = 600
+
+
+_CHILDREN: list = []
+
+
+def stop_children() -> None:
+    """Kill the dry run's children still running (a phase failed)."""
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def start_dryrun() -> list:
+    """Start the dry run's children on the host (no card: CUDA hidden),
+    beside the card's phases: the lite matrix in two processes and the
+    full seamless cell in a third.  Each has its own fake process group,
+    apart from any the sharded phase makes."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    art = ROOT / "chiprun_out" / "dryrun"
+    jobs = [list(a) for a in DRYRUN_LITE] + [["full", str(art)]]
+    procs = [(job, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD, *job], env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)) for job in jobs]
+    _CHILDREN.extend(p for _, _, p in procs)
+    return procs
+
+
+def phase_dryrun(procs) -> dict:
+    """The dry run's children joined (each within DRYRUN_LIMIT s): every
+    lite cell's FLOPs > 0 and collectives > 0; the full cell's artifact
+    written, with its roofline line."""
+    cells, full, joined = [], None, {}
+    for job, t0, p in procs:
+        try:
+            o, e = p.communicate(timeout=max(1.0, DRYRUN_LIMIT - (
+                time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise SmokeFailure(f"dryrun: {job} ran past {DRYRUN_LIMIT} s")
+        joined[job[0] if job[0] == "full" else ",".join(job)] = \
+            time.perf_counter() - t0
+        require(p.returncode == 0, f"dryrun: {job} exited "
+                f"{p.returncode}: {e[-2000:]}")
+        for ln in o.splitlines():
+            if ln.startswith("{"):
+                d = json.loads(ln)
+                if "full" in d:
+                    full = d["full"]
+                else:
+                    cells.append(d)
+    require(len(cells) == 18 and all(c["flops"] > 0 and c["coll_total"] > 0
+                                     for c in cells),
+            f"dryrun: lite cells {cells}")
+    require(full is not None, "dryrun: the full cell wrote nothing")
+    path = ROOT / "chiprun_out" / "dryrun" / "pod16x16" / \
+        "seamless_m4t_medium__prefill_32k.json"
+    require(path.is_file(), f"dryrun: no artifact at {path}")
+    out = dict(lite=cells, joined_s=joined, full=dict(
+        arch=full["arch"], shape=full["shape"], mesh=full["mesh"],
+        chips=full["chips"], trace_s=full["trace_s"],
+        walked=full["walked"], memory=full["memory"],
+        roofline=full["roofline"], model_flops=full["model_flops"],
+        param_count=full["param_count"],
+        param_count_tree=full["param_count_tree"],
+        artifact=str(path.relative_to(ROOT))))
+    emit("dryrun", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6d: training falcon-mamba-7b at full width, the Tucker checkpoint
 # codec on its weights, and a bitwise resume
 # ---------------------------------------------------------------------------
@@ -5810,7 +6426,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("kernels", "tune", "tucker_serve",
                                        "sharded", "profiler", "train",
-                                       "dense", "families"),
+                                       "dense", "families", "encdec",
+                                       "roofline"),
                     help="kernels: run env, build and the kernel phases "
                          "(small and full-size shapes) only: no large "
                          "operands, main path or serve run; tune: env, "
@@ -5825,7 +6442,10 @@ def main(argv=None) -> int:
                          "build, serve_dense, dense_cache and "
                          "ckpt_codec_dense; families: env, build, "
                          "serve_moe, serve_hybrid, serve_vlm, family_cache "
-                         "and ckpt_codec_moe; none prints the kernels line")
+                         "and ckpt_codec_moe; encdec: env, build, "
+                         "serve_encdec, encdec_cache and ckpt_codec_encdec; "
+                         "roofline: env, build, roofline and dryrun; none "
+                         "prints the kernels line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -5849,14 +6469,22 @@ def main(argv=None) -> int:
             emit("run", seconds=time.perf_counter() - t_run)
             print(smi, flush=True)
             return 0
+        if args.only == "roofline":
+            dry = start_dryrun()
+            phase_roofline(torch)
+            phase_dryrun(dry)
+            emit("run", seconds=time.perf_counter() - t_run)
+            print(smi, flush=True)
+            return 0
         if args.only in ("tune", "tucker_serve", "sharded", "profiler",
-                         "dense", "families"):
+                         "dense", "families", "encdec"):
             {"tune": lambda: phase_tune(torch, smi),
              "tucker_serve": lambda: phase_tucker_serve(torch),
              "sharded": lambda: phase_sharded(torch),
              "profiler": lambda: phase_profiler_probe(torch),
              "dense": lambda: phase_dense(torch),
-             "families": lambda: phase_families(torch)}[args.only]()
+             "families": lambda: phase_families(torch),
+             "encdec": lambda: phase_encdec(torch)}[args.only]()
             emit("run", seconds=time.perf_counter() - t_run)
             print(smi, flush=True)
             return 0
@@ -5874,6 +6502,10 @@ def main(argv=None) -> int:
         launched["s6_scan"] = phase_serve(torch)
         dense_codec = phase_dense(torch)
         moe_codec = phase_families(torch)
+        dry = start_dryrun()
+        encdec_codec = phase_encdec(torch)
+        phase_roofline(torch)
+        phase_dryrun(dry)
         tucker_serve = phase_tucker_serve(torch)
         sharded = phase_sharded(torch)
         training = phase_training(torch)
@@ -5882,6 +6514,8 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_children()
     emit("run", seconds=time.perf_counter() - t_run)
     rows = []
     for name, meta in KERNELS.items():
@@ -5897,6 +6531,8 @@ def main(argv=None) -> int:
                    launches_ckpt_codec_dense=dense_codec["launches"].get(
                        name, 0),
                    launches_ckpt_codec_moe=moe_codec["launches"].get(name, 0),
+                   launches_ckpt_codec_encdec=encdec_codec["launches"].get(
+                       name, 0),
                    launches_service=sharded["service"].get(name),
                    max_abs_err=m["max_abs_err"], ms=m["ms"],
                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],

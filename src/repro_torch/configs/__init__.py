@@ -1,10 +1,8 @@
 """Assigned-architecture configs.  ``get(name)`` → full ModelConfig;
 ``get_smoke(name)`` → reduced same-family config for CPU smoke tests.
 
-The names and aliases are the reference's (``repro.configs``).  Only the
-architectures whose layers the port has are importable; the other one
-(seamless-m4t-medium, enc-dec) raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it.
+The names, aliases, ``LONG_CONTEXT_OK`` and ``supports_shape`` are the
+reference's (``repro.configs``); every architecture is ported.
 """
 
 from __future__ import annotations
@@ -38,21 +36,23 @@ ALIASES = {
     "internvl2-2b": "internvl2_2b",
 }
 
-#: architectures whose layers the port has: the Mamba-1 ssm, dense, moe,
-#: hybrid (Mamba-2 with shared attention) and vlm families
-PORTED = ("falcon_mamba_7b", "gemma2_9b", "gemma3_1b", "phi3_mini_3p8b",
-          "minitron_4b", "granite_moe_3b_a800m", "mixtral_8x22b",
-          "zamba2_1p2b", "internvl2_2b")
+#: architectures whose layers the port has: all of them
+PORTED = ARCHS
+
+# archs that run the ``long_500k`` shape (sub-quadratic / bounded cache)
+LONG_CONTEXT_OK = {
+    "mixtral_8x22b",      # SWA window caps the cache
+    "gemma3_1b",          # 5:1 local:global
+    "gemma2_9b",          # 1:1 local:global
+    "falcon_mamba_7b",    # O(1) state
+    "zamba2_1p2b",        # hybrid
+}
 
 
 def _mod(name: str):
     name = canonical(name)
     if name not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}; known: {ARCHS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"{name}: its layers (the enc-dec family) are not ported yet; "
-            "ROADMAP.md Queue 1 item 11.4 brings them")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 
@@ -66,3 +66,9 @@ def get_smoke(name: str):
 
 def canonical(name: str) -> str:
     return ALIASES.get(name, name)
+
+
+def supports_shape(name: str, shape_name: str) -> bool:
+    if shape_name == "long_500k":
+        return canonical(name) in LONG_CONTEXT_OK
+    return True

@@ -372,11 +372,14 @@ class TuckerConfig:
                    power_iters=d.get("power_iters", DEFAULT_POWER_ITERS))
 
 
-def resolve_device(device=None, *, mesh=None) -> torch.device:
+def resolve_device(device=None, *, mesh=None,
+                   allow_meta: bool = False) -> torch.device:
     """The device a plan runs on: ``cuda:0`` when ``device`` is None, or,
     with a ``mesh``, the rank's current CUDA device.  Raises when CUDA is
     asked for (or implied) and not available — never falls back to the
-    CPU."""
+    CPU.  ``"meta"`` (shapes and dtypes, no storage: the dry run's abstract
+    build) only where the caller asks for it by name and passes
+    ``allow_meta``."""
     if device is None and mesh is not None and torch.cuda.is_available():
         device = torch.device("cuda", torch.cuda.current_device())
     dev = torch.device("cuda:0" if device is None else device)
@@ -387,7 +390,7 @@ def resolve_device(device=None, *, mesh=None) -> torch.device:
                 "available; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (dev.type == "meta" and allow_meta):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 

@@ -45,10 +45,12 @@ plain :func:`repro_torch.kernels.ref.s6_scan_bwd_ref`.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import _build
-from .ref import s6_scan_ref
+from .ref import s6_scan_chunked_ref, s6_scan_ref
 
 #: launches of the CUDA kernel (one per wrapper call on the card, whatever
 #: the number of CUDA kernels the route runs)
@@ -142,9 +144,19 @@ def _check(x, dt, bmat, cmat, a, h0) -> str:
             elif not tensor.is_contiguous():
                 raise ValueError(f"s6_scan: {name} must be contiguous on the "
                                  "card (the kernel reads it in place)")
-    elif kind != "cpu":
+    elif kind not in ("cpu", "meta"):
         raise ValueError(f"s6_scan: unsupported device {x.device}")
     return kind
+
+
+def _plain(x, dt, bmat, cmat, a, h0):
+    """The plain version on a CPU tensor; on ``meta`` (the dry run's
+    abstract trace, asked for by name) the chunked plain form, whose
+    trace is O(√T) steps where the step recurrence's is O(T)."""
+    if x.device.type == "cpu":
+        return s6_scan_ref(x, dt, bmat, cmat, a, h0)
+    chunk = 1 << max(0, math.ceil(math.log2(max(1, x.shape[1])) / 2))
+    return s6_scan_chunked_ref(x, dt, bmat, cmat, a, h0, chunk=chunk)
 
 
 def _forward(x, dt, bmat, cmat, a, h0, force_route, keep_states: bool):
@@ -220,8 +232,8 @@ class S6Scan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, bmat, cmat, a, h0, force_route):
-        if x.device.type == "cpu":
-            y, hf = s6_scan_ref(x, dt, bmat, cmat, a, h0)
+        if x.device.type in ("cpu", "meta"):
+            y, hf = _plain(x, dt, bmat, cmat, a, h0)
             states = stride = None
         else:
             y, hf, states, stride = _forward(x, dt, bmat, cmat, a, h0,
@@ -256,8 +268,8 @@ def s6_scan(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
             v is not None and v.requires_grad
             for v in (x, dt, bmat, cmat, a, h0)):
         return S6Scan.apply(x, dt, bmat, cmat, a, h0, force_route)
-    if kind == "cpu":
-        return s6_scan_ref(x, dt, bmat, cmat, a, h0)
+    if kind in ("cpu", "meta"):
+        return _plain(x, dt, bmat, cmat, a, h0)
     y, hf, _, _ = _forward(x, dt, bmat, cmat, a, h0, force_route, False)
     return y, hf
 

@@ -81,10 +81,11 @@ def s6_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     and dh_final (B, Di, N) or None: dx in x's dtype, dB and dC in bmat's,
     the rest fp32.  On the card it needs the forward's checkpoints
     (``states``, ``stride``: :func:`.s6_scan.forward_with_states`) and
-    launches ``csrc/s6_scan_bwd.cu``; on CPU tensors it runs the plain
+    launches ``csrc/s6_scan_bwd.cu``; on CPU tensors (and on ``meta``, the
+    dry run's abstract trace) it runs the plain
     :func:`~repro_torch.kernels.ref.s6_scan_bwd_ref` from h0."""
     kind = _check(x, dt, bmat, cmat, a, h0)
-    if kind == "cpu":
+    if kind in ("cpu", "meta"):
         return s6_scan_bwd_ref(x, dt, bmat, cmat, a, h0, dy, dh_final)
     bsz, t, di = x.shape
     n = a.shape[1]

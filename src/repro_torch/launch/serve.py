@@ -4,10 +4,12 @@
         [--smoke] --requests 6 --max-new 16 [--slots 4] [--max-len 256] \
         [--device cpu]
 
-``--arch`` is any architecture the port has (``repro_torch.configs.PORTED``:
-falcon-mamba-7b, gemma2-9b, gemma3-1b, phi3-mini-3.8b, minitron-4b,
+``--arch`` is any decoder-only architecture the port has
+(falcon-mamba-7b, gemma2-9b, gemma3-1b, phi3-mini-3.8b, minitron-4b,
 granite-moe-3b-a800m, mixtral-8x22b, zamba2-1.2b, internvl2-2b; text
-prompts only, as the reference's engine serves them), at its full size
+prompts only, as the reference's engine serves them; seamless-m4t-medium,
+whose decoder needs an encoder's frames, is refused: it serves through
+``build(cfg).prefill`` with ``{"frames", "tokens"}``), at its full size
 or, with ``--smoke``, its SMOKE preset.  Runs on ``cuda:0`` and
 raises without CUDA unless ``--device cpu`` is given.
 Weights are random, from ``torch.Generator(device).manual_seed(0)``, or,
@@ -46,6 +48,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if cfg.family == "encdec":
+        raise SystemExit(f"{cfg.name}: the engine admits text prompts only; "
+                         "an encoder-decoder serves through build(cfg)."
+                         "prefill with frames")
     device = resolve_device(args.device)
     bundle = build(cfg)
     params = bundle.init(0, device)

@@ -1,14 +1,17 @@
 """The reference's parameter tree in the port's modules, and back.
 
-``repro.models.lm.init_params`` returns a nested dict whose per-layer
-arrays are stacked on a leading layer axis (``params["layers"]["ssm"]
+``repro.models.lm.init_params`` (and ``repro.models.encdec.init_params``)
+returns a nested dict whose per-layer arrays are stacked on a leading
+layer axis (``params["layers"]["ssm"]
 ["in_proj"]`` is (L, d, 2·Di), ``params["layers"]["attn"]["wq"]`` (L, d,
 Hq·D)).  :func:`params_from_jax` takes that tree
 with numpy leaves (``np.asarray`` of each jax array; bf16 as ml_dtypes'
 bfloat16) or tensors (the hybrid family's top-level ``shared`` tree and the
 vlm family's ``vis_proj`` included) and builds the port's
-:class:`~repro_torch.models.lm.LM`, splitting the stacked arrays into one
-block per layer.  With it, both packages compute with the same weights.
+:class:`~repro_torch.models.lm.LM` (or, for the encdec family's
+``enc_layers``/``dec_layers`` tree, its
+:class:`~repro_torch.models.encdec.EncDec`), splitting the stacked arrays
+into one block per layer.  With it, both packages compute with the same weights.
 :func:`tree_from_params` is its inverse: it stacks the layers' parameters
 into that tree, and :func:`load_tree` copies such a tree into an existing
 model.  Nothing here imports jax.
@@ -31,7 +34,8 @@ from torch import nn
 from ..core.api import _as_tensor, resolve_device
 from .config import ModelConfig
 from .layers import param
-from .lm import LM, Block, require_ported
+from .encdec import EncDec
+from .lm import LM, Block
 
 SSM_KEYS = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
             "a_log", "d_skip", "out_proj")
@@ -49,9 +53,28 @@ def _attn_keys(cfg: ModelConfig) -> dict[str, tuple[str, ...]]:
 
 
 def layer_keys(cfg: ModelConfig) -> dict[str, tuple[str, ...]]:
-    """The reference's per-layer tree for ``cfg``: {part: its leaf keys}."""
-    require_ported(cfg)
+    """The reference's per-layer tree for ``cfg``: {part: its leaf keys}
+    (for the encdec family, its decoder layer's)."""
+    return stack_keys(cfg)["dec_layers" if cfg.family == "encdec"
+                           else "layers"]
+
+
+def stack_keys(cfg: ModelConfig) -> dict[str, dict[str, tuple[str, ...]]]:
+    """The reference's layer stacks for ``cfg``: {stack: {part: its leaf
+    keys}}: ``layers``, or the encdec family's ``enc_layers`` and
+    ``dec_layers``."""
     norm = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
+    if cfg.family == "encdec":
+        attn = _attn_keys(cfg)
+        return {"enc_layers": attn,
+                "dec_layers": {"norm_self": norm, "self_attn": attn["attn"],
+                               "norm_cross": norm,
+                               "cross_attn": attn["attn"],
+                               "norm_mlp": norm, "mlp": attn["mlp"]}}
+    return {"layers": _lm_layer_keys(cfg, norm)}
+
+
+def _lm_layer_keys(cfg: ModelConfig, norm) -> dict[str, tuple[str, ...]]:
     if cfg.family in ("ssm", "hybrid"):
         return {"norm_ssm": norm,
                 "ssm": SSM_KEYS if cfg.ssm_version == 1 else SSM2_KEYS}
@@ -81,27 +104,46 @@ def _pdict(tree: dict, keys, index=None, device=None) -> nn.ParameterDict:
     return nn.ParameterDict(out)
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
-    """Build an :class:`LM` on ``device`` (default ``cuda:0``; raises
-    without CUDA) from the reference's parameter tree for ``cfg`` (numpy
-    leaves).  Raises on a missing or extra layer key and on a layer axis
-    that is not ``cfg.n_layers`` long."""
-    want = layer_keys(cfg)
-    device = resolve_device(device)
-    layers = tree["layers"]
+def _blocks(tree: dict, stack: str, want: dict, n_layers: int, cfg,
+            device) -> list[Block]:
+    """One :class:`Block` a layer of the stacked tree ``tree[stack]``;
+    raises on a missing or extra key and on a layer axis that is not
+    ``n_layers`` long."""
+    layers = tree[stack]
     got = {part: tuple(sorted(v)) for part, v in layers.items()}
     if got != {part: tuple(sorted(v)) for part, v in want.items()}:
-        raise ValueError(f"params_from_jax: layer keys {got} are not the "
-                         f"{cfg.family} keys {want}")
+        raise ValueError(f"params_from_jax: {stack} layer keys {got} are "
+                         f"not the {cfg.family} keys {want}")
     for part, keys in want.items():
         for k in keys:
             n = layers[part][k].shape[0]
-            if n != cfg.n_layers:
-                raise ValueError(f"params_from_jax: layers/{part}/{k} has "
-                                 f"{n} layers, the config {cfg.n_layers}")
-    blocks = [Block(**{part: _pdict(layers[part], keys, i, device)
-                       for part, keys in want.items()})
-              for i in range(cfg.n_layers)]
+            if n != n_layers:
+                raise ValueError(f"params_from_jax: {stack}/{part}/{k} has "
+                                 f"{n} layers, the config {n_layers}")
+    return [Block(**{part: _pdict(layers[part], keys, i, device)
+                     for part, keys in want.items()})
+            for i in range(n_layers)]
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device=None):
+    """Build an :class:`LM` (an :class:`EncDec` for the encdec family) on
+    ``device`` (default ``cuda:0``; raises without CUDA) from the
+    reference's parameter tree for ``cfg`` (numpy leaves).  Raises on a
+    missing or extra layer key and on a layer axis that is not the
+    config's depth."""
+    device = resolve_device(device)
+    want = stack_keys(cfg)
+    if cfg.family == "encdec":
+        norm = lambda k: _pdict(tree[k], tuple(tree[k]), device=device)
+        return EncDec(
+            _as_tensor(tree["embed"]).to(device),
+            _blocks(tree, "enc_layers", want["enc_layers"], cfg.enc_layers,
+                    cfg, device),
+            _blocks(tree, "dec_layers", want["dec_layers"], cfg.n_layers,
+                    cfg, device),
+            norm("enc_norm"), norm("final_norm"))
+    blocks = _blocks(tree, "layers", want["layers"], cfg.n_layers, cfg,
+                     device)
     skeys = shared_keys(cfg)
     got = {part: tuple(sorted(v)) for part, v in tree.get("shared", {}).items()}
     if got != {part: tuple(sorted(v)) for part, v in (skeys or {}).items()}:
@@ -128,16 +170,26 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> LM:
 # the reference's tree
 # ---------------------------------------------------------------------------
 
-def param_tree(lm: LM) -> dict:
+def _layered(blocks) -> dict:
+    blocks = list(blocks)
+    return {part: {k: [getattr(b, part)[k] for b in blocks]
+                   for k in getattr(blocks[0], part)}
+            for part in blocks[0].parts}
+
+
+def param_tree(lm: LM | EncDec) -> dict:
     """The reference's parameter tree of ``lm`` without copies: top-level
     leaves are the parameters, per-layer leaves lists of the layers'
     parameters in layer order."""
-    blocks = list(lm.layers)
+    if isinstance(lm, EncDec):
+        return {"embed": lm.embed,
+                "enc_layers": _layered(lm.enc_layers),
+                "dec_layers": _layered(lm.dec_layers),
+                "enc_norm": dict(lm.enc_norm.items()),
+                "final_norm": dict(lm.final_norm.items())}
     tree = {"embed": lm.embed,
             "final_norm": dict(lm.final_norm.items()),
-            "layers": {part: {k: [getattr(b, part)[k] for b in blocks]
-                              for k in getattr(blocks[0], part)}
-                       for part in blocks[0].parts}}
+            "layers": _layered(lm.layers)}
     if lm.lm_head is not None:
         tree["lm_head"] = lm.lm_head
     if lm.shared is not None:

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import shardings
 from .config import ModelConfig
 
 
@@ -38,10 +39,20 @@ def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` in an abstract build: the
+    initialisers make tensors on the ``meta`` device (shapes and dtypes, no
+    storage) and draw nothing."""
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, scale: float | None = None,
                dtype=torch.float32) -> torch.Tensor:
     """N(0, 1) · scale (default 1/sqrt(fan_in)) drawn in fp32 on
-    ``gen.device``, then cast to ``dtype``."""
+    ``gen.device``, then cast to ``dtype`` (on ``meta``, from a
+    :class:`MetaGenerator`, an empty tensor of the shape and dtype)."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(tuple(shape), generator=gen, device=gen.device)
@@ -143,7 +154,8 @@ def blockwise_attention(q, k, v, *, mask_fn, block_kv: int = 1024,
                         softcap: float | None = None) -> torch.Tensor:
     """Streaming softmax attention.  q: (B, T, Hq, D), k/v: (B, S, Hkv, D).
 
-    ``mask_fn(t_idx, s_idx) -> bool (T, S_blk)`` gives position validity.
+    ``mask_fn(t_idx, s_idx) -> bool (T, S_blk)`` gives position validity;
+    None, every position is valid (the reference's all-ones mask).
     The query heads of KV head j are j·g … j·g + g − 1 (q reshaped to (B,
     T, Hkv, g, D)).  Scores are softcapped, then masked to -1e30; the KV
     sweep carries the running (max, sum, acc) in fp32 and the output is
@@ -157,8 +169,11 @@ def blockwise_attention(q, k, v, *, mask_fn, block_kv: int = 1024,
     qg = (q.reshape(b, t, hkv, g, d).float() / math.sqrt(d)) \
         .permute(0, 2, 1, 3, 4).reshape(b, hkv, t * g, d)
     t_idx = torch.arange(t, device=q.device)
+    # in place on plain tensors only: a DTensor's scores may be a partial
+    # sum (heads split inside head_dim), which an in-place op cannot reduce
     in_place = not (torch.is_grad_enabled() and any(
-        x.requires_grad for x in (q, k, v)))
+        x.requires_grad for x in (q, k, v))) and \
+        not shardings.is_distributed(q)
     m = torch.full((b, hkv, t, g), float("-inf"), device=q.device)
     l = torch.zeros((b, hkv, t, g), device=q.device)
     acc = torch.zeros((b, hkv, t * g, d), device=q.device)
@@ -167,16 +182,19 @@ def blockwise_attention(q, k, v, *, mask_fn, block_kv: int = 1024,
         kb = _f32(k[:, s0:s1].permute(0, 2, 3, 1))             # (B, Hkv, D, n)
         vb = _f32(v[:, s0:s1].permute(0, 2, 1, 3))             # (B, Hkv, n, D)
         sc = torch.matmul(qg, kb).view(b, hkv, t, g, s1 - s0)
-        valid = mask_fn(t_idx, torch.arange(s0, s1, device=q.device))
+        valid = None if mask_fn is None else \
+            mask_fn(t_idx, torch.arange(s0, s1, device=q.device))
         if in_place:   # one block-sized buffer (a long prefill's scores)
             if softcap:
                 sc = sc.div_(softcap).tanh_().mul_(softcap)
-            sc.masked_fill_(~valid[None, None, :, None, :], MASKED)
+            if valid is not None:
+                sc.masked_fill_(~valid[None, None, :, None, :], MASKED)
             m_new = torch.maximum(m, sc.amax(-1))
             p = sc.sub_(m_new[..., None]).exp_()
         else:
-            sc = _softcap(sc, softcap).masked_fill(
-                ~valid[None, None, :, None, :], MASKED)
+            sc = _softcap(sc, softcap)
+            if valid is not None:
+                sc = sc.masked_fill(~valid[None, None, :, None, :], MASKED)
             m_new = torch.maximum(m, sc.amax(-1))
             p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -213,32 +231,43 @@ def _decode_attention(q, ck, cv, valid, softcap) -> torch.Tensor:
 
 
 def attn_apply(p, h: torch.Tensor, cfg: ModelConfig, *, positions,
-               theta=None, window=None, cache=None, cache_pos=None,
-               ring: bool = False, dtype=None, block_kv: int = 1024):
-    """One causal attention block (no residual or norm: the caller owns
-    those).
+               kind: str = "win", theta=None, window=None, cache=None,
+               cache_pos=None, ring: bool = False, dtype=None,
+               cross_kv=None, block_kv: int = 1024):
+    """One attention block (no residual or norm: the caller owns those).
 
-    ``window`` bounds the lookback (``lm.BIG_WINDOW`` for a global layer,
-    None for none); ``theta`` is the layer's RoPE base.  ``cache``: {k, v}
-    (B, S_c, Hkv, D).  T == 1 with ``cache_pos`` (a scalar or a per-row (B,)
-    tensor) → decode: the token's k/v are written at its slot (``pos %
-    S_c`` when ``ring``, else ``min(pos, S_c - 1)``) and the token attends
-    over the cache.  T > 1 with a cache → prefill: the sequence's k/v fill
-    slots 0 … T − 1 (a shorter ring keeps the last S_c tokens at their ring
-    slots).  Returns (out (B, T, d), the cache or None)."""
+    ``kind``: ``"win"``, causal, ``window`` bounding the lookback
+    (``lm.BIG_WINDOW`` for a global layer, None for none); ``"bidir"``,
+    every query sees every key (an encoder); ``"cross"``, q from ``h``
+    and k/v the given ``cross_kv`` ((B, S, Hkv, D) each: an encoder's
+    memory projected once), with no k-norm.  ``bidir`` and ``cross`` take
+    no RoPE and an all-ones mask, and ``cross`` writes no cache.
+    ``theta`` is the layer's RoPE base.  ``cache``: {k, v} (B, S_c, Hkv,
+    D).  T == 1 with ``cache_pos`` (a scalar or a per-row (B,) tensor) →
+    decode: the token's k/v are written at its slot (``pos % S_c`` when
+    ``ring``, else ``min(pos, S_c - 1)``) and the token attends over the
+    cache.  T > 1 with a cache → prefill: the sequence's k/v fill slots 0 …
+    T − 1 (a shorter ring keeps the last S_c tokens at their ring slots).
+    Returns (out (B, T, d), the cache or None)."""
     dtype = dtype or h.dtype
     b, t, _ = h.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if theta is None:
         theta = cfg.rope_theta
-    q = (h @ p["wq"]).reshape(b, t, hq, hd)
-    k = (h @ p["wk"]).reshape(b, t, hkv, hd)
-    v = (h @ p["wv"]).reshape(b, t, hkv, hd)
+    q = shardings.split_heads((h @ p["wq"]).reshape(b, t, hq, hd), hkv)
+    if kind == "cross":
+        k, v = cross_kv
+        cache = None
+    else:
+        k = shardings.split_heads((h @ p["wk"]).reshape(b, t, hkv, hd), hkv)
+        v = shardings.split_heads((h @ p["wv"]).reshape(b, t, hkv, hd), hkv)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"])
-        k = rms_head_norm(k, p["k_norm"])
-    q = rope(q, positions, theta)
-    k = rope(k, positions, theta)
+        if kind != "cross":
+            k = rms_head_norm(k, p["k_norm"])
+    if kind == "win":
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
 
     if cache is not None and t == 1 and cache_pos is not None:
         ck, cv = cache["k"], cache["v"]
@@ -247,8 +276,8 @@ def attn_apply(p, h: torch.Tensor, cfg: ModelConfig, *, positions,
         cp = cp.expand(b) if cp.dim() == 0 else cp
         slot = cp % s_c if ring else torch.clamp(cp, max=s_c - 1)
         rows = torch.arange(b, device=h.device)
-        ck.index_put_((rows, slot), k[:, 0].to(ck.dtype))
-        cv.index_put_((rows, slot), v[:, 0].to(cv.dtype))
+        shardings.put_rows(ck, (rows, slot), k[:, 0].to(ck.dtype))
+        shardings.put_rows(cv, (rows, slot), v[:, 0].to(cv.dtype))
         idx = torch.arange(s_c, device=h.device)
         valid = idx[None, :] < torch.clamp(cp + 1, max=s_c)[:, None]
         if ring:
@@ -256,29 +285,41 @@ def attn_apply(p, h: torch.Tensor, cfg: ModelConfig, *, positions,
         elif window is not None:
             # a linear cache: the slot index is the absolute position
             valid = valid & ((cp[:, None] - idx[None, :]) < window)
-        out = _decode_attention(q, ck, cv, valid, cfg.attn_softcap)
+        out = shardings.local_heads(
+            lambda q_, k_, v_, ok: _decode_attention(q_, k_, v_, ok,
+                                                     cfg.attn_softcap),
+            q, (ck, cv), (valid,), hkv, out_dim=2)
         return out.to(dtype) @ p["wo"], cache
 
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         s_c = ck.shape[1]
         if s_c >= t:
-            ck[:, :t] = k.to(ck.dtype)
-            cv[:, :t] = v.to(cv.dtype)
+            shardings.put_prefix(ck, k.to(ck.dtype))
+            shardings.put_prefix(cv, v.to(cv.dtype))
         else:   # ring: the last s_c tokens at their ring slots
             slots = torch.arange(t - s_c, t, device=h.device) % s_c
-            ck[:, slots] = k[:, t - s_c:].to(ck.dtype)
-            cv[:, slots] = v[:, t - s_c:].to(cv.dtype)
+            shardings.put_slots(ck, slots, k[:, t - s_c:].to(ck.dtype))
+            shardings.put_slots(cv, slots, v[:, t - s_c:].to(cv.dtype))
 
-    if window is not None:
+    if kind != "win":
+        mask_fn = None
+    elif window is not None:
         mask_fn = lambda ti, si: (si[None, :] <= ti[:, None]) & \
             ((ti[:, None] - si[None, :]) < window)
     else:
         mask_fn = lambda ti, si: si[None, :] <= ti[:, None]
-    # (the reference's gqa_expand_kv and seq_shard_attn are sharding
-    # layouts of the same values: nothing to do on one device)
-    out = blockwise_attention(q, k, v, mask_fn=mask_fn, block_kv=block_kv,
-                              softcap=cfg.attn_softcap)
+    if cfg.seq_shard_attn and t > 1:
+        # context parallelism on a mesh: queries sharded over 'model' on T
+        q = shardings.constrain(q, (("pod", "data"), "model", None, None))
+        k = shardings.constrain(k, (("pod", "data"), None, None, None))
+        v = shardings.constrain(v, (("pod", "data"), None, None, None))
+    # (the reference's gqa_expand_kv is a sharding layout of the same
+    # values: nothing to do on one device)
+    out = shardings.local_heads(
+        lambda q_, k_, v_: blockwise_attention(
+            q_, k_, v_, mask_fn=mask_fn, block_kv=block_kv,
+            softcap=cfg.attn_softcap), q, (k, v), (), hkv, out_dim=2)
     return out.reshape(b, t, hq * hd).to(dtype) @ p["wo"], cache
 
 

@@ -35,10 +35,8 @@ as the reference wraps its layer body in ``jax.checkpoint``.  The
 parameters' gradients reach the S6 scan through its autograd Function,
 whose backward is a hand-written kernel on the card.  The loss of the
 dense, moe, hybrid and vlm families is held to the reference on the CPU;
-training them on the card is a later slice.
-
-The encdec family raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1
-item 11.4).
+training them on the card is a later slice.  The encdec family lives in
+``encdec.py`` and shares this module's head (:func:`logits_from_hidden`).
 """
 
 from __future__ import annotations
@@ -50,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.api import resolve_device
+from . import shardings
 from .config import ATTN_LOCAL, ModelConfig
 from .layers import (attn_apply, attn_init, dense_init, mlp_apply, mlp_init,
                      norm_apply, norm_init, param)
@@ -62,22 +61,6 @@ BIG_WINDOW = 1 << 30
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Admit the families the port has: dense, moe and vlm (attention
-    stacks, experts where ``cfg.n_experts``), Mamba-1 ssm and Mamba-2
-    hybrid."""
-    if cfg.family in ("dense", "moe", "vlm"):
-        if (cfg.family == "moe") == bool(cfg.n_experts):
-            return
-    if (cfg.family, cfg.ssm_version) in (("ssm", 1), ("hybrid", 2)):
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} (ssm_version {cfg.ssm_version}, "
-        f"{cfg.n_experts} experts) is not ported; repro_torch has the dense, "
-        "moe, vlm, Mamba-1 ssm and Mamba-2 hybrid families (ROADMAP.md "
-        "Queue 1 item 11.4)")
 
 
 def state_keys(cfg: ModelConfig) -> tuple[str, ...]:
@@ -126,7 +109,6 @@ class LM(nn.Module):
 # ---------------------------------------------------------------------------
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig) -> Block:
-    require_ported(cfg)
     dtype, dev = _dt(cfg), gen.device
     if cfg.family in ("ssm", "hybrid"):
         init = mamba1_init if cfg.ssm_version == 1 else mamba2_init
@@ -147,7 +129,6 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig) -> Block:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
     """Random parameters drawn from ``gen``, on its device."""
-    require_ported(cfg)
     dtype, dev = _dt(cfg), gen.device
     embed = dense_init(gen, (cfg.vocab_padded, cfg.d_model),
                        scale=cfg.d_model ** -0.5, dtype=dtype)
@@ -174,12 +155,13 @@ def embed_tokens(params: LM, cfg: ModelConfig, tokens,
                  patches=None) -> torch.Tensor:
     """The tokens' embeddings; for the vlm family with ``patches`` (B, Np,
     d), ``patches @ vis_proj`` in the model's dtype placed before them."""
-    h = params.embed[tokens].to(_dt(cfg))
+    h = shardings.take_rows(params.embed, tokens).to(_dt(cfg))
     if cfg.embed_scale:
         h = h * math.sqrt(cfg.d_model)
     if cfg.family == "vlm" and patches is not None:
-        vis = torch.as_tensor(patches, device=h.device).to(_dt(cfg)) \
-            @ params.vis_proj
+        if not shardings.is_distributed(patches):
+            patches = torch.as_tensor(patches, device=h.device)
+        vis = patches.to(_dt(cfg)) @ params.vis_proj
         h = torch.cat([vis, h], dim=1)
     return h
 
@@ -279,8 +261,7 @@ def forward_hidden(params: LM, cfg: ModelConfig, tokens, *, patches=None,
     sliding-window models).  Without a cache, under grad and with
     ``cfg.remat``, each layer is checkpointed: only its input is kept, and
     the backward recomputes it."""
-    require_ported(cfg)
-    h = embed_tokens(params, cfg, tokens, patches)
+    h = shardings.constrain_batch(embed_tokens(params, cfg, tokens, patches))
     remat = cache is None and cfg.remat and torch.is_grad_enabled()
     if cfg.family == "ssm":     # no attention: positions unread
         return _forward_ssm(params, cfg, h, None, cache, None, remat)
@@ -294,6 +275,9 @@ def forward_hidden(params: LM, cfg: ModelConfig, tokens, *, patches=None,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, (layer, (window, theta)) in enumerate(
             zip(params.layers, layer_schedule(cfg))):
+        if cfg.seq_shard_residual and t > 1:
+            # sequence-parallel residual stream on a mesh
+            h = shardings.constrain(h, (("pod", "data"), "model", None))
         if remat:
             h, aux_l = checkpoint(_dense_block, layer, h, cfg, positions,
                                   window, theta, use_reentrant=False)
@@ -373,7 +357,7 @@ def lm_loss(params: LM, cfg: ModelConfig, batch):
         h = h[:, patches.shape[1]:]
     logits = logits_from_hidden(params, cfg, h)
     lse = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(-1, labels[..., None].long())[..., 0]
+    label_logit = shardings.pick_last(logits, labels)
     nll = lse - label_logit
     loss = nll.mean() + aux
     return loss, {"nll": nll.mean(), "aux": aux}
@@ -421,8 +405,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
     (:func:`cache_len` of it); a state-space layer's state does not depend
     on it.  The hybrid family keeps a KV cache for every layer, as the
     reference does, though only the shared block's sites write theirs."""
-    require_ported(cfg)
-    device = resolve_device(device)
+    device = resolve_device(device, allow_meta=True)
     l, dtype = cfg.n_layers, _dt(cfg)
     c = {}
     if cfg.family in ("ssm", "hybrid"):

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import shardings
 from .config import ModelConfig
 from .layers import dense_init, param
 
@@ -117,17 +118,21 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig):
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(t, cfg)
-    buf, (dest, stok, sp, keep), (probs, top_e) = _dispatch_group(
-        x, p["router"], e, k, cap)
+    buf, (dest, stok, sp, keep), (probs, top_e) = shardings.local_rows(
+        lambda x_, r_: _dispatch_group(x_, r_, e, k, cap), (x,),
+        (p["router"],))
+    # re-pin the group dim on a mesh, so the expert GEMMs stay data-parallel
+    buf = shardings.constrain_batch(buf)
 
-    frac = torch.zeros((e,), dtype=torch.float32, device=x.device) \
-        .scatter_add_(0, top_e.reshape(-1),
-                      torch.ones((b * t * k,), dtype=torch.float32,
-                                 device=x.device)) / (b * t * k)
+    frac = shardings.value_counts(top_e, e) / (b * t * k)
     aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean((0, 1)))
     if _DROPS is not None:
         _DROPS.append((~keep).sum())
-    return _ffn_combine(p, buf, dest, stok, sp, keep, t, k), aux
+    if cfg.moe_capacity_sharding:
+        # capacity-sharded TP on a mesh: slots split over 'model'
+        buf = shardings.constrain(buf, (("pod", "data"), None, "model", None))
+    y = _ffn_combine(p, buf, dest, stok, sp, keep, t, k)
+    return shardings.constrain_batch(y), aux
 
 
 def _ffn_combine(p, buf, dest, stok, sp, keep, t: int, k: int):

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
+from . import shardings
 from .config import ModelConfig
 from .layers import dense_init, param
 
@@ -84,19 +85,21 @@ def mamba1_apply(p, h: torch.Tensor, cfg: ModelConfig, *, cache=None):
     n = cfg.ssm_state
     dt_rank = p["dt_proj"].shape[0]
     xz = h @ p["in_proj"]
-    x, z = xz.chunk(2, dim=-1)
+    x, z = shardings.chunk_last(xz, 2)
     conv_state = cache["conv"] if cache is not None else None
-    x, new_conv = _causal_conv(x, p["conv_w"], p["conv_b"], conv_state)
+    x, new_conv = shardings.local_channels(
+        _causal_conv, x, conv_state, p["conv_w"], p["conv_b"])
     x = F.silu(x)
 
-    proj = x @ p["x_proj"]
+    proj = shardings.whole(x @ p["x_proj"])
     # bmat and cmat stay column views of proj: the kernel takes their strides
     dt_in, bmat, cmat = proj.split([dt_rank, n, n], dim=-1)
     dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"])     # fp32
     a = -torch.exp(p["a_log"])
 
-    y, h_fin = kernels.s6_scan(x, dt, bmat, cmat, a,
-                               cache["ssm"] if cache is not None else None)
+    y, h_fin = shardings.local_scan(
+        kernels.s6_scan, x, dt, bmat, cmat, a,
+        cache["ssm"] if cache is not None else None)
     new_cache = {"conv": new_conv, "ssm": h_fin} if cache is not None else None
 
     y = y.to(h.dtype) + x * p["d_skip"].to(h.dtype)
@@ -194,12 +197,13 @@ def mamba2_apply(p, h: torch.Tensor, cfg: ModelConfig, *, cache=None):
     bsz, t, _ = h.shape
     di, nh, pdim = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     xz = h @ p["in_proj"]
-    x, z = xz.chunk(2, dim=-1)
+    x, z = shardings.chunk_last(xz, 2)
     conv_state = cache["conv"] if cache is not None else None
-    x, new_conv = _causal_conv(x, p["conv_w"], p["conv_b"], conv_state)
+    x, new_conv = shardings.local_channels(
+        _causal_conv, x, conv_state, p["conv_w"], p["conv_b"])
     x = F.silu(x)
 
-    bmat, cmat = (h @ p["bc_proj"]).chunk(2, dim=-1)
+    bmat, cmat = shardings.chunk_last(h @ p["bc_proj"], 2)
     dt = F.softplus(h @ p["dt_proj"] + p["dt_bias"])         # (B, T, H) fp32
     a = -torch.exp(p["a_log"])
     xh = x.reshape(bsz, t, nh, pdim)
@@ -212,8 +216,13 @@ def mamba2_apply(p, h: torch.Tensor, cfg: ModelConfig, *, cache=None):
         y = torch.einsum("bn,bhpn->bhp", cmat[:, 0].float(), hnew)[:, None]
         new_cache = {"conv": new_conv, "ssm": hnew}
     else:
-        y, h_fin = _ssd_scan(xh, dt, bmat, cmat, a, cfg.ssm_chunk,
-                             h0=cache["ssm"] if cache is not None else None)
+        h0 = cache["ssm"] if cache is not None else None
+        # (rows independent: on a mesh each device scans its own rows)
+        y, h_fin = shardings.local_rows(
+            lambda x_, d_, b_, c_, *h_: _ssd_scan(
+                x_, d_, b_, c_, h_[-1], cfg.ssm_chunk,
+                h0=h_[0] if len(h_) == 2 else None),
+            (xh, dt, bmat, cmat) + (() if h0 is None else (h0,)), (a,))
         new_cache = ({"conv": new_conv, "ssm": h_fin} if cache is not None
                      else None)
 

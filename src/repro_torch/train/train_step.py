@@ -23,6 +23,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..models import shardings
 from ..models.convert import map_leaves, param_tree
 from ..models.lm import LM
 from ..models.registry import ModelBundle
@@ -79,8 +80,10 @@ def _accumulate_grads(loss_fn, params: LM, batch: dict, n_micro: int):
         raise ValueError(f"batch {b} does not split into {n_micro} microbatches")
     acc, macc = None, None
     for i in range(n_micro):
-        mb = {k: v[i * (b // n_micro):(i + 1) * (b // n_micro)]
-              for k, v in batch.items()}
+        # each slice re-pinned to the data axes on a mesh, as the
+        # reference's scan re-pins its microbatches
+        mb = {k: shardings.constrain_batch(
+            shardings.micro_batch(v, i, n_micro)) for k, v in batch.items()}
         loss, metrics = loss_fn(params, mb)
         loss.backward()
         g = _grads(params, True)
