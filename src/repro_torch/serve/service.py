@@ -163,6 +163,7 @@ _ROUTES = ("fused", "isolated", "probe")
 _HEARTBEAT_S = 1.0
 _FORCED = ("service stopped with force=True; request was abandoned before "
            "completing")
+_WORKER_DIED = "service worker died; request was never executed"
 
 
 class RejectedError(RuntimeError):
@@ -561,6 +562,13 @@ class TuckerService:
                     if rid in self._orphans:
                         # rank 0's decision on this rid came before it
                         job.error = self._orphans.pop(rid)
+                    elif self._chan is not None and self._worker_failed \
+                            and not self._running:
+                        # a mesh worker that died follows no decision and
+                        # its peers may be gone: fail the request as the
+                        # dying worker failed the queued ones
+                        job.error = ResourceError(_WORKER_DIED)
+                    if job.error is not None:
                         bs.metrics.failed += 1
                         self._counters["failed"] += 1
                         job.event.set()
@@ -1497,7 +1505,7 @@ class TuckerService:
                 elif self._running:   # left the loop on an unexpected error
                     self._running = False
                     self._worker_failed = True
-                    reason = "service worker died; request was never executed"
+                    reason = _WORKER_DIED
                     if died is not None:
                         reason += f" (worker failure: {died!r})"
                     self._abandon_unfinished_locked(reason)

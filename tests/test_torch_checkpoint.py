@@ -46,14 +46,6 @@ R_SMOKE = R_configs.get_smoke("falcon-mamba-7b")
 SMALL = dict(min_size=4096)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def sample_tree(seed=0):
     g = torch.Generator().manual_seed(seed)
     return {"w": torch.randn((3, 4, 5), generator=g),

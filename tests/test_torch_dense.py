@@ -18,6 +18,11 @@ Tolerances (fp32; the two sum in different orders):
     frequency and the rounding of the angle allow, (|x1| + |x2|) · p · 2^-22
     per entry at position p;
   * the KV cache: 1e-5 absolute (k and v of order 1).
+
+This file holds the configs, attention, RoPE, the MLPs and the checkpoint;
+``test_torch_dense_model.py`` the model and the serve engine,
+``test_torch_dense_decode.py`` prefill and decode on the cache.  The helpers
+are ``lm_parity.py``'s.
 """
 
 import dataclasses
@@ -27,88 +32,28 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from lm_parity import (ACT_TOL, close, model_fixture, ref_tree, rng_normal,
+                       smoke, tokens)
 
 from repro import configs as R_configs
 from repro.checkpoint.checkpointer import Checkpointer as R_Checkpointer
 from repro.models import layers as R_layers
 from repro.models import lm as R_lm
-from repro.models import registry as R_registry
-from repro.serve.engine import Request as R_Request
-from repro.serve.engine import ServeEngine as R_ServeEngine
 from repro_torch import configs
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.launch import serve as serve_cli
 from repro_torch.models import build, layers, lm
-from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import (leaves, load_tree, params_from_jax,
                                         tree_from_params)
 from repro_torch.optim.grad_compress import CompressionConfig
-from repro_torch.serve.engine import Request, ServeEngine
 from torch_parity import to_np
 
 ARCHS = ("gemma2-9b", "gemma3-1b", "phi3-mini-3.8b", "minitron-4b")
-LOGIT_TOL = 1e-4
-ACT_TOL = 1e-5
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def smoke(arch, **kw):
-    """The port's SMOKE config of ``arch`` and the reference's, with
-    ``kw`` replaced in both."""
-    return (configs.get_smoke(arch).with_(**kw),
-            R_configs.get_smoke(arch).with_(**kw))
-
-
-def ref_tree(rcfg, seed=0):
-    return jax.tree.map(np.asarray,
-                        R_lm.init_params(jax.random.PRNGKey(seed), rcfg))
-
-
-@pytest.fixture(scope="module", params=ARCHS)
-def model(request):
-    """(arch, port cfg, reference cfg, reference numpy tree, port LM)."""
-    cfg, rcfg = smoke(request.param)
-    rp = ref_tree(rcfg)
-    return request.param, cfg, rcfg, rp, params_from_jax(rp, cfg,
-                                                         device="cpu")
-
-
-@pytest.fixture(scope="module", params=("gemma2-9b", "gemma3-1b"))
-def ring_model(request):
-    """A windowed SMOKE made all-local (local_global_pattern (1, 0)), whose
-    cache is its window: a ring buffer written at pos % S_c."""
-    cfg, rcfg = smoke(request.param, local_global_pattern=(1, 0))
-    rp = ref_tree(rcfg)
-    return request.param, cfg, rcfg, rp, params_from_jax(rp, cfg,
-                                                         device="cpu")
-
-
-def tokens(cfg, b, t, seed=0):
-    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, t))
-
-
-def scaled_close(got, want, tol=LOGIT_TOL):
-    got, want = to_np(got), np.asarray(want, np.float64)
-    scale = np.abs(want).max()
-    assert np.abs(got - want).max() <= tol * scale, \
-        (np.abs(got - want).max(), scale)
-
-
-def close(got, want, atol=ACT_TOL):
-    np.testing.assert_allclose(to_np(got), np.asarray(want, np.float64),
-                               rtol=0, atol=atol)
-
-
-def rng_normal(shape, seed):
-    return np.random.default_rng(seed).standard_normal(shape) \
-        .astype(np.float32)
+model = model_fixture(ARCHS)
+# a windowed SMOKE made all-local (local_global_pattern (1, 0)), whose cache
+# is its window: a ring buffer written at pos % S_c
+ring_model = model_fixture(("gemma2-9b", "gemma3-1b"), name="ring_model",
+                           local_global_pattern=(1, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -301,171 +246,8 @@ class TestMLP:
 
 
 # ---------------------------------------------------------------------------
-# the model
+# checkpoints
 # ---------------------------------------------------------------------------
-
-class TestModel:
-    def test_init_shapes_match_reference(self, model):
-        arch, cfg, rcfg, rp, _ = model
-        mine = lm.init_params(torch.Generator().manual_seed(0), cfg)
-        theirs = dict(leaves(rp))
-        got = {p: tuple(v.shape) for p, v in leaves(tree_from_params(mine))}
-        assert got == {p: v.shape for p, v in theirs.items()}
-        assert not any(p.requires_grad for p in mine.parameters())
-
-    def test_params_from_jax_splits_the_layer_axis(self, model):
-        _, cfg, _, rp, pp = model
-        for path, v in leaves(tree_from_params(pp)):
-            np.testing.assert_array_equal(to_np(v), dict(leaves(rp))[path])
-
-    def test_params_from_jax_refuses_other_keys(self, model):
-        _, cfg, _, rp, _ = model
-        bad = jax.tree.map(lambda v: v, rp)
-        bad["layers"]["attn"]["extra"] = bad["layers"]["attn"]["wq"]
-        with pytest.raises(ValueError, match="layer keys"):
-            params_from_jax(bad, cfg, device="cpu")
-
-    def test_forward_hidden_and_logits(self, model):
-        _, cfg, rcfg, rp, pp = model
-        tok = tokens(cfg, 2, 19)
-        rh, _, _ = R_lm.forward_hidden(rp, rcfg, jnp.asarray(tok))
-        with torch.no_grad():
-            h, _, aux = lm.forward_hidden(pp, cfg, torch.from_numpy(tok))
-            logits = lm.logits_from_hidden(pp, cfg, h)
-        scaled_close(h, rh)
-        scaled_close(logits, R_lm.logits_from_hidden(rp, rcfg, rh))
-        assert float(aux) == 0.0
-
-    def test_lm_loss_value(self, model):
-        _, cfg, rcfg, rp, pp = model
-        tok = tokens(cfg, 2, 17, seed=3)
-        (want, wm) = R_lm.lm_loss(rp, rcfg, {"tokens": jnp.asarray(tok)})
-        with torch.no_grad():
-            got, m = build(cfg).loss(pp, {"tokens": torch.from_numpy(tok)})
-        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
-        assert abs(float(m["nll"]) - float(wm["nll"])) <= \
-            1e-5 * abs(float(wm["nll"]))
-
-    def test_lm_loss_gradient_reaches_every_parameter(self, model):
-        _, cfg, _, _, pp = model
-        pp = lm.init_params(torch.Generator().manual_seed(1), cfg)
-        for p in pp.parameters():
-            p.requires_grad_(True)
-        loss, _ = lm.lm_loss(pp, cfg, {"tokens": torch.from_numpy(
-            tokens(cfg, 1, 9))})
-        loss.backward()
-        assert all(p.grad is not None and torch.isfinite(p.grad).all()
-                   for p in pp.parameters())
-
-    def test_prefill_then_decode_against_both(self, model):
-        """The registry's prefill (13 tokens) and 8 decode steps at
-        per-slot positions: logits against the reference's prefill and
-        decode_step, and against the port's own no-cache forward over the
-        whole sequence; the caches against each other."""
-        self.against_both(model)
-
-    def test_ring_prefill_then_decode_against_both(self, ring_model):
-        """The same with a ring cache (the registry's ring rule: the cache
-        of 8 is shorter than the 24 the decode is told)."""
-        assert lm.cache_len(ring_model[1], 24) == 8
-        self.against_both(ring_model)
-
-    @staticmethod
-    def against_both(model):
-        arch, cfg, rcfg, rp, pp = model
-        b, rb = build(cfg), R_registry.build(rcfg)
-        total, t0 = 24, 13
-        tok = tokens(cfg, 2, 21, seed=5)
-        rcache = rb.init_cache(2, total)
-        pcache = b.init_cache(2, total, device="cpu")
-        rl, rcache = rb.prefill(rp, {"tokens": jnp.asarray(tok[:, :t0])},
-                                rcache)
-        with torch.no_grad():
-            pl, pcache = b.prefill(pp, {"tokens": torch.from_numpy(
-                tok[:, :t0])}, pcache)
-            full = lm.logits_from_hidden(pp, cfg, lm.forward_hidden(
-                pp, cfg, torch.from_numpy(tok))[0])
-        scaled_close(pl, rl)
-        scaled_close(pl[:, 0], full[:, t0 - 1])
-        for s in range(t0, 21):
-            pos = np.array([s, s])
-            rl, rcache = rb.decode(rp, jnp.asarray(tok[:, s:s + 1]), rcache,
-                                   jnp.asarray(pos, jnp.int32), total)
-            with torch.no_grad():
-                pl, pcache = b.decode(pp, torch.from_numpy(tok[:, s:s + 1]),
-                                      pcache, torch.from_numpy(pos), total)
-            scaled_close(pl, rl)
-            scaled_close(pl[:, 0], full[:, s])
-        close(pcache["k"], rcache["k"])
-        close(pcache["v"], rcache["v"])
-
-
-# ---------------------------------------------------------------------------
-# serving and checkpoints
-# ---------------------------------------------------------------------------
-
-class TestServe:
-    @pytest.mark.parametrize("ring", [False, True], ids=["linear", "ring"])
-    def test_greedy_tokens_match_reference_engine(self, ring):
-        """gemma2's SMOKE (window 8; ``ring``: all-local, a ring cache of
-        8) on 2 slots, 3 requests, prompts past the window: the refilled
-        slot's stale tail is masked alike."""
-        kw = {"local_global_pattern": (1, 0)} if ring else {}
-        cfg, rcfg = smoke("gemma2-9b", **kw)
-        rp = ref_tree(rcfg, seed=2)
-        pp = params_from_jax(rp, cfg, device="cpu")
-        prompts = [list(tokens(cfg, 1, n, seed=n)[0]) for n in (3, 11, 6)]
-        ref = R_ServeEngine(R_registry.build(rcfg), rp, batch_slots=2,
-                            max_len=24).run(
-            [R_Request(prompt=p, max_new_tokens=6, rid=i)
-             for i, p in enumerate(prompts)])
-        eng = ServeEngine(build(cfg), pp, batch_slots=2, max_len=24)
-        got = eng.run([Request(prompt=p, max_new_tokens=6, rid=i)
-                       for i, p in enumerate(prompts)])
-        assert [r.output for r in got] == [r.output for r in ref]
-
-    def test_admission_writes_the_cache_in_place(self):
-        cfg, _ = smoke("gemma3-1b")
-        b = build(cfg)
-        pp = b.init(0, "cpu")
-        eng = ServeEngine(b, pp, batch_slots=3, max_len=20)
-        ptrs = {k: v.data_ptr() for k, v in eng.cache.items()}
-        prompt = list(tokens(cfg, 1, 7)[0])
-        eng._admit(Request(prompt=prompt, max_new_tokens=2), slot=1)
-        fresh = b.init_cache(1, 20, device="cpu")
-        with torch.no_grad():
-            b.prefill(pp, {"tokens": torch.tensor([prompt])}, fresh)
-        assert {k: v.data_ptr() for k, v in eng.cache.items()} == ptrs
-        for k in ("k", "v"):
-            assert torch.equal(eng.cache[k][:, 1:2, :7], fresh[k][:, :, :7])
-            assert not eng.cache[k][:, 0].any() and not eng.cache[k][:, 2].any()
-
-    @pytest.mark.parametrize("arch", ARCHS)
-    def test_launcher_on_cpu(self, arch, capsys):
-        outs = serve_cli.main(["--arch", arch, "--smoke", "--requests", "3",
-                               "--max-new", "4", "--max-len", "32",
-                               "--device", "cpu"])
-        assert len(outs) == 3 and all(len(r.output) == 4 for r in outs)
-        assert "tokens in" in capsys.readouterr().out
-
-
-    def test_launcher_serves_a_restored_checkpoint(self, tmp_path, capsys):
-        """``--ckpt``: the saved weights, not the seed's, serve."""
-        cfg, _ = smoke("gemma3-1b")
-        b = build(cfg)
-        saved = b.init(7, "cpu")
-        Checkpointer(tmp_path).save(4, tree_from_params(saved),
-                                    blocking=True)
-        outs = serve_cli.main(["--arch", "gemma3-1b", "--smoke",
-                               "--requests", "2", "--max-new", "4",
-                               "--max-len", "32", "--device", "cpu",
-                               "--ckpt", str(tmp_path)])
-        assert "restored params at step 4" in capsys.readouterr().out
-        want = ServeEngine(b, saved, batch_slots=4, max_len=32).run(
-            [Request(prompt=[1 + i, 2, 3, 4 + i], max_new_tokens=4, rid=i)
-             for i in range(2)])
-        assert [r.output for r in outs] == [r.output for r in want]
-
 
 class TestCheckpoint:
     @pytest.mark.parametrize("writer", ["port", "reference"])

@@ -84,14 +84,20 @@ def lite_runs():
                                  stderr=subprocess.PIPE, text=True)
              for a in LITE}
     out = {}
-    for a, p in procs.items():
-        try:
-            o, e = p.communicate(timeout=240)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            o, e = p.communicate()
-            e = "timed out after 240 s\n" + e
-        out[a] = (p.returncode, o, e)
+    try:
+        for a, p in procs.items():
+            try:
+                o, e = p.communicate(timeout=240)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                o, e = p.communicate(timeout=30)
+                e = "timed out after 240 s\n" + e
+            out[a] = (p.returncode, o, e)
+    finally:   # a failed wait leaves no process behind
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
     return out
 
 

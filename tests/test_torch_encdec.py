@@ -41,14 +41,6 @@ LOGIT_TOL = 1e-4
 CACHE_TOL = 1e-5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def model():
     cfg, rcfg = configs.get_smoke(ARCH), R_configs.get_smoke(ARCH)

@@ -43,14 +43,6 @@ LOGIT_TOL = 1e-4
 SCAN_TOL = 1e-5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def ref_tree(rcfg, seed=0):
     return jax.tree.map(np.asarray,
                         R_lm.init_params(jax.random.PRNGKey(seed), rcfg))

@@ -19,6 +19,11 @@ Tolerances (fp32; the two sum in different orders):
   * integer routing (the top-k experts, the sorted order, each entry's
     destination and whether it is kept): equal;
   * the dispatch buffer: equal (it holds copies of the inputs).
+
+This file holds the configs, routing and dispatch, and the checkpoint;
+``test_torch_moe_model.py`` the model and the serve engine,
+``test_torch_moe_decode.py`` prefill and per-slot decode on the cache.  The
+helpers are ``lm_parity.py``'s.
 """
 
 import dataclasses
@@ -28,75 +33,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from lm_parity import (ACT_TOL, close, model_fixture, rng_normal,
+                       scaled_close, smoke, tokens)
 
 from repro import configs as R_configs
 from repro.checkpoint.checkpointer import Checkpointer as R_Checkpointer
 from repro.models import lm as R_lm
 from repro.models import moe as R_moe
-from repro.models import registry as R_registry
-from repro.serve.engine import Request as R_Request
-from repro.serve.engine import ServeEngine as R_ServeEngine
 from repro_torch import configs
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.launch import serve as serve_cli
 from repro_torch.models import build, lm, moe
-from repro_torch.models.convert import (layer_keys, leaves, load_tree,
-                                        params_from_jax, tree_from_params)
+from repro_torch.models.convert import (leaves, load_tree, params_from_jax,
+                                        tree_from_params)
 from repro_torch.optim.grad_compress import CompressionConfig
-from repro_torch.serve.engine import Request, ServeEngine
-from torch_parity import to_np
 
 ARCHS = ("granite-moe-3b-a800m", "mixtral-8x22b")
-LOGIT_TOL = 1e-4
-ACT_TOL = 1e-5
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def smoke(arch, **kw):
-    return (configs.get_smoke(arch).with_(**kw),
-            R_configs.get_smoke(arch).with_(**kw))
-
-
-def ref_tree(rcfg, seed=0):
-    return jax.tree.map(np.asarray,
-                        R_lm.init_params(jax.random.PRNGKey(seed), rcfg))
-
-
-@pytest.fixture(scope="module", params=ARCHS)
-def model(request):
-    """(arch, port cfg, reference cfg, reference numpy tree, port LM)."""
-    cfg, rcfg = smoke(request.param)
-    rp = ref_tree(rcfg)
-    return request.param, cfg, rcfg, rp, params_from_jax(rp, cfg,
-                                                         device="cpu")
-
-
-def tokens(cfg, b, t, seed=0):
-    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, t))
-
-
-def rng_normal(shape, seed):
-    return np.random.default_rng(seed).standard_normal(shape) \
-        .astype(np.float32)
-
-
-def scaled_close(got, want, tol=LOGIT_TOL):
-    got, want = to_np(got), np.asarray(want, np.float64)
-    scale = np.abs(want).max()
-    assert np.abs(got - want).max() <= tol * scale, \
-        (np.abs(got - want).max(), scale)
-
-
-def close(got, want, atol=ACT_TOL):
-    np.testing.assert_allclose(to_np(got), np.asarray(want, np.float64),
-                               rtol=0, atol=atol)
+model = model_fixture(ARCHS)
 
 
 def layer0_moe(rp, pp):
@@ -278,169 +231,8 @@ class TestDispatch:
 
 
 # ---------------------------------------------------------------------------
-# the model
+# checkpoints
 # ---------------------------------------------------------------------------
-
-class TestModel:
-    def test_init_shapes_match_reference(self, model):
-        _, cfg, _, rp, _ = model
-        mine = lm.init_params(torch.Generator().manual_seed(0), cfg)
-        got = {p: tuple(v.shape) for p, v in leaves(tree_from_params(mine))}
-        assert got == {p: v.shape for p, v in leaves(rp)}
-        assert mine.layers[0].moe["router"].dtype == torch.float32
-        assert "mlp" not in mine.layers[0].parts
-
-    def test_params_from_jax_splits_the_layer_axis(self, model):
-        _, cfg, _, rp, pp = model
-        assert set(layer_keys(cfg)["moe"]) == set(rp["layers"]["moe"])
-        for path, v in leaves(tree_from_params(pp)):
-            np.testing.assert_array_equal(to_np(v), dict(leaves(rp))[path])
-
-    def test_params_from_jax_refuses_a_dense_tree(self, model):
-        _, cfg, _, rp, _ = model
-        bad = jax.tree.map(lambda v: v, rp)
-        bad["layers"]["mlp"] = bad["layers"].pop("moe")
-        with pytest.raises(ValueError, match="layer keys"):
-            params_from_jax(bad, cfg, device="cpu")
-
-    def test_forward_hidden_logits_and_aux(self, model):
-        _, cfg, rcfg, rp, pp = model
-        tok = tokens(cfg, 2, 29)
-        rh, _, raux = R_lm.forward_hidden(rp, rcfg, jnp.asarray(tok))
-        with torch.no_grad():
-            h, _, aux = lm.forward_hidden(pp, cfg, torch.from_numpy(tok))
-            logits = lm.logits_from_hidden(pp, cfg, h)
-        scaled_close(h, rh)
-        scaled_close(logits, R_lm.logits_from_hidden(rp, rcfg, rh))
-        assert float(aux) > 0
-        assert abs(float(aux) - float(raux)) <= ACT_TOL
-
-    @pytest.mark.parametrize("cf", [None, 0.5], ids=["smoke_cf", "dropping"])
-    def test_lm_loss_with_aux(self, model, cf):
-        _, cfg, rcfg, rp, pp = model
-        if cf is not None:
-            cfg, rcfg = cfg.with_(capacity_factor=cf), rcfg.with_(
-                capacity_factor=cf)
-        tok = tokens(cfg, 2, 17, seed=3)
-        want, wm = R_lm.lm_loss(rp, rcfg, {"tokens": jnp.asarray(tok)})
-        with torch.no_grad():
-            got, m = build(cfg).loss(pp, {"tokens": torch.from_numpy(tok)})
-        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
-        assert abs(float(m["aux"]) - float(wm["aux"])) <= ACT_TOL
-        assert float(m["aux"]) > 0
-        assert abs(float(got) - float(m["nll"]) - float(m["aux"])) <= 1e-6
-
-    def test_lm_loss_gradient_reaches_every_parameter(self, model):
-        _, cfg, _, _, _ = model
-        pp = lm.init_params(torch.Generator().manual_seed(1), cfg)
-        for p in pp.parameters():
-            p.requires_grad_(True)
-        loss, _ = lm.lm_loss(pp, cfg, {"tokens": torch.from_numpy(
-            tokens(cfg, 1, 9))})
-        loss.backward()
-        assert all(p.grad is not None and torch.isfinite(p.grad).all()
-                   for p in pp.parameters())
-        assert pp.layers[0].moe["router"].grad.abs().sum() > 0
-
-    def test_prefill_then_per_slot_decode(self, model):
-        """The registry's prefill (rows of 21 tokens; mixtral's SMOKE
-        window is 16, so its cache of 16 is a ring the prompt wraps) and
-        9 decode steps with the rows at their own positions: logits against
-        the reference's prefill and decode_step and against the port's
-        no-cache forward (no group drops: SMOKE's capacity factor is 8);
-        the caches against the reference's."""
-        arch, cfg, rcfg, rp, pp = model
-        b, rb = build(cfg), R_registry.build(rcfg)
-        total, t0 = 32, 21
-        ring = lm.cache_len(cfg, total) < total
-        assert ring == (arch == "mixtral-8x22b")
-        tok = tokens(cfg, 2, 31, seed=5)
-        rcache = rb.init_cache(2, total)
-        pcache = b.init_cache(2, total, device="cpu")
-        rl, rcache = rb.prefill(rp, {"tokens": jnp.asarray(tok[:, :t0])},
-                                rcache)
-        with torch.no_grad(), moe.count_drops() as drops:
-            pl, pcache = b.prefill(pp, {"tokens": torch.from_numpy(
-                tok[:, :t0])}, pcache)
-            full = lm.logits_from_hidden(pp, cfg, lm.forward_hidden(
-                pp, cfg, torch.from_numpy(tok))[0])
-        assert sum(int(d) for d in drops) == 0
-        scaled_close(pl, rl)
-        scaled_close(pl[:, 0], full[:, t0 - 1])
-        # row 1 is given its token one step late (a per-row position)
-        for s in range(t0, 30):
-            pos = np.array([s, s])
-            rl, rcache = rb.decode(rp, jnp.asarray(tok[:, s:s + 1]), rcache,
-                                   jnp.asarray(pos, jnp.int32), total)
-            with torch.no_grad():
-                pl, pcache = b.decode(pp, torch.from_numpy(tok[:, s:s + 1]),
-                                      pcache, torch.from_numpy(pos), total)
-            scaled_close(pl, rl)
-            scaled_close(pl[:, 0], full[:, s])
-        close(pcache["k"], rcache["k"])
-        close(pcache["v"], rcache["v"])
-
-    def test_decode_rows_at_different_positions(self, model):
-        """Per-slot decode: rows at positions 5 and 21 of two different
-        prompts, each against the reference at the same positions."""
-        arch, cfg, rcfg, rp, pp = model
-        b, rb = build(cfg), R_registry.build(rcfg)
-        total = 28
-        rcache = rb.init_cache(2, total)
-        pcache = b.init_cache(2, total, device="cpu")
-        lens = (5, 21)
-        for row, n in enumerate(lens):
-            tok = tokens(cfg, 1, n, seed=10 + row)
-            sl = lambda c: jax.tree.map(lambda v: v[:, row:row + 1], c)
-            _, rc = rb.prefill(rp, {"tokens": jnp.asarray(tok)}, sl(rcache))
-            rcache = jax.tree.map(lambda f, s: f.at[:, row:row + 1].set(s),
-                                  rcache, rc)
-            with torch.no_grad():
-                b.prefill(pp, {"tokens": torch.from_numpy(tok)},
-                          {k: v[:, row:row + 1] for k, v in pcache.items()})
-        nxt = tokens(cfg, 2, 4, seed=12)
-        for i in range(4):
-            pos = np.array([lens[0] + i, lens[1] + i])
-            rl, rcache = rb.decode(rp, jnp.asarray(nxt[:, i:i + 1]), rcache,
-                                   jnp.asarray(pos, jnp.int32), total)
-            with torch.no_grad():
-                pl, pcache = b.decode(pp, torch.from_numpy(nxt[:, i:i + 1]),
-                                      pcache, torch.from_numpy(pos), total)
-            scaled_close(pl, rl)
-        close(pcache["k"], rcache["k"])
-
-
-# ---------------------------------------------------------------------------
-# serving and checkpoints
-# ---------------------------------------------------------------------------
-
-class TestServe:
-    @pytest.mark.parametrize("arch", ARCHS)
-    def test_greedy_tokens_match_reference_engine(self, arch):
-        """2 slots, 3 requests (a refilled slot), prompts past mixtral's
-        window of 16 on its ring cache."""
-        cfg, rcfg = smoke(arch)
-        rp = ref_tree(rcfg, seed=2)
-        pp = params_from_jax(rp, cfg, device="cpu")
-        prompts = [list(tokens(cfg, 1, n, seed=n)[0]) for n in (3, 19, 6)]
-        ref = R_ServeEngine(R_registry.build(rcfg), rp, batch_slots=2,
-                            max_len=40).run(
-            [R_Request(prompt=p, max_new_tokens=6, rid=i)
-             for i, p in enumerate(prompts)])
-        eng = ServeEngine(build(cfg), pp, batch_slots=2, max_len=40)
-        assert eng.state_keys == ()
-        got = eng.run([Request(prompt=p, max_new_tokens=6, rid=i)
-                       for i, p in enumerate(prompts)])
-        assert [r.output for r in got] == [r.output for r in ref]
-
-    @pytest.mark.parametrize("arch", ARCHS)
-    def test_launcher_on_cpu(self, arch, capsys):
-        outs = serve_cli.main(["--arch", arch, "--smoke", "--requests", "3",
-                               "--max-new", "4", "--max-len", "32",
-                               "--device", "cpu"])
-        assert len(outs) == 3 and all(len(r.output) == 4 for r in outs)
-        assert "tokens in" in capsys.readouterr().out
-
 
 class TestCheckpoint:
     @pytest.mark.parametrize("writer", ["port", "reference"])

@@ -37,16 +37,6 @@ REL = 1e-5
 NAMES = ("x", "dt", "proj", "a", "h0")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """These tests run many tiny ops, for which starting a thread pool
-    costs more than the op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def inputs(b, t, di, n, seed=0, dt_scale=0.1, extra=3):
     """x, dt, proj (B, T, extra + 2N: B and C are its last 2N columns), a,
     h0, dy, dh_final as float32 numpy."""

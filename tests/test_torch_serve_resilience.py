@@ -56,6 +56,14 @@ def _job_shapes(n):
     return [(8 - (i % 2), 8, 8 - (i % 3)) for i in range(n)]
 
 
+def _wait_until(cond, timeout_s=30.0):
+    """Poll ``cond`` until it is true; fail after ``timeout_s``."""
+    end = time.monotonic() + timeout_s
+    while not cond():
+        assert time.monotonic() < end, f"not reached in {timeout_s} s"
+        time.sleep(0.005)
+
+
 def _run_stream(svc, shapes, **submit_kw):
     tickets = [svc.submit(_rand(s, seed=100 + i), _CFG, rid=i, **submit_kw)
                for i, s in enumerate(shapes)]
@@ -208,13 +216,17 @@ class TestServeIsolation:
         assert svc.health()["status"] == "ok"
 
     def test_stop_force_abandons_with_classified_error(self):
+        # all six are queued before the worker starts, so none can finish
+        # before the stop; the first wave takes two and the stop comes
+        # while it sleeps, with four still queued
         chaos.install([chaos.Rule(seam="wave", action="slow", times=None,
-                                  delay_s=0.3)])
-        svc = _mask_service(breaker_cooldown_s=60.0)
-        svc.start()
+                                  delay_s=1.0)])
+        svc = _mask_service(breaker_cooldown_s=60.0, policy=BucketPolicy(
+            grid=8, pad_mode="mask", wave_slots=2))
         tickets = [svc.submit(_rand(s, seed=i), _CFG)
                    for i, s in enumerate(_job_shapes(6))]
-        time.sleep(0.05)
+        svc.start()
+        _wait_until(lambda: chaos.fired().get("wave:slow"))
         svc.stop(force=True, join_timeout=5.0)
         for t in tickets:
             assert t._job.event.wait(timeout=5.0)
@@ -228,7 +240,7 @@ class TestServeIsolation:
         svc.start()
         worker = svc._thread
         svc.submit(_rand((7, 8, 8)), _CFG)
-        time.sleep(0.3)          # let the worker enter the slow wave
+        _wait_until(lambda: chaos.fired().get("wave:slow"))
         with pytest.warns(RuntimeWarning, match="8x8x8"):
             svc.stop(drain=False, force=True, join_timeout=0.2)
         # the daemonic worker was abandoned mid-wave; reap it
@@ -264,7 +276,7 @@ class TestBreakerUnit:
         start = threading.Barrier(8)
 
         def hammer():
-            start.wait()
+            start.wait(timeout=30)
             for _ in range(200):
                 with lock:
                     br.on_result(False, 0.0)

@@ -418,3 +418,49 @@ def test_no_mesh_service_keeps_reject_as_its_default():
     with pytest.raises(RuntimeError, match="queue full"):
         svc.submit(np.ones((4, 4, 4), np.float32),
                    TuckerConfig(ranks=(2, 2, 2)))
+
+
+DEAD_WORKER = '''
+import time
+from repro_torch.core import ResourceError, TuckerConfig
+from repro_torch.serve import TuckerService
+
+CFG = TuckerConfig(ranks=(2, 2, 2), methods="eig")
+X = np.ones((8, 8, 8), np.float32)
+svc = TuckerService(mesh=mesh, device="cpu", max_queue=None,
+                    decision_timeout_s=1.0)
+if rank == world - 1:
+    def dead(msg):
+        raise RuntimeError("planted: this rank's worker dies")
+    svc._follow = dead
+svc.start()
+try:
+    svc.wait(svc.submit(X, CFG, rid=0), timeout=60)
+except ResourceError:
+    pass
+svc._thread.join(timeout=30)
+out["alive"] = svc._thread.is_alive()
+late = svc.submit(X, CFG, rid=1)
+t0 = time.monotonic()
+try:
+    svc.wait(late, timeout=20)
+    out["late"] = ("ok", "")
+except Exception as e:
+    out["late"] = (type(e).__name__, str(e))
+out["late_s"] = time.monotonic() - t0
+svc.close()
+'''
+
+
+def test_a_request_after_the_worker_died_fails_at_once(tmp_path):
+    """The follower's worker dies on rank 0's first decision, and rank 0's
+    two seconds later.  A request submitted on either rank after its worker
+    died fails at once with the dying worker's ResourceError: a dead worker
+    follows no decision and its peers may be gone.  (On the follower it used
+    to stay queued for good.)"""
+    outs = run_ranks(tmp_path, 2, DEAD_WORKER, timeout=90)
+    for o in outs:
+        assert not o["alive"]
+        kind, msg = o["late"]
+        assert kind == "ResourceError" and "worker died" in msg, o["late"]
+        assert o["late_s"] < 1.0, o["late_s"]

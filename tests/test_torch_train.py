@@ -42,16 +42,6 @@ SMOKE = configs.get_smoke("falcon-mamba-7b")
 R_SMOKE = R_configs.get_smoke("falcon-mamba-7b")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """These tests run many tiny ops, for which starting a thread pool
-    costs more than the op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def ref_params():
     return jax.tree.map(np.asarray,

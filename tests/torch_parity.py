@@ -147,7 +147,7 @@ def run_ranks(tmp_dir, world: int, body: str, *, timeout: float = 120.0,
         hung = [p for p in procs if p.poll() is None]
         for p in hung:
             p.kill()
-            p.wait()
+            p.wait(timeout=30)
     text = []
     for r, log in enumerate(logs):
         log.seek(0)
